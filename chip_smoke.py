@@ -16,15 +16,33 @@ Phases (each prints its own lines; any mismatch exits nonzero):
    codes must be equal; predictions equal bitwise (or within rtol 1e-12,
    with the reason printed).  Times the kernel and the plain version at
    S=65536 with CUDA events and prints the bound.
-4. serve: ``alert-anytime-120m`` at full width in bf16 with weights from a
-   seed-0 ``torch.Generator`` on the card, behind a ``FleetAlertServer``
-   (8 streams, batch 4, prompt 8, 4 new tokens) profiled on the card, for
-   4 ticks of Eq. 4 and Eq. 5 tenants with one retire/admit.  Checks
-   every live lane's result, the tokens, and that the kernel's launch
-   counter grew by one per tick; then holds the kernel to its plain
-   version on the server's own lane state.  Before that, the port's model
-   on the card is held to the same model on the CPU at a reduced size.
-5. the last lines: one JSON object per kernel, the ``nvidia-smi`` line,
+4. serve (``blocks`` nest backend): ``alert-anytime-120m`` at full width
+   in bf16 with weights from a seed-0 ``torch.Generator`` on the card,
+   behind a ``FleetAlertServer`` (8 streams, batch 4, prompt 8, 4 new
+   tokens) profiled on the card, for 4 ticks of Eq. 4 and Eq. 5 tenants
+   with one retire/admit.  Checks every live lane's result, the tokens,
+   that ``alert_select``'s launch counter grew by one per tick and that
+   ``nested_matmul`` never launched; then holds ``alert_select`` to its
+   plain version on the server's own lane state.  Before that, the port's
+   model on the card is held to the same model on the CPU at a reduced
+   size.
+5. ``nested_matmul`` kernel vs plain: the model's three projection
+   geometries (768x768, 768x3072, 3072x768, 4 pow2 levels) at every level,
+   M in {4, 32}, bf16 and float32, a level-prefix view of ``x`` and the
+   full ``w``, within ``NM_TOL``.  Times the d->d_ff geometry at level 4
+   (M=32 and M=4) and one level-4 forward's 84 projections: the kernel,
+   its plain version, the ``blocks`` backend and a dense matmul on the
+   block-masked weight (the library call) as device time (CUDA graph),
+   back to back, and the wrapper's host cost per call, beside the bound.
+6. the reduced float32 model with the ``kernel`` nest backend on the card
+   against the same model with ``blocks`` on the CPU, within 1e-4.
+7. serve (``kernel`` nest backend): phase 4 again with
+   ``nest_backend="kernel"``; ``nested_matmul`` must launch 84 times per
+   forward pass (7 projections x 12 layers; one forward per generated
+   token) and ``alert_select`` once per tick.  Then per-level
+   ``generate`` latency of both backends through the profiling harness
+   (``profile_anytime_measured(engine_level_fns(...))``), in turns.
+8. the last lines: one JSON object per kernel, the ``nvidia-smi`` line,
    and ``{"ok": true, "device": {...}}``.
 """
 
@@ -41,15 +59,24 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# NVIDIA H100 SXM data sheet: FP64 (non-tensor-core) 34 TFLOP/s, HBM3
-# 3.35 TB/s, both at the full 700 W power limit.  The kernel issues plain
-# FP64 instructions, not the FP64 tensor-core DMMA path.
+# NVIDIA H100 SXM data sheet: FP64 (non-tensor-core) 34 TFLOP/s, bf16
+# dense tensor cores 989 TFLOP/s, HBM3 3.35 TB/s, all at the full 700 W
+# power limit.  alert_select issues plain FP64 instructions, not the FP64
+# tensor-core DMMA path; nested_matmul's bound uses the bf16 rate.
 H100_FP64_FLOPS = 34e12
+H100_BF16_FLOPS = 989e12
 H100_HBM_BYTES_S = 3.35e12
 
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/alert_select.cu"
 KERNEL_REPLACES = "src/repro/kernels/alert_select.py:164"
+NM_SOURCE = "src/repro_torch/kernels/csrc/nested_matmul.cu"
+NM_REPLACES = "src/repro/kernels/nested_matmul.py:81"
 PRED_RTOL = 1e-12
+# nested_matmul vs its plain version: both accumulate in float32 in
+# different orders.  bf16: one bf16 ulp (rtol 2^-7) plus 2^-15 * max|plain|
+# for sums that cancel towards zero; float32 (TF32 off): rtol 1e-5 plus
+# 1e-5 * max|plain|.
+NM_TOL = {"bfloat16": (2.0 ** -7, 2.0 ** -15), "float32": (1e-5, 1e-5)}
 LEVEL_ACCURACIES = [0.62, 0.71, 0.78, 0.83]
 N_TICKS = 4
 
@@ -103,6 +130,51 @@ def host_ms(fn, reps: int = 20) -> float:
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def graph_ms(fn, calls: int = 48, rounds: int = 5) -> float:
+    """Per-call device time: ``calls`` calls captured in one CUDA graph,
+    replayed ``rounds`` times between CUDA events; the median over the
+    count.  No host work between the calls, so this is the card's time
+    for the work alone (what back-to-back eager calls cannot show when
+    the host is slower than the card)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def host_us_per_call(fn, calls: int = 200) -> float:
+    """Host time to issue one call, in microseconds: ``calls`` calls
+    without a sync in between (the card keeps up, so nothing waits on
+    it), then one sync outside the clock."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
 
 
 # --------------------------------------------------------------------- #
@@ -224,13 +296,232 @@ def time_select(ks, args, kw, s, k, l, device) -> dict:
 
 
 # --------------------------------------------------------------------- #
-# phase 4: serve                                                         #
+# phase 5: nested_matmul kernel vs plain                                 #
 # --------------------------------------------------------------------- #
-def model_cpu_vs_card(device) -> float:
-    """The reduced float32 model with the same weights on the CPU and on
-    the card: per-level prefill logits, and one KV-cached decode step
-    against the full forward, within 1e-4 (float32, TF32 off; the card
-    sums in another order)."""
+def projection_geometries(cfg):
+    """The three nested projection shapes of ``cfg``: (name, in spec, out
+    spec) for d->d (wq/wk/wv/wo), d->d_ff (w_gate/w_up), d_ff->d
+    (w_down)."""
+    from repro_torch.core.nesting import StripeSpec
+
+    d = StripeSpec.pow2(cfg.d_model, cfg.nest_levels)
+    f = StripeSpec.pow2(cfg.d_ff, cfg.nest_levels)
+    return [("d->d", d, d), ("d->d_ff", d, f), ("d_ff->d", f, d)]
+
+
+def nested_close(got, want, dtype_name: str) -> tuple[float, float]:
+    """(max abs error, worst error / tolerance) of the kernel's output
+    against the plain version's under ``NM_TOL``; raises past 1."""
+    import torch
+
+    rtol, atol_frac = NM_TOL[dtype_name]
+    g, w = got.float(), want.float()
+    if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+        raise SmokeFailure(f"nested_matmul {dtype_name}: shape {g.shape} "
+                           f"vs {w.shape} or non-finite output")
+    diff = (g - w).abs()
+    tol = rtol * w.abs() + atol_frac * float(w.abs().max())
+    return float(diff.max()), float((diff / tol).max())
+
+
+def nested_vs_plain(device, cfg) -> float:
+    """Phase 5 check: the kernel against its plain version on the card at
+    ``cfg``'s three projection geometries, every level, M in {4, 32}
+    (decode and prefill of batch 4, prompt 8), bf16 and float32, with a
+    level-prefix view of a full-width ``x`` and the full ``w``.  Returns
+    the largest absolute error."""
+    import torch
+
+    from repro_torch.kernels import nested_matmul as nm
+
+    ms = (4, 32)
+    gen = torch.Generator(device=device).manual_seed(0)
+    worst = 0.0
+    for name, si, so in projection_geometries(cfg):
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            w = (torch.randn(si.total, so.total, generator=gen, device=device)
+                 * si.total ** -0.5).to(dtype)
+            err, ratio = 0.0, 0.0
+            for m in ms:
+                x = torch.randn(m, si.total, generator=gen,
+                                device=device).to(dtype)
+                for level in range(1, so.levels + 1):
+                    xk = x[:, :si.width(min(level, si.levels))]
+                    got = nm.nested_matmul(xk, w, si, so, level)
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    want = nm.nested_matmul_plain(xk, w, si, so, level)
+                    e, r = nested_close(got, want, dt)
+                    if r > 1.0:
+                        raise SmokeFailure(
+                            f"nested_matmul {name} {dt} M={m} level "
+                            f"{level}: max abs err {e:.3e}, {r:.3f}x the "
+                            f"tolerance")
+                    err, ratio = max(err, e), max(ratio, r)
+            worst = max(worst, err)
+            say(f"  ok {name} {si.total}x{so.total} {dt}, levels "
+                f"1-{so.levels}, M in {list(ms)}: max abs err {err:.3e} "
+                f"({ratio:.3f} of the tolerance)")
+    return worst
+
+
+def time_nested(device, cfg, m: int) -> dict:
+    """Phase 5 timing of the d->d_ff geometry at the deepest level in
+    bf16 with ``m`` rows: the kernel, its plain version, the blocks
+    backend and one dense matmul on the block-masked weight (the library
+    call), each as graph-replayed device time over 12 weights in turn
+    (57 MB, more than the 50 MB L2 holds, as in a forward); the kernel
+    and the blocks backend also back to back with host work between
+    calls, and their host cost per call."""
+    import torch
+
+    from repro_torch.core.nesting import (block_triangular_mask,
+                                          nested_linear_blocks)
+    from repro_torch.kernels import nested_matmul as nm
+
+    _, si, so = projection_geometries(cfg)[1]
+    level = so.levels
+    n_weights = 12
+    gen = torch.Generator(device=device).manual_seed(1)
+    ws = [(torch.randn(si.total, so.total, generator=gen, device=device)
+           * si.total ** -0.5).to(torch.bfloat16) for _ in range(n_weights)]
+    mask = torch.as_tensor(block_triangular_mask(si, so), device=device,
+                           dtype=torch.bfloat16)
+    masked = [w * mask for w in ws]
+    x = torch.randn(m, si.total, generator=gen,
+                    device=device).to(torch.bfloat16)
+    n_cols = so.width(level)
+
+    def cycling(call):
+        state = {"i": 0}
+
+        def fn():
+            i = state["i"] = (state["i"] + 1) % n_weights
+            return call(i)
+        return fn
+
+    kern = cycling(lambda i: nm.nested_matmul(x, ws[i], si, so, level))
+    plain = cycling(lambda i: nm.nested_matmul_plain(x, ws[i], si, so,
+                                                     level))
+    blocks = cycling(lambda i: nested_linear_blocks(x, ws[i], si, so, level))
+    library = cycling(lambda i: torch.matmul(x, masked[i][:, :n_cols]))
+    out = {
+        "ms": graph_ms(kern), "plain_ms": graph_ms(plain),
+        "blocks_ms": graph_ms(blocks), "library_ms": graph_ms(library),
+        "eager_ms": cuda_ms(kern, launches=200),
+        "blocks_eager_ms": cuda_ms(blocks, launches=200),
+        "host_us_per_call": host_us_per_call(kern),
+        "blocks_host_us_per_call": host_us_per_call(blocks)}
+    cost = nm.nested_matmul_cost(m, si, so, level, torch.bfloat16)
+    t_ops = cost["flops"] / H100_BF16_FLOPS * 1e3
+    t_bytes = cost["bytes_accessed"] / H100_HBM_BYTES_S * 1e3
+    out.update(bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               flops=cost["flops"], bytes=cost["bytes_accessed"],
+               shape=f"M={m},K_in={si.total},N={so.total},level={level},"
+                     f"bf16")
+    say(f"  time d->d_ff M={m} level {level} bf16 (device time, CUDA "
+        f"graph): kernel {out['ms']:.6f} ms, plain {out['plain_ms']:.6f} "
+        f"ms, blocks {out['blocks_ms']:.6f} ms, library (dense matmul on "
+        f"the masked weight) {out['library_ms']:.6f} ms; bound "
+        f"{out['bound_ms']:.6f} ms by {out['bound_by']} "
+        f"({cost['flops']:.4g} flop at 989 TFLOP/s = {t_ops:.6f} ms, "
+        f"{cost['bytes_accessed']:.4g} B at 3.35 TB/s = {t_bytes:.6f} ms)")
+    say(f"    back to back (host work between calls): kernel "
+        f"{out['eager_ms']:.6f} ms, blocks {out['blocks_eager_ms']:.6f} ms; "
+        f"host cost per call: kernel wrapper "
+        f"{out['host_us_per_call']:.2f} us, blocks backend "
+        f"{out['blocks_host_us_per_call']:.2f} us")
+    return out
+
+
+def time_forward_projections(device, cfg, m: int) -> dict:
+    """The 7 * n_layers nested projections of one deepest-level forward
+    with ``m`` rows (84 for alert-anytime-120m), in bf16 over per-layer
+    random weights: kernel, blocks backend, plain version and dense
+    masked matmuls, as device time (CUDA graph) and the kernel and blocks
+    back to back; plus the bound of the whole set."""
+    import torch
+
+    from repro_torch.core.nesting import (block_triangular_mask,
+                                          nested_linear_blocks)
+    from repro_torch.kernels import nested_matmul as nm
+
+    geo = projection_geometries(cfg)
+    gen = torch.Generator(device=device).manual_seed(2)
+    # per layer: wq, wk, wv, wo (d->d), w_gate, w_up (d->d_ff), w_down
+    plan = [0, 0, 0, 0, 1, 1, 2]
+    layers = []
+    for _ in range(cfg.n_layers):
+        layers.append([(torch.randn(geo[g][1].total, geo[g][2].total,
+                                    generator=gen, device=device)
+                        * geo[g][1].total ** -0.5).to(torch.bfloat16)
+                       for g in plan])
+    masks = [torch.as_tensor(block_triangular_mask(si, so), device=device,
+                             dtype=torch.bfloat16) for _, si, so in geo]
+    masked = [[w * masks[g] for w, g in zip(ws, plan)] for ws in layers]
+    xs = [torch.randn(m, geo[g][1].total, generator=gen,
+                      device=device).to(torch.bfloat16) for g in range(3)]
+    level = cfg.nest_levels
+
+    def run(call):
+        def fn():
+            for ws, mws in zip(layers, masked):
+                for j, g in enumerate(plan):
+                    call(xs[g], ws[j], mws[j], geo[g][1], geo[g][2])
+        return fn
+
+    kern = run(lambda x, w, mw, si, so: nm.nested_matmul(x, w, si, so,
+                                                         level))
+    blocks = run(lambda x, w, mw, si, so: nested_linear_blocks(x, w, si, so,
+                                                               level))
+    plain = run(lambda x, w, mw, si, so: nm.nested_matmul_plain(x, w, si,
+                                                                so, level))
+    library = run(lambda x, w, mw, si, so: torch.matmul(x, mw))
+    before = nm.nested_matmul.launches
+    kern()
+    n_launch = nm.nested_matmul.launches - before
+    out = {"launches": n_launch,
+           "ms": graph_ms(kern, calls=4), "plain_ms": graph_ms(plain,
+                                                                calls=4),
+           "blocks_ms": graph_ms(blocks, calls=4),
+           "library_ms": graph_ms(library, calls=4),
+           "eager_ms": cuda_ms(kern, launches=5),
+           "blocks_eager_ms": cuda_ms(blocks, launches=5)}
+    flops = bytes_ = 0.0
+    for g in plan:
+        c = nm.nested_matmul_cost(m, geo[g][1], geo[g][2], level,
+                                  torch.bfloat16)
+        flops += c["flops"] * cfg.n_layers
+        bytes_ += c["bytes_accessed"] * cfg.n_layers
+    t_ops = flops / H100_BF16_FLOPS * 1e3
+    t_bytes = bytes_ / H100_HBM_BYTES_S * 1e3
+    out.update(bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               flops=flops, bytes=bytes_)
+    say(f"  one level-{level} forward's {n_launch} projections, M={m}, "
+        f"bf16 (device time, CUDA graph): kernel {out['ms']:.6f} ms, "
+        f"plain {out['plain_ms']:.6f} ms, blocks {out['blocks_ms']:.6f} ms, "
+        f"library {out['library_ms']:.6f} ms; bound {out['bound_ms']:.6f} "
+        f"ms by {out['bound_by']} ({flops:.4g} flop, {bytes_:.4g} B); back "
+        f"to back: kernel {out['eager_ms']:.6f} ms, blocks "
+        f"{out['blocks_eager_ms']:.6f} ms")
+    if n_launch != 7 * cfg.n_layers:
+        raise SmokeFailure(f"a forward's projections launched {n_launch} "
+                           f"kernels, expected {7 * cfg.n_layers}")
+    return out
+
+
+# --------------------------------------------------------------------- #
+# phases 4, 6 and 7: the model and the server                            #
+# --------------------------------------------------------------------- #
+def model_cpu_vs_card(device, backend: str = "blocks") -> float:
+    """The reduced float32 model with the same weights on the CPU (nest
+    backend ``blocks``) and on the card (nest backend ``backend``):
+    per-level prefill logits, and one KV-cached decode step against the
+    full forward, within 1e-4 (float32, TF32 off; the card sums in
+    another order)."""
     import numpy as np
     import torch
 
@@ -240,6 +531,7 @@ def model_cpu_vs_card(device) -> float:
     from repro_torch.models.registry import build_model
 
     cfg = reduced().replace(dtype="float32")
+    card_cfg = cfg.replace(nest_backend=backend)
     cpu = torch.device("cpu")
     params = tfm.init_lm(cfg, torch.Generator().manual_seed(0), device=cpu)
     on_card = {k: v.to(device) for k, v in params.items() if k != "layers"}
@@ -252,27 +544,28 @@ def model_cpu_vs_card(device) -> float:
         for level in range(1, cfg.nest_levels + 1):
             a = tfm.lm_apply(params, cfg, torch.as_tensor(toks[:, :8]),
                              level=level).logits
-            b = tfm.lm_apply(on_card, cfg,
+            b = tfm.lm_apply(on_card, card_cfg,
                              torch.as_tensor(toks[:, :8], device=device),
                              level=level).logits.cpu()
             worst = max(worst, float((a - b).abs().max()))
             if not torch.allclose(a, b, rtol=1e-4, atol=1e-4):
                 raise SmokeFailure(f"level {level}: card logits differ from "
                                    f"CPU by {float((a - b).abs().max())}")
-            eng = ServeEngine(build_model(cfg), max_len=12, batch_size=2,
-                              device=device)
+            eng = ServeEngine(build_model(card_cfg), max_len=12,
+                              batch_size=2, device=device)
             t = torch.as_tensor(toks, device=device)
-            full = tfm.lm_apply(on_card, cfg, t, level=level).logits[:, 8]
-            pre = tfm.lm_apply(on_card, cfg, t[:, :8], level=level)
+            full = tfm.lm_apply(on_card, card_cfg, t,
+                                level=level).logits[:, 8]
+            pre = tfm.lm_apply(on_card, card_cfg, t[:, :8], level=level)
             caches = eng._merge(eng.init_caches(level), pre.caches)
-            step = tfm.lm_apply(on_card, cfg, t[:, 8:9], mode="decode",
+            step = tfm.lm_apply(on_card, card_cfg, t[:, 8:9], mode="decode",
                                 caches=caches, cache_len=8,
                                 level=level).logits[:, 0]
             if not torch.allclose(step, full, rtol=1e-4, atol=1e-4):
                 raise SmokeFailure(f"level {level}: decode step differs from "
                                    f"the full forward")
-    say(f"  reduced model, card vs CPU and decode vs forward: ok "
-        f"(max abs logit diff {worst:.3e})")
+    say(f"  reduced model, card ({backend}) vs CPU (blocks) and decode vs "
+        f"forward: ok (max abs logit diff {worst:.3e})")
     return worst
 
 
@@ -297,12 +590,18 @@ def tenants(table):
 
 def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
           gen_tokens=4, expect_kernel=True) -> dict:
-    """Phase 4: the fleet server over ``cfg`` on ``device``."""
+    """Phases 4 and 7: the fleet server over ``cfg`` on ``device``.  Both
+    launch counters start at 0 here and are read after the last tick.
+    With ``expect_kernel`` the scoring kernel must launch once per tick,
+    and with ``cfg.nest_backend == "kernel"`` on the card
+    ``nested_matmul`` must launch 7 * n_layers times per forward pass (one
+    per generated token); otherwise it must not launch at all."""
     import numpy as np
     import torch
 
     from repro_torch.core.controller import Goal
     from repro_torch.kernels import alert_select as ks
+    from repro_torch.kernels import nested_matmul as nm
     from repro_torch.models.registry import build_model
     from repro_torch.models.transformer import init_lm
     from repro_torch.serving.alert_server import FleetAlertServer
@@ -322,6 +621,9 @@ def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
                          batch_size=batch_size, device=device)
 
     ks.alert_select.launches = 0           # main path starts here
+    nm.nested_matmul.launches = 0
+    per_forward = 7 * cfg.n_layers if (cfg.nest_backend == "kernel"
+                                       and device.type == "cuda") else 0
     t0 = time.perf_counter()
     srv = FleetAlertServer(engine, params,
                            level_accuracies=LEVEL_ACCURACIES[
@@ -348,6 +650,7 @@ def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
     engine.generate = recording_generate
     rng = np.random.default_rng(0)
     counts = []
+    tick_s = []
     for tick in range(N_TICKS):
         if tick == 2:
             srv.retire(5)
@@ -356,10 +659,18 @@ def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
         prompts = [rng.integers(0, cfg.vocab, (batch_size, prompt_len))
                    .astype(np.int32) for _ in range(srv.n_streams)]
         n_tok = len(tokens_seen)
+        nm_before = nm.nested_matmul.launches
         t1 = time.perf_counter()
         outs = srv.serve_tick(prompts)
         dt = time.perf_counter() - t1
+        tick_s.append(dt)
         counts.append(ks.alert_select.launches)
+        forwards = sum(t.shape[1] for t in tokens_seen[n_tok:])
+        nm_tick = nm.nested_matmul.launches - nm_before
+        if nm_tick != per_forward * forwards:
+            raise SmokeFailure(f"tick {tick}: nested_matmul launched "
+                               f"{nm_tick} times for {forwards} forward "
+                               f"passes, expected {per_forward} each")
         live = np.nonzero(srv.active)[0]
         for s in live:
             o = outs[s]
@@ -380,13 +691,45 @@ def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
                        for s in range(srv.n_streams))
             + ", missed " + " ".join(str(int(outs[s].missed)) if outs[s]
                                      else "-" for s in range(srv.n_streams))
-            + f", alert_select launches {ks.alert_select.launches}")
+            + f", alert_select launches {ks.alert_select.launches}, "
+              f"nested_matmul launches {nm_tick} for {forwards} forwards")
     launches = ks.alert_select.launches   # main path ends here
+    nm_launches = nm.nested_matmul.launches
     if expect_kernel and counts != list(range(1, N_TICKS + 1)):
         raise SmokeFailure(f"alert_select launch counts per tick {counts}, "
                            f"expected one launch per tick")
-    say(f"  served {N_TICKS} ticks; alert_select launches {launches}")
-    return {"server": srv, "launches": launches}
+    say(f"  served {N_TICKS} ticks ({cfg.nest_backend} nest backend); "
+        f"alert_select launches {launches}, nested_matmul launches "
+        f"{nm_launches} (profiling included)")
+    return {"server": srv, "engine": engine, "params": params,
+            "launches": launches, "nm_launches": nm_launches,
+            "tick_s": tick_s}
+
+
+def harness_latencies(engines, params) -> dict:
+    """Per-level ``generate`` latency of each engine in ``engines`` (name
+    -> ServeEngine over the same ``params``) through the profiling
+    harness, ``profile_anytime_measured(engine_level_fns(...))``, in
+    turns A, B, B, A; returns name -> list of per-turn level latencies
+    (seconds, full-power column)."""
+    from repro_torch.core.power import PowerModel
+    from repro_torch.profiling import (engine_level_fns,
+                                       profile_anytime_measured)
+
+    names = list(engines)
+    out = {n: [] for n in names}
+    for n in names + names[::-1]:
+        eng = engines[n]
+        table = profile_anytime_measured(
+            engine_level_fns(eng, params), LEVEL_ACCURACIES[
+                :eng.model.cfg.nest_levels], PowerModel(),
+            n_power_buckets=4, warmup=1, iters=3,
+            sync=None if eng.device.type == "cuda" else (lambda v: v))
+        lat = [float(x) for x in table.latency[:, -1]]
+        out[n].append(lat)
+        say(f"  harness, {n} backend: per-level generate latency (s) "
+            + ", ".join(f"L{i + 1}={x:.6f}" for i, x in enumerate(lat)))
+    return out
 
 
 def main_path_inputs(srv):
@@ -430,6 +773,8 @@ def main() -> int:
     from repro_torch.configs.alert_anytime import CONFIG
     from repro_torch.kernels import alert_select as ks
     from repro_torch.kernels.build import build
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import ServeEngine
 
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -444,7 +789,7 @@ def main() -> int:
     say(f"  nvidia-smi: {smi}")
 
     say("== phase 2: build")
-    built = build(["alert_select"])
+    built = build(["alert_select", "nested_matmul"])
     for name, b in built.items():
         say(f"  {name}: {'reused' if b.reused else 'built'} in "
             f"{b.seconds:.3f} s -> {b.path.name}")
@@ -455,7 +800,7 @@ def main() -> int:
     say("== phase 3: alert_select kernel vs plain version on the card")
     err, timing = kernel_vs_plain(device)
 
-    say("== phase 4: serve")
+    say("== phase 4: serve (blocks nest backend)")
     err_model = model_cpu_vs_card(device)
     run = serve(device, CONFIG)
     args, kw = main_path_inputs(run["server"])
@@ -481,6 +826,26 @@ def main() -> int:
         f"one BatchedAlertEngine.select call (host wall, results on the "
         f"host) {select_ms:.6f} ms")
     say(f"  reduced-model max abs logit diff {err_model:.3e}")
+
+    say("== phase 5: nested_matmul kernel vs plain version on the card")
+    nm_err = nested_vs_plain(device, CONFIG)
+    nm_time = {m: time_nested(device, CONFIG, m) for m in (32, 4)}
+    fwd = {m: time_forward_projections(device, CONFIG, m) for m in (32, 4)}
+
+    say("== phase 6: reduced model, kernel nest backend")
+    err_model_k = model_cpu_vs_card(device, backend="kernel")
+
+    say("== phase 7: serve (kernel nest backend)")
+    run_k = serve(device, CONFIG.replace(nest_backend="kernel"))
+    blocks_engine = ServeEngine(build_model(CONFIG),
+                                max_len=run_k["engine"].max_len,
+                                batch_size=run_k["engine"].batch_size,
+                                device=device)
+    harness = harness_latencies({"blocks": blocks_engine,
+                                 "kernel": run_k["engine"]},
+                                run_k["params"])
+    say(f"  tick times (s): blocks {[round(t, 4) for t in run['tick_s']]}, "
+        f"kernel {[round(t, 4) for t in run_k['tick_s']]}")
     say(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{
@@ -493,6 +858,26 @@ def main() -> int:
             f"S={s_mp},K={k_mp},L={l_mp}",
         "main_path_ms": mp_ms, "main_path_plain_ms": mp_plain,
         "main_path_bound_ms": mp_bound, "main_path_select_ms": select_ms}]
+    t32 = nm_time[32]
+    kernels.append({
+        "name": "nested_matmul", "route": "cuda", "source": NM_SOURCE,
+        "replaces": NM_REPLACES, "launches": run_k["nm_launches"],
+        "max_abs_err": nm_err, "ms": t32["ms"], "plain_ms": t32["plain_ms"],
+        "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
+        "library_ms": t32["library_ms"], "shape": t32["shape"],
+        "blocks_ms": t32["blocks_ms"], "eager_ms": t32["eager_ms"],
+        "host_us_per_call": t32["host_us_per_call"],
+        "blocks_host_us_per_call": t32["blocks_host_us_per_call"],
+        "decode_m4": {k: nm_time[4][k] for k in (
+            "shape", "ms", "plain_ms", "blocks_ms", "library_ms",
+            "bound_ms", "bound_by", "eager_ms", "host_us_per_call")},
+        "forward": {f"M={m}": {k: fwd[m][k] for k in (
+            "launches", "ms", "plain_ms", "blocks_ms", "library_ms",
+            "bound_ms", "bound_by", "eager_ms", "blocks_eager_ms")}
+            for m in fwd},
+        "reduced_model_max_abs_diff": err_model_k,
+        "tick_s": {"blocks": run["tick_s"], "kernel": run_k["tick_s"]},
+        "generate_s_by_level": harness})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

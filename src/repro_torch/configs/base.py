@@ -22,7 +22,7 @@ class ModelConfig:
     dtype: str = "bfloat16"
     norm_eps: float = 1e-6
     attn_chunk: int = 1024               # query chunk of prefill attention
-    nest_backend: str = "blocks"         # blocks | masked
+    nest_backend: str = "blocks"         # blocks | masked | kernel
 
     def __post_init__(self):
         if self.nest_levels < 2:

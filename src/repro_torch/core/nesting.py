@@ -9,7 +9,8 @@ prefix, so normalisation never lets an early stripe see a later one.
 
 Matrices keep the reference's ``[in, out]`` layout and are applied as
 ``x @ W``.  The ``blocks`` backend multiplies only the live blocks; the
-``masked`` backend is the dense oracle with the dropped blocks zeroed.
+``masked`` backend is the dense oracle with the dropped blocks zeroed;
+the ``kernel`` backend runs the hand-written ``nested_matmul`` kernel.
 """
 
 from __future__ import annotations
@@ -157,8 +158,11 @@ def nested_linear_blocks(x: torch.Tensor, w: torch.Tensor,
 def nested_linear(x: torch.Tensor, w: torch.Tensor, in_spec: StripeSpec,
                   out_spec: StripeSpec, level: int | None = None,
                   backend: str = "blocks") -> torch.Tensor:
-    """Block-triangular nested matmul: ``backend`` ``"blocks"`` or
-    ``"masked"`` (same nesting semantics; ``level`` truncates)."""
+    """Block-triangular nested matmul: ``backend`` ``"blocks"``,
+    ``"masked"`` or ``"kernel"`` (same nesting semantics; ``level``
+    truncates).  ``"kernel"`` flattens the leading dims of ``x`` and runs
+    :func:`repro_torch.kernels.nested_matmul.nested_matmul` (the CUDA
+    kernel on the card, its plain version on the CPU)."""
     if backend == "blocks":
         return nested_linear_blocks(x, w, in_spec, out_spec, level)
     if backend == "masked":
@@ -166,6 +170,12 @@ def nested_linear(x: torch.Tensor, w: torch.Tensor, in_spec: StripeSpec,
         if level is not None:
             y = y[..., :out_spec.width(level)]
         return y
+    if backend == "kernel":
+        from repro_torch.kernels.nested_matmul import nested_matmul
+
+        y = nested_matmul(x.reshape(-1, x.shape[-1]), w, in_spec, out_spec,
+                          level)
+        return y.reshape(*x.shape[:-1], y.shape[-1])
     raise ValueError(f"unknown backend {backend!r}")
 
 

@@ -7,8 +7,9 @@ the per-level accuracy staircase (Eq. 10).  The table is small host data
 (numpy); the scoring engine copies what it needs to the device once.
 
 Measured timing: CUDA work is asynchronous, so :func:`measure_mean_latency`
-syncs on every call inside the timed region (``torch.cuda.synchronize`` by
-default); both clock and sync are injectable for deterministic tests.
+syncs on every call inside the timed region (:func:`default_sync`: a
+handle's ``block_until_ready()``, else ``torch.cuda.synchronize``); both
+clock and sync are injectable for deterministic tests.
 """
 
 from __future__ import annotations
@@ -123,9 +124,15 @@ def synthetic_table(seed: int, n_single: int = 8, n_levels: int = 4,
 
 
 def default_sync(value):
-    """Default measurement sync: wait for all queued CUDA work.  ``value``
-    is the callable's return and is not inspected (CPU callers inject
-    their own sync)."""
+    """Default measurement sync.  A ``value`` with ``block_until_ready()``
+    (an asynchronous handle, such as the fakes of
+    :mod:`repro_torch.profiling.clock`) is blocked on; for any other value
+    it waits for all queued CUDA work, and raises where CUDA is missing
+    (CPU callers inject their own sync)."""
+    ready = getattr(value, "block_until_ready", None)
+    if callable(ready):
+        ready()
+        return value
     import torch
 
     torch.cuda.synchronize()
@@ -155,3 +162,44 @@ def measure_mean_latency(fns: Sequence[Callable[[], object]],
             sync(fn())
         base[i] = (clock() - t0) / iters
     return base
+
+
+def extrapolate_power_buckets(base: np.ndarray, power_model: PowerModel,
+                              n_power_buckets: int,
+                              ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Spread full-clock latencies over power buckets with the 1/f rule
+    (compute-bound; the cap cannot be actuated here), drawing each
+    bucket's power from the DVFS model.  Returns ``(caps [L], lat [K, L],
+    run_power [K, L])``."""
+    base = np.asarray(base, dtype=np.float64)
+    caps = power_model.buckets(n_power_buckets)
+    lat = np.zeros((len(base), len(caps)))
+    pw = np.zeros_like(lat)
+    for j, cap in enumerate(caps):
+        f = power_model.speed_fraction(cap)
+        lat[:, j] = base / f
+        pw[:, j] = power_model.power_at_fraction(f)
+    return caps, lat, pw
+
+
+def profile_measured(fns: Sequence[Callable[[], object]],
+                     names: Sequence[str],
+                     accuracies: Sequence[float],
+                     power_model: PowerModel,
+                     n_power_buckets: int = 4,
+                     warmup: int = 2,
+                     iters: int = 5,
+                     q_fail: float = 0.0,
+                     clock: Callable[[], float] | None = None,
+                     sync: Callable[[object], object] | None = None,
+                     ) -> ProfileTable:
+    """A table of traditional candidates from the measured mean latency of
+    real callables (:func:`measure_mean_latency`, synced), power buckets
+    extrapolated with :func:`extrapolate_power_buckets`."""
+    base = measure_mean_latency(fns, warmup=warmup, iters=iters,
+                                clock=clock, sync=sync)
+    caps, lat, pw = extrapolate_power_buckets(base, power_model,
+                                              n_power_buckets)
+    cands = [Candidate(name=n, flops=0.0, bytes_hbm=0.0, accuracy=a)
+             for n, a in zip(names, accuracies)]
+    return ProfileTable(cands, caps, lat, pw, q_fail=q_fail)

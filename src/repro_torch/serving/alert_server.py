@@ -28,7 +28,8 @@ from repro_torch.core.controller import AlertController, Constraints, Goal
 from repro_torch.core.kalman import (IdlePowerFilterBank, SlowdownFilterBank,
                                      observe_fleet)
 from repro_torch.core.power import PowerModel
-from repro_torch.core.profiles import Candidate, ProfileTable
+from repro_torch.core.profiles import (Candidate, ProfileTable,
+                                      extrapolate_power_buckets)
 from repro_torch.serving.engine import ServeEngine
 
 
@@ -69,13 +70,8 @@ def profile_serve_table(engine: ServeEngine, params,
             ts.append(r["latency"])
         base[li] = float(np.mean(ts))
 
-    caps = power_model.buckets(n_power_buckets)
-    lat = np.zeros((len(levels), len(caps)))
-    pw = np.zeros_like(lat)
-    for j, cap in enumerate(caps):
-        f = power_model.speed_fraction(cap)
-        lat[:, j] = base / f
-        pw[:, j] = power_model.power_at_fraction(f)
+    caps, lat, pw = extrapolate_power_buckets(base, power_model,
+                                              n_power_buckets)
     cands = [
         Candidate(name=f"level{lvl}", flops=0.0, bytes_hbm=0.0,
                   accuracy=level_accuracies[li], is_anytime_level=True,

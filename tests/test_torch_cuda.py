@@ -100,3 +100,101 @@ def test_model_on_card_matches_cpu(cuda_device):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     assert model_cpu_vs_card(cuda_device) < 1e-4
+
+
+# --------------------------------------------------------------------- #
+# nested_matmul                                                          #
+# --------------------------------------------------------------------- #
+def _full_width_geometries():
+    from chip_smoke import projection_geometries
+    from repro_torch.configs.alert_anytime import CONFIG
+
+    return projection_geometries(CONFIG)
+
+
+@pytest.mark.parametrize("geometry", [0, 1, 2],
+                         ids=["d->d", "d->d_ff", "d_ff->d"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_nested_matmul_matches_plain(cuda_device, geometry, dtype):
+    """Every level, M in {4, 32}, a level-prefix view of x and the full w,
+    within chip_smoke.NM_TOL (float32 with TF32 off)."""
+    from chip_smoke import nested_close
+
+    from repro_torch.kernels import nested_matmul as nm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, si, so = _full_width_geometries()[geometry]
+    gen = torch.Generator(device=cuda_device).manual_seed(geometry)
+    w = torch.randn(si.total, so.total, generator=gen,
+                    device=cuda_device).to(getattr(torch, dtype))
+    for m in (4, 32, 37):
+        x = torch.randn(m, si.total, generator=gen,
+                        device=cuda_device).to(w.dtype)
+        for level in range(1, so.levels + 1):
+            xk = x[:, :si.width(min(level, si.levels))]
+            got = nm.nested_matmul(xk, w, si, so, level)
+            torch.cuda.synchronize()
+            assert got.shape == (m, so.width(level)) and got.dtype == w.dtype
+            _, ratio = nested_close(got, nm.nested_matmul_plain(
+                xk, w, si, so, level), dtype)
+            assert ratio <= 1.0, (m, level, ratio)
+
+
+def test_nested_matmul_reads_weight_through_stride(cuda_device):
+    """A column slice of a wider weight is read in place: equal to the
+    kernel on a contiguous copy, and the call allocates only its output."""
+    from repro_torch.kernels import nested_matmul as nm
+
+    _, si, so = _full_width_geometries()[0]
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    wide = torch.randn(si.total, so.total + 64, generator=gen,
+                       device=cuda_device).to(torch.bfloat16)
+    w = wide[:, :so.total]
+    assert not w.is_contiguous()
+    x = torch.randn(32, si.total, generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    want = nm.nested_matmul(x, w.contiguous(), si, so, 3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    got = nm.nested_matmul(x, w, si, so, 3)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda_device) - base
+    assert torch.equal(got, want)
+    assert peak <= got.numel() * got.element_size() + 4096
+
+
+def test_nested_matmul_counts_launches_and_rejects(cuda_device):
+    from repro_torch.kernels import nested_matmul as nm
+
+    si, so = _full_width_geometries()[1][1:]
+    x = torch.randn(4, si.total, device=cuda_device)
+    w = torch.randn(si.total, so.total, device=cuda_device)
+    before = nm.nested_matmul.launches
+    nm.nested_matmul(x, w, si, so)
+    nm.nested_matmul(x, w, si, so, 2)
+    assert nm.nested_matmul.launches == before + 2
+    bad = [
+        (x, w.cpu()),                                 # mixed devices
+        (x.half(), w.half()),                         # unsupported dtype
+        (x.bfloat16(), w),                            # mismatched dtypes
+        (x[:, :96], w),                               # x narrower than L4
+        (x, w.t().contiguous().t()),                  # column-strided w
+        (x[None], w),                                 # not 2-D
+    ]
+    for xb, wb in bad:
+        with pytest.raises(ValueError, match="nested_matmul: needs"):
+            nm.nested_matmul(xb, wb, si, so)
+    assert nm.nested_matmul.launches == before + 2
+
+
+def test_kernel_backend_model_on_card_matches_cpu(cuda_device):
+    """The reduced float32 model with the kernel nest backend on the card
+    within 1e-4 of the blocks backend on the CPU."""
+    from chip_smoke import model_cpu_vs_card
+    from repro_torch.kernels import nested_matmul as nm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = nm.nested_matmul.launches
+    assert model_cpu_vs_card(cuda_device, backend="kernel") < 1e-4
+    assert nm.nested_matmul.launches > before

@@ -5,6 +5,11 @@ initialised by the reference and carried over with ``params_from_jax``.
 Tolerance: float32 in both frameworks, but matrix products, cumulative
 sums and softmax reduce in different orders, so logits agree to about
 1e-6; the tests hold them to rtol = atol = 1e-5.
+
+The logits and generate tests run the port with each of its
+``nest_backend`` values ``blocks`` and ``kernel`` (on the CPU the kernel
+backend runs ``nested_matmul``'s plain version) against the reference in
+``blocks``; the ``blocks`` cases keep their ids ``[level]``.
 """
 
 import jax
@@ -25,6 +30,10 @@ from repro_torch.serving.engine import ServeEngine as TServeEngine
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 PROMPT_LEN, N_DECODE, BATCH = 6, 4, 2
+LEVEL_BACKENDS = [
+    pytest.param(level, backend,
+                 id=str(level) if backend == "blocks" else f"{backend}-{level}")
+    for backend in ("blocks", "kernel") for level in (1, 2, 3)]
 
 
 @pytest.fixture(scope="module")
@@ -56,9 +65,10 @@ def test_configs_and_converted_shapes(models):
     assert n == j_cfg.param_count()
 
 
-@pytest.mark.parametrize("level", [1, 2, 3])
-def test_prefill_and_decode_logits_match(models, level):
+@pytest.mark.parametrize("level,backend", LEVEL_BACKENDS)
+def test_prefill_and_decode_logits_match(models, level, backend):
     j_cfg, t_cfg, j_params, t_params = models
+    t_cfg = t_cfg.replace(nest_backend=backend)
     rng = np.random.default_rng(level)
     prompt = rng.integers(0, t_cfg.vocab, (BATCH, PROMPT_LEN)).astype(
         np.int32)
@@ -98,9 +108,10 @@ def test_prefill_and_decode_logits_match(models, level):
                                    np.asarray(j_o.logits), **TOL)
 
 
-@pytest.mark.parametrize("level", [1, 2, 3])
-def test_generate_tokens_equal(models, level):
+@pytest.mark.parametrize("level,backend", LEVEL_BACKENDS)
+def test_generate_tokens_equal(models, level, backend):
     j_cfg, t_cfg, j_params, t_params = models
+    t_cfg = t_cfg.replace(nest_backend=backend)
     prompt = np.random.default_rng(10 + level).integers(
         0, t_cfg.vocab, (BATCH, PROMPT_LEN)).astype(np.int32)
     j_eng = JServeEngine(j_build(j_cfg), max_len=16, batch_size=BATCH)
