@@ -17,7 +17,8 @@ Phases (each prints its own lines; any mismatch exits nonzero):
    with the reason printed).  Times the kernel and the plain version at
    S=65536 with CUDA events and prints the bound.
 4. serve (``blocks`` nest backend): ``alert-anytime-120m`` at full width
-   in bf16 with weights from a seed-0 ``torch.Generator`` on the card,
+   and ``SERVE_DEPTH`` = 4 of its 12 layers in bf16 with weights from a
+   seed-0 ``torch.Generator`` on the card,
    behind a ``FleetAlertServer`` (8 streams, batch 4, prompt 8, 4 new
    tokens) profiled on the card, for 4 ticks of Eq. 4 and Eq. 5 tenants
    with one retire/admit.  Checks every live lane's result, the tokens,
@@ -37,13 +38,36 @@ Phases (each prints its own lines; any mismatch exits nonzero):
 6. the reduced float32 model with the ``kernel`` nest backend on the card
    against the same model with ``blocks`` on the CPU, within 1e-4.
 7. serve (``kernel`` nest backend): phase 4 again with
-   ``nest_backend="kernel"``; ``nested_matmul`` must launch 84 times per
-   forward pass (7 projections x 12 layers; one forward per generated
-   token) and ``alert_select`` once per tick.  Then per-level
-   ``generate`` latency of both backends through the profiling harness
-   (``profile_anytime_measured(engine_level_fns(...))``), in turns.
-8. the last lines: one JSON object per kernel, the ``nvidia-smi`` line,
-   and ``{"ok": true, "device": {...}}``.
+   ``nest_backend="kernel"``; ``nested_matmul`` must launch 28 times per
+   forward pass (7 projections x 4 layers; one forward per generated
+   token) and ``alert_select`` once per tick.
+8. ``flash_attention`` and ``decode_attention`` kernel vs plain, bf16 and
+   float32, within ``ATT_TOL``: (a) the served shapes (prefill B=4,
+   S=T=8, h=kv in {1, 2, 4, 8}, hd=96; decode over the 12-slot cache at
+   cache_len 9-12, by value and per row); (b) the model at a 2048-token
+   prompt (prefill B=4, S=T=2048, h=kv=8, causal; decode B=4 over a 2048
+   cache with ragged per-row lengths); (c) gemma3-1b's attention geometry
+   (h=4, kv=1, hd=256: prefill B=1, S=T=4096, causal with window 512, and
+   once more with softcap 50; decode B=4 over a 32768 cache, global and
+   with window 512).  Times (b) and (c) in bf16 with CUDA events over
+   input sets rotated beyond the 50 MB L2: kernel, plain version and
+   ``scaled_dot_product_attention`` (the library yardstick, which the port
+   never calls), beside the bound; and the served shapes as device time.
+9. the reduced float32 model with the ``kernel`` nest backend and
+   ``attn_backend="kernel"`` on the card against the same model with
+   ``blocks``/``ref`` on the CPU, within 1e-4 (head_dim 8).
+10. serve with every kernel on the path: phase 4 again at the full 12
+    layers with both kernel backends; ``alert_select`` once per tick,
+    ``nested_matmul`` 84 times
+    per forward, ``flash_attention`` 12 times per prefill forward and
+    ``decode_attention`` 12 times per decode forward.  Then per-level
+    ``generate`` latency of the blocks, kernel-nest and all-kernel engines
+    at full depth through the profiling harness
+    (``profile_anytime_measured(engine_level_fns(...))``), in turns.
+11. the last lines: one JSON object per kernel, the ``nvidia-smi`` line,
+    and ``{"ok": true, "device": {...}}``.
+
+Each phase prints its seconds.
 """
 
 from __future__ import annotations
@@ -71,14 +95,33 @@ KERNEL_SOURCE = "src/repro_torch/kernels/csrc/alert_select.cu"
 KERNEL_REPLACES = "src/repro/kernels/alert_select.py:164"
 NM_SOURCE = "src/repro_torch/kernels/csrc/nested_matmul.cu"
 NM_REPLACES = "src/repro/kernels/nested_matmul.py:81"
+FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FA_REPLACES = "src/repro/kernels/flash_attention.py:86"
+DA_SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
+DA_REPLACES = "src/repro/kernels/decode_attention.py:74"
 PRED_RTOL = 1e-12
 # nested_matmul vs its plain version: both accumulate in float32 in
 # different orders.  bf16: one bf16 ulp (rtol 2^-7) plus 2^-15 * max|plain|
 # for sums that cancel towards zero; float32 (TF32 off): rtol 1e-5 plus
 # 1e-5 * max|plain|.
 NM_TOL = {"bfloat16": (2.0 ** -7, 2.0 ** -15), "float32": (1e-5, 1e-5)}
+# Attention kernels vs their plain versions, element by element:
+# |kernel - plain| <= rtol * |plain| + vtol * A(|v|), where A(|v|) is the
+# plain version run on |v| in float32 (sum_j p_j |v_j| / sum_j p_j, the
+# output's own scale, small where a long cache averages v away).  Both
+# round p to the input type, at different maxima (the kernel's running
+# max, the plain version's row max), so in bf16 each weight may be off by
+# one rounding (2^-8 relative) on each side, which moves the output by at
+# most 2^-7 * A(|v|); the output's own rounding may then differ by one ulp
+# (2^-7 relative).  float32 (TF32 off): other summation orders and exp
+# implementations, 1e-5 of each.
+ATT_TOL = {"bfloat16": (2.0 ** -7, 2.0 ** -7), "float32": (1e-5, 1e-5)}
+L2_BYTES = 50e6                    # H100 L2; timed inputs exceed it twice
 LEVEL_ACCURACIES = [0.62, 0.71, 0.78, 0.83]
 N_TICKS = 4
+# Layers of the earlier serve phases 4 and 7, cut from 12 to keep the run
+# short; phase 10 serves the model at its full depth.
+SERVE_DEPTH = 4
 
 
 class SmokeFailure(RuntimeError):
@@ -514,14 +557,309 @@ def time_forward_projections(device, cfg, m: int) -> dict:
 
 
 # --------------------------------------------------------------------- #
-# phases 4, 6 and 7: the model and the server                            #
+# phase 8: attention kernels vs plain                                    #
 # --------------------------------------------------------------------- #
-def model_cpu_vs_card(device, backend: str = "blocks") -> float:
+def attention_close(got, want, vscale, dtype_name: str,
+                    what: str) -> tuple[float, float]:
+    """(max abs error, worst error / tolerance) of an attention kernel's
+    output against its plain version's under ``ATT_TOL``, ``vscale`` the
+    plain version's output on |v| in float32; raises past 1 or on a
+    non-finite output."""
+    import torch
+
+    rtol, vtol = ATT_TOL[dtype_name]
+    g, w = got.float(), want.float()
+    if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+        raise SmokeFailure(f"{what}: shape {tuple(g.shape)} vs "
+                           f"{tuple(w.shape)} or non-finite output")
+    diff = (g - w).abs()
+    tol = rtol * w.abs() + vtol * vscale
+    ratio = float(torch.where(diff > 0, diff / tol, 0.0).max())
+    if ratio > 1.0:
+        raise SmokeFailure(f"{what}: max abs err {float(diff.max()):.3e}, "
+                           f"{ratio:.3f}x the tolerance")
+    return float(diff.max()), ratio
+
+
+def randn_sets(gen, shapes, dtype, device, n_sets: int):
+    """``n_sets`` tuples of standard-normal tensors of ``shapes``."""
+    import torch
+
+    return [tuple(torch.randn(sh, generator=gen, device=device).to(dtype)
+                  for sh in shapes) for _ in range(n_sets)]
+
+
+def rotating(fn, sets):
+    """A call of ``fn(*set)`` that moves to the next input set each time
+    (inputs beyond the L2 cache, as a forward finds them)."""
+    state = {"i": 0}
+
+    def call():
+        i = state["i"] = (state["i"] + 1) % len(sets)
+        return fn(*sets[i])
+    return call
+
+
+def bound(cost: dict) -> tuple[float, str]:
+    """max(flops / 989 TFLOP/s, bytes / 3.35 TB/s) in ms, and which."""
+    t_ops = cost["flops"] / H100_BF16_FLOPS * 1e3
+    t_bytes = cost["bytes_accessed"] / H100_HBM_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def sdpa_prefill(q, k, v, causal, window):
+    """``scaled_dot_product_attention`` on the port's layout, as the
+    library yardstick: heads moved in front by views made here (outside
+    the timed call), the window as a boolean mask."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import live_mask
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = None
+    if window is not None:
+        mask = live_mask(q.shape[1], k.shape[1], causal, window, q.device)
+    gqa = q.shape[2] != k.shape[2]
+
+    def call():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=gqa)
+    return call
+
+
+def sdpa_decode(q, k, v, lens, window):
+    """The library yardstick for decode: one query position over the
+    cache with a boolean mask of the live positions."""
+    import torch
+    import torch.nn.functional as F
+
+    pos = torch.arange(k.shape[1], device=q.device)[None, :]
+    live = pos < lens[:, None]
+    if window is not None:
+        live = live & (pos >= lens[:, None] - window)
+    mask = live[:, None, None, :]
+    qt, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+    gqa = q.shape[1] != k.shape[2]
+
+    def call():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=gqa)
+    return call
+
+
+def flash_case(device, what, b, s, h, kv, hd, *, causal=True, window=None,
+               softcap=None, timed=False, seed=0) -> dict:
+    """Phase 8, prefill: ``flash_attention`` against its plain version at
+    one geometry in bf16 and float32; with ``timed``, the kernel, the plain
+    version and ``scaled_dot_product_attention`` (None with a softcap) in
+    bf16 over input sets rotated beyond L2, and the bound."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shapes = [(b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)]
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out = {"shape": f"B={b},S=T={s},h={h},kv={kv},hd={hd},causal={causal},"
+                    f"window={window},softcap={softcap}", "err": 0.0,
+           "ratio": 0.0}
+    for dt in ("bfloat16", "float32"):
+        q, k, v = randn_sets(gen, shapes, getattr(torch, dt), device, 1)[0]
+        got = fa.flash_attention(q, k, v, **kw)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        vscale = fa.flash_attention_plain(q.float(), k.float(),
+                                          v.float().abs(), **kw)
+        err, ratio = attention_close(got, want, vscale, dt,
+                                     f"flash_attention {what} {dt}")
+        out["err"] = max(out["err"], err)
+        out["ratio"] = max(out["ratio"], ratio)
+        say(f"  ok flash_attention {what} {out['shape']} {dt}: max abs err "
+            f"{err:.3e} ({ratio:.3f} of the tolerance)")
+        del q, k, v, got, want, vscale
+    if not timed or device.type != "cuda":
+        return out
+    dtype = torch.bfloat16
+    per_set = 2 * (b * s * h * hd + 2 * b * s * kv * hd)
+    sets = randn_sets(gen, shapes, dtype, device,
+                      max(1, math.ceil(2 * L2_BYTES / per_set)))
+    out["ms"] = cuda_ms(rotating(lambda q, k, v: fa.flash_attention(
+        q, k, v, **kw), sets), launches=10)
+    out["plain_ms"] = cuda_ms(rotating(lambda q, k, v:
+                                       fa.flash_attention_plain(
+                                           q, k, v, **kw), sets),
+                              launches=3, rounds=3)
+    out["library_ms"] = None
+    if softcap is None:
+        lib_sets = [(sdpa_prefill(*x, causal, window),) for x in sets]
+        out["library_ms"] = cuda_ms(rotating(lambda f: f(), lib_sets),
+                                    launches=10)
+    cost = fa.flash_attention_cost(b, s, s, h, kv, hd, dtype, causal=causal,
+                                   window=window)
+    out["bound_ms"], out["bound_by"] = bound(cost)
+    out.update(flops=cost["flops"], bytes=cost["bytes_accessed"],
+               input_sets=len(sets))
+    say(f"  time flash_attention {what} bf16 ({len(sets)} input sets in "
+        f"turn): kernel {out['ms']:.6f} ms, plain {out['plain_ms']:.6f} ms, "
+        f"scaled_dot_product_attention {out['library_ms']} ms; bound "
+        f"{out['bound_ms']:.6f} ms by {out['bound_by']} "
+        f"({cost['flops']:.4g} flop, {cost['bytes_accessed']:.4g} B)")
+    return out
+
+
+def decode_case(device, what, b, s, h, kv, hd, lens, *, window=None,
+                timed=False, seed=0) -> dict:
+    """Phase 8, decode: ``decode_attention`` against its plain version
+    over a ``[B,S,kv,hd]`` cache in bf16 and float32, ``lens`` an int
+    (passed by value) or a per-row list (an int32 tensor on the card);
+    with ``timed``, kernel, plain version and library in bf16 as in
+    :func:`flash_case`."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shapes = [(b, h, hd), (b, s, kv, hd), (b, s, kv, hd)]
+    cache_len = lens if isinstance(lens, int) else torch.tensor(
+        lens, dtype=torch.int32, device=device)
+    out = {"shape": f"B={b},S={s},h={h},kv={kv},hd={hd},cache_len={lens},"
+                    f"window={window}", "err": 0.0, "ratio": 0.0}
+    for dt in ("bfloat16", "float32"):
+        q, k, v = randn_sets(gen, shapes, getattr(torch, dt), device, 1)[0]
+        got = da.decode_attention(q, k, v, cache_len, window=window)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        want = da.decode_attention_plain(q, k, v, cache_len, window=window)
+        vscale = da.decode_attention_plain(q.float(), k.float(),
+                                           v.float().abs(), cache_len,
+                                           window=window)
+        err, ratio = attention_close(got, want, vscale, dt,
+                                     f"decode_attention {what} {dt}")
+        out["err"] = max(out["err"], err)
+        out["ratio"] = max(out["ratio"], ratio)
+        say(f"  ok decode_attention {what} {out['shape']} {dt}: max abs err "
+            f"{err:.3e} ({ratio:.3f} of the tolerance)")
+        del q, k, v, got, want, vscale
+    if not timed or device.type != "cuda":
+        return out
+    dtype = torch.bfloat16
+    lens_t = torch.tensor(lens if isinstance(lens, list) else [lens] * b,
+                          dtype=torch.int32, device=device)
+    cost = da.decode_attention_cost(b, s, h, kv, hd, dtype, lens_t,
+                                    window=window)
+    sets = randn_sets(gen, shapes, dtype, device, max(1, math.ceil(
+        2 * L2_BYTES / (2 * 2 * b * s * kv * hd))))
+    out["ms"] = cuda_ms(rotating(lambda q, k, v: da.decode_attention(
+        q, k, v, cache_len, window=window), sets), launches=20)
+    out["plain_ms"] = cuda_ms(rotating(lambda q, k, v:
+                                       da.decode_attention_plain(
+                                           q, k, v, lens_t, window=window),
+                                       sets), launches=5, rounds=3)
+    lib_sets = [(sdpa_decode(*x, lens_t, window),) for x in sets]
+    out["library_ms"] = cuda_ms(rotating(lambda f: f(), lib_sets),
+                                launches=20)
+    out["bound_ms"], out["bound_by"] = bound(cost)
+    out.update(flops=cost["flops"], bytes=cost["bytes_accessed"],
+               input_sets=len(sets))
+    say(f"  time decode_attention {what} bf16 ({len(sets)} caches in turn): "
+        f"kernel {out['ms']:.6f} ms, plain {out['plain_ms']:.6f} ms, "
+        f"scaled_dot_product_attention {out['library_ms']:.6f} ms; bound "
+        f"{out['bound_ms']:.6f} ms by {out['bound_by']} "
+        f"({cost['flops']:.4g} flop, {cost['bytes_accessed']:.4g} B)")
+    return out
+
+
+def time_main_path_attention(device, cfg) -> dict:
+    """The served shapes at the deepest level (B=4, 8-token prompt, a
+    12-slot cache at cache_len 11, all heads), bf16: each kernel as device
+    time (CUDA graph) and back to back, its plain version and the library
+    call as device time, and the bound."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    b, s, slots, n = 4, 8, 12, cfg.n_heads
+    hd, dtype = cfg.head_dim, torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(3)
+    q, k, v = randn_sets(gen, [(b, s, n, hd)] * 3, dtype, device, 1)[0]
+    qd, kc, vc = randn_sets(gen, [(b, n, hd), (b, slots, n, hd),
+                                  (b, slots, n, hd)], dtype, device, 1)[0]
+    lens = torch.full((b,), slots - 1, dtype=torch.int32, device=device)
+    pre = {"ms": graph_ms(lambda: fa.flash_attention(q, k, v)),
+           "eager_ms": cuda_ms(lambda: fa.flash_attention(q, k, v),
+                               launches=200),
+           "plain_ms": graph_ms(lambda: fa.flash_attention_plain(q, k, v)),
+           "library_ms": graph_ms(sdpa_prefill(q, k, v, True, None))}
+    pre["bound_ms"], pre["bound_by"] = bound(fa.flash_attention_cost(
+        b, s, s, n, n, hd, dtype))
+    dec = {"ms": graph_ms(lambda: da.decode_attention(qd, kc, vc, slots - 1)),
+           "eager_ms": cuda_ms(lambda: da.decode_attention(qd, kc, vc,
+                                                           slots - 1),
+                               launches=200),
+           "plain_ms": graph_ms(lambda: da.decode_attention_plain(
+               qd, kc, vc, lens)),
+           "library_ms": graph_ms(sdpa_decode(qd, kc, vc, lens, None))}
+    dec["bound_ms"], dec["bound_by"] = bound(da.decode_attention_cost(
+        b, slots, n, n, hd, dtype, slots - 1))
+    pre["shape"] = f"B={b},S=T={s},h=kv={n},hd={hd},bf16"
+    dec["shape"] = (f"B={b},S={slots},h=kv={n},cache_len={slots - 1},"
+                    f"hd={hd},bf16")
+    for name, r in (("flash_attention", pre), ("decode_attention", dec)):
+        say(f"  time {name} main path {r['shape']} (device time, CUDA "
+            f"graph): kernel {r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, "
+            f"scaled_dot_product_attention {r['library_ms']:.6f} ms; bound "
+            f"{r['bound_ms']:.9f} ms by {r['bound_by']}; back to back "
+            f"(host work between calls) {r['eager_ms']:.6f} ms")
+    return {"flash_attention": pre, "decode_attention": dec}
+
+
+def attention_vs_plain(device, cfg, full: bool = True) -> dict:
+    """Phase 8: both attention kernels against their plain versions at
+    (a) the served shapes of ``cfg`` (prefill B=4, S=T=8, h=kv in {1, 2, 4,
+    8}; decode over the 12-slot cache at cache_len 9-12, by value and per
+    row), and with ``full`` (b) ``cfg`` at a 2048-token prompt and (c)
+    gemma3-1b's attention geometry (h=4, kv=1, hd=256, window 512; shapes
+    only), timed.  Returns the cases by name."""
+    hd, heads = cfg.head_dim, [2 ** i for i in range(cfg.nest_levels)]
+    res = {"fa": {}, "da": {}}
+    for n in heads:
+        res["fa"][f"a_h{n}"] = flash_case(device, "(a)", 4, 8, n, n, hd,
+                                          seed=n)
+        for lens in (9, 10, 11, 12, [9, 10, 11, 12]):
+            res["da"][f"a_h{n}_{lens}"] = decode_case(
+                device, "(a)", 4, 12, n, n, hd, lens, seed=n)
+    if not full:
+        return res
+    res["fa"]["b"] = flash_case(device, "(b)", 4, 2048, cfg.n_heads,
+                                cfg.n_kv_heads, hd, timed=True)
+    res["da"]["b"] = decode_case(device, "(b)", 4, 2048, cfg.n_heads,
+                                 cfg.n_kv_heads, hd, [2048, 1500, 1024, 517],
+                                 timed=True)
+    res["fa"]["c_window"] = flash_case(device, "(c)", 1, 4096, 4, 1, 256,
+                                       window=512, timed=True)
+    res["fa"]["c_softcap"] = flash_case(device, "(c)", 1, 4096, 4, 1, 256,
+                                        window=512, softcap=50.0, timed=True)
+    res["da"]["c_global"] = decode_case(device, "(c)", 4, 32768, 4, 1, 256,
+                                        32768, timed=True)
+    res["da"]["c_window"] = decode_case(device, "(c)", 4, 32768, 4, 1, 256,
+                                        32768, window=512, timed=True)
+    return res
+
+
+# --------------------------------------------------------------------- #
+# phases 4, 6, 7, 9 and 10: the model and the server                    #
+# --------------------------------------------------------------------- #
+def model_cpu_vs_card(device, backend: str = "blocks",
+                      attn_backend: str = "ref") -> float:
     """The reduced float32 model with the same weights on the CPU (nest
-    backend ``blocks``) and on the card (nest backend ``backend``):
-    per-level prefill logits, and one KV-cached decode step against the
-    full forward, within 1e-4 (float32, TF32 off; the card sums in
-    another order)."""
+    backend ``blocks``, attention ``ref``) and on the card (nest backend
+    ``backend``, attention ``attn_backend``): per-level prefill logits,
+    and one KV-cached decode step against the full forward, within 1e-4
+    (float32, TF32 off; the card sums in another order)."""
     import numpy as np
     import torch
 
@@ -531,7 +869,7 @@ def model_cpu_vs_card(device, backend: str = "blocks") -> float:
     from repro_torch.models.registry import build_model
 
     cfg = reduced().replace(dtype="float32")
-    card_cfg = cfg.replace(nest_backend=backend)
+    card_cfg = cfg.replace(nest_backend=backend, attn_backend=attn_backend)
     cpu = torch.device("cpu")
     params = tfm.init_lm(cfg, torch.Generator().manual_seed(0), device=cpu)
     on_card = {k: v.to(device) for k, v in params.items() if k != "layers"}
@@ -564,8 +902,9 @@ def model_cpu_vs_card(device, backend: str = "blocks") -> float:
             if not torch.allclose(step, full, rtol=1e-4, atol=1e-4):
                 raise SmokeFailure(f"level {level}: decode step differs from "
                                    f"the full forward")
-    say(f"  reduced model, card ({backend}) vs CPU (blocks) and decode vs "
-        f"forward: ok (max abs logit diff {worst:.3e})")
+    say(f"  reduced model, card ({backend} nest, {attn_backend} attention) "
+        f"vs CPU (blocks, ref) and decode vs forward: ok (max abs logit "
+        f"diff {worst:.3e})")
     return worst
 
 
@@ -590,17 +929,22 @@ def tenants(table):
 
 def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
           gen_tokens=4, expect_kernel=True) -> dict:
-    """Phases 4 and 7: the fleet server over ``cfg`` on ``device``.  Both
-    launch counters start at 0 here and are read after the last tick.
-    With ``expect_kernel`` the scoring kernel must launch once per tick,
-    and with ``cfg.nest_backend == "kernel"`` on the card
+    """Phases 4, 7 and 10: the fleet server over ``cfg`` on ``device``.
+    Every launch counter starts at 0 here and is read after the last
+    tick.  With ``expect_kernel`` the scoring kernel must launch once per
+    tick.  On the card, with ``cfg.nest_backend == "kernel"``,
     ``nested_matmul`` must launch 7 * n_layers times per forward pass (one
-    per generated token); otherwise it must not launch at all."""
+    per generated token), and with ``cfg.attn_backend == "kernel"``
+    ``flash_attention`` n_layers times per prefill forward and
+    ``decode_attention`` n_layers times per decode forward; otherwise
+    they must not launch at all."""
     import numpy as np
     import torch
 
     from repro_torch.core.controller import Goal
     from repro_torch.kernels import alert_select as ks
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import nested_matmul as nm
     from repro_torch.models.registry import build_model
     from repro_torch.models.transformer import init_lm
@@ -622,8 +966,13 @@ def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
 
     ks.alert_select.launches = 0           # main path starts here
     nm.nested_matmul.launches = 0
+    fa.flash_attention.launches = 0
+    da.decode_attention.launches = 0
+    card = device.type == "cuda"
     per_forward = 7 * cfg.n_layers if (cfg.nest_backend == "kernel"
-                                       and device.type == "cuda") else 0
+                                       and card) else 0
+    attn_per_forward = cfg.n_layers if (cfg.attn_backend == "kernel"
+                                        and card) else 0
     t0 = time.perf_counter()
     srv = FleetAlertServer(engine, params,
                            level_accuracies=LEVEL_ACCURACIES[
@@ -660,17 +1009,29 @@ def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
                    .astype(np.int32) for _ in range(srv.n_streams)]
         n_tok = len(tokens_seen)
         nm_before = nm.nested_matmul.launches
+        fa_before = fa.flash_attention.launches
+        da_before = da.decode_attention.launches
         t1 = time.perf_counter()
         outs = srv.serve_tick(prompts)
         dt = time.perf_counter() - t1
         tick_s.append(dt)
         counts.append(ks.alert_select.launches)
         forwards = sum(t.shape[1] for t in tokens_seen[n_tok:])
+        prefills = len(tokens_seen) - n_tok      # one per generate call
         nm_tick = nm.nested_matmul.launches - nm_before
+        fa_tick = fa.flash_attention.launches - fa_before
+        da_tick = da.decode_attention.launches - da_before
         if nm_tick != per_forward * forwards:
             raise SmokeFailure(f"tick {tick}: nested_matmul launched "
                                f"{nm_tick} times for {forwards} forward "
                                f"passes, expected {per_forward} each")
+        if (fa_tick, da_tick) != (attn_per_forward * prefills,
+                                  attn_per_forward * (forwards - prefills)):
+            raise SmokeFailure(
+                f"tick {tick}: flash_attention launched {fa_tick} times for "
+                f"{prefills} prefill forwards and decode_attention "
+                f"{da_tick} times for {forwards - prefills} decode "
+                f"forwards, expected {attn_per_forward} each")
         live = np.nonzero(srv.active)[0]
         for s in live:
             o = outs[s]
@@ -692,17 +1053,24 @@ def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
             + ", missed " + " ".join(str(int(outs[s].missed)) if outs[s]
                                      else "-" for s in range(srv.n_streams))
             + f", alert_select launches {ks.alert_select.launches}, "
-              f"nested_matmul launches {nm_tick} for {forwards} forwards")
+              f"nested_matmul launches {nm_tick} for {forwards} forwards, "
+              f"flash_attention {fa_tick} for {prefills} prefills, "
+              f"decode_attention {da_tick} for {forwards - prefills} "
+              f"decode steps")
     launches = ks.alert_select.launches   # main path ends here
     nm_launches = nm.nested_matmul.launches
+    fa_launches = fa.flash_attention.launches
+    da_launches = da.decode_attention.launches
     if expect_kernel and counts != list(range(1, N_TICKS + 1)):
         raise SmokeFailure(f"alert_select launch counts per tick {counts}, "
                            f"expected one launch per tick")
-    say(f"  served {N_TICKS} ticks ({cfg.nest_backend} nest backend); "
-        f"alert_select launches {launches}, nested_matmul launches "
-        f"{nm_launches} (profiling included)")
+    say(f"  served {N_TICKS} ticks ({cfg.nest_backend} nest backend, "
+        f"{cfg.attn_backend} attention); alert_select launches {launches}, "
+        f"nested_matmul {nm_launches}, flash_attention {fa_launches}, "
+        f"decode_attention {da_launches} (profiling included)")
     return {"server": srv, "engine": engine, "params": params,
             "launches": launches, "nm_launches": nm_launches,
+            "fa_launches": fa_launches, "da_launches": da_launches,
             "tick_s": tick_s}
 
 
@@ -760,6 +1128,43 @@ def main_path_inputs(srv):
     return args, kw
 
 
+class Phases:
+    """Prints each phase's banner and, when the next one starts, the
+    seconds it took."""
+
+    def __init__(self):
+        self.name, self.t0 = None, 0.0
+
+    def start(self, title: str | None) -> None:
+        if self.name is not None:
+            say(f"  ({self.name}: {time.perf_counter() - self.t0:.1f} s)")
+        self.name, self.t0 = (title.split(":")[0] if title else None,
+                              time.perf_counter())
+        if title:
+            say(f"== {title}")
+
+
+def attention_entry(name, source, replaces, launches, cases, headline,
+                    main_path) -> dict:
+    """The ``kernels`` line's entry of one attention kernel: headline
+    numbers of the ``headline`` case, the other timed cases and the
+    main-path times beside them."""
+    h = cases[headline]
+    keys = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "flops", "bytes", "input_sets")
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": max(c["err"] for c in cases.values()),
+        "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+        "bound_by": h["bound_by"], "library_ms": h["library_ms"],
+        "shape": h["shape"],
+        "other_shapes": {k: {f: c[f] for f in keys}
+                         for k, c in cases.items()
+                         if "ms" in c and k != headline},
+        "main_path": main_path}
+
+
 def main() -> int:
     import torch
 
@@ -780,16 +1185,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    phase = Phases()
 
-    say("== phase 1: device")
+    phase.start("phase 1: device")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     say(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {kind}, count {torch.cuda.device_count()}")
     say(f"  nvidia-smi: {smi}")
 
-    say("== phase 2: build")
-    built = build(["alert_select", "nested_matmul"])
+    phase.start("phase 2: build")
+    built = build(["alert_select", "nested_matmul", "flash_attention",
+                   "decode_attention"])
     for name, b in built.items():
         say(f"  {name}: {'reused' if b.reused else 'built'} in "
             f"{b.seconds:.3f} s -> {b.path.name}")
@@ -797,12 +1204,12 @@ def main() -> int:
             if "registers" in line or "spill" in line or "stack" in line:
                 say(f"    ptxas: {line.strip()}")
 
-    say("== phase 3: alert_select kernel vs plain version on the card")
+    phase.start("phase 3: alert_select kernel vs plain version on the card")
     err, timing = kernel_vs_plain(device)
 
-    say("== phase 4: serve (blocks nest backend)")
+    phase.start("phase 4: serve (blocks nest backend)")
     err_model = model_cpu_vs_card(device)
-    run = serve(device, CONFIG)
+    run = serve(device, CONFIG.replace(n_layers=SERVE_DEPTH))
     args, kw = main_path_inputs(run["server"])
     got = ks.alert_select(*args, **kw)
     torch.cuda.synchronize(device)
@@ -827,30 +1234,49 @@ def main() -> int:
         f"host) {select_ms:.6f} ms")
     say(f"  reduced-model max abs logit diff {err_model:.3e}")
 
-    say("== phase 5: nested_matmul kernel vs plain version on the card")
+    phase.start("phase 5: nested_matmul kernel vs plain version on the card")
     nm_err = nested_vs_plain(device, CONFIG)
     nm_time = {m: time_nested(device, CONFIG, m) for m in (32, 4)}
     fwd = {m: time_forward_projections(device, CONFIG, m) for m in (32, 4)}
 
-    say("== phase 6: reduced model, kernel nest backend")
+    phase.start("phase 6: reduced model, kernel nest backend")
     err_model_k = model_cpu_vs_card(device, backend="kernel")
 
-    say("== phase 7: serve (kernel nest backend)")
-    run_k = serve(device, CONFIG.replace(nest_backend="kernel"))
-    blocks_engine = ServeEngine(build_model(CONFIG),
-                                max_len=run_k["engine"].max_len,
-                                batch_size=run_k["engine"].batch_size,
-                                device=device)
-    harness = harness_latencies({"blocks": blocks_engine,
-                                 "kernel": run_k["engine"]},
-                                run_k["params"])
-    say(f"  tick times (s): blocks {[round(t, 4) for t in run['tick_s']]}, "
-        f"kernel {[round(t, 4) for t in run_k['tick_s']]}")
+    phase.start("phase 7: serve (kernel nest backend)")
+    run_k = serve(device, CONFIG.replace(nest_backend="kernel",
+                                         n_layers=SERVE_DEPTH))
+
+    phase.start("phase 8: attention kernels vs plain versions on the card")
+    att = attention_vs_plain(device, CONFIG)
+    att_mp = time_main_path_attention(device, CONFIG)
+
+    phase.start("phase 9: reduced model, kernel nest and attention backends")
+    err_model_a = model_cpu_vs_card(device, backend="kernel",
+                                    attn_backend="kernel")
+
+    phase.start("phase 10: serve with every kernel on the path")
+    all_cfg = CONFIG.replace(nest_backend="kernel", attn_backend="kernel")
+    run_a = serve(device, all_cfg)
+    full_depth = {name: ServeEngine(build_model(cfg),
+                                    max_len=run_a["engine"].max_len,
+                                    batch_size=run_a["engine"].batch_size,
+                                    device=device)
+                  for name, cfg in (("blocks", CONFIG), ("kernel", CONFIG
+                                    .replace(nest_backend="kernel")))}
+    harness = harness_latencies({**full_depth,
+                                 "all-kernel": run_a["engine"]},
+                                run_a["params"])
+    say(f"  tick times (s): blocks "
+        f"{[round(t, 4) for t in run['tick_s']]} and kernel nest "
+        f"{[round(t, 4) for t in run_k['tick_s']]} at {SERVE_DEPTH} layers; "
+        f"all-kernel {[round(t, 4) for t in run_a['tick_s']]} at "
+        f"{CONFIG.n_layers}")
+    phase.start(None)
     say(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{
         "name": "alert_select", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": run["launches"],
+        "replaces": KERNEL_REPLACES, "launches": run_a["launches"],
         "max_abs_err": err, "ms": timing["ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": None,
@@ -861,7 +1287,7 @@ def main() -> int:
     t32 = nm_time[32]
     kernels.append({
         "name": "nested_matmul", "route": "cuda", "source": NM_SOURCE,
-        "replaces": NM_REPLACES, "launches": run_k["nm_launches"],
+        "replaces": NM_REPLACES, "launches": run_a["nm_launches"],
         "max_abs_err": nm_err, "ms": t32["ms"], "plain_ms": t32["plain_ms"],
         "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
         "library_ms": t32["library_ms"], "shape": t32["shape"],
@@ -876,8 +1302,18 @@ def main() -> int:
             "bound_ms", "bound_by", "eager_ms", "blocks_eager_ms")}
             for m in fwd},
         "reduced_model_max_abs_diff": err_model_k,
-        "tick_s": {"blocks": run["tick_s"], "kernel": run_k["tick_s"]},
+        "phase7_launches": run_k["nm_launches"],
+        "tick_s": {f"blocks_{SERVE_DEPTH}_layers": run["tick_s"],
+                   f"kernel_{SERVE_DEPTH}_layers": run_k["tick_s"],
+                   "all-kernel": run_a["tick_s"]},
         "generate_s_by_level": harness})
+    kernels.append(attention_entry(
+        "flash_attention", FA_SOURCE, FA_REPLACES, run_a["fa_launches"],
+        att["fa"], "b", att_mp["flash_attention"]))
+    kernels.append(attention_entry(
+        "decode_attention", DA_SOURCE, DA_REPLACES, run_a["da_launches"],
+        att["da"], "b", att_mp["decode_attention"]))
+    kernels[-1]["reduced_model_max_abs_diff"] = err_model_a
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,16 @@ nested path of ``repro.models.attention``).
 Heads are striped: q heads follow the pow2 stripe spec, KV heads are
 striped when divisible and otherwise saturated into stripe 1.  The
 projections are ``nested_norm_linear`` / ``nested_linear``, so level-k
-execution touches only level-k weights.  Prefill attention is chunked over
-queries so the score tensor stays bounded; decode attends one position
-over the cache.  Scores and softmax are float32.
+execution touches only level-k weights.  Scores and softmax are float32.
+
+``cfg.attn_backend`` picks the attention itself, as the reference's config
+declares it (``ref | kernel``):
+
+* ``"ref"``: prefill attention is chunked over queries so the score tensor
+  stays bounded; decode attends one position over the cache.
+* ``"kernel"``: prefill runs ``flash_attention`` and decode
+  ``decode_attention`` (the CUDA kernels on the card, their plain versions
+  on the CPU), one launch per layer and forward pass.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.nesting import (StripeSpec, nested_linear,
                                       nested_norm_linear)
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import apply_rope, dense_init
 
 
@@ -47,7 +56,7 @@ def attn_init(cfg: ModelConfig, generator: torch.Generator,
 
 def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
-                  chunk: int) -> torch.Tensor:
+                  chunk: int, softcap: float | None = None) -> torch.Tensor:
     """q: ``[B,S,h,hd]``; k/v: ``[B,T,kv,hd]``; positions ``[B,S]`` /
     ``[B,T]``.  One query chunk of scores at a time."""
     b, s, h, hd = q.shape
@@ -61,6 +70,8 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         c = qi.shape[1]
         qg = qi.reshape(b, c, n_kv, groups, hd).float()
         logits = torch.einsum("bckgd,btkd->bkgct", qg, kf) * scale
+        if softcap is not None:
+            logits = softcap * torch.tanh(logits / softcap)
         qp = q_pos[:, start:start + c]
         mask = (k_pos[:, None, :] >= 0).expand(b, c, t)
         if causal:
@@ -73,7 +84,8 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _sdpa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 cache_len: int) -> torch.Tensor:
+                 cache_len: int, softcap: float | None = None
+                 ) -> torch.Tensor:
     """Single-position decode: q ``[B,1,h,hd]`` over cache k/v
     ``[B,S,kv,hd]`` whose first ``cache_len`` positions are valid."""
     b, _, h, hd = q.shape
@@ -81,6 +93,8 @@ def _sdpa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     groups = h // n_kv
     qg = q.reshape(b, n_kv, groups, hd).float()
     logits = torch.einsum("bkgd,btkd->bkgt", qg, k.float()) * hd ** -0.5
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
     mask = torch.arange(s, device=q.device) < cache_len
     logits = torch.where(mask, logits, -1e30)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
@@ -122,7 +136,13 @@ def nested_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
     ``width_q(k)/head_dim`` query heads and the matching KV prefix.
     Without a cache (prefill) the returned cache holds this call's k/v;
     with ``cache`` and ``cache_len`` (decode) the step's k/v are written at
-    ``cache_len`` and the updated cache is returned."""
+    ``cache_len`` and the updated cache is returned.
+
+    With ``cfg.attn_backend == "kernel"`` prefill masks on index positions,
+    which equal ``positions`` because prefill starts at 0
+    (``transformer.lm_apply``); the kernels read q, k and v through their
+    strides.  Decode with ``attn_logit_softcap`` set raises there: the
+    decode kernel, like the reference's, has no softcap."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     d_spec, q_spec, kv_spec = head_stripe_specs(cfg)
@@ -139,13 +159,28 @@ def nested_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
     q = apply_rope(q.reshape(b, s, n_q, hd), positions, cfg.rope_theta)
     k = apply_rope(k.reshape(b, s, n_kv, hd), positions, cfg.rope_theta)
     v = v.reshape(b, s, n_kv, hd)
+    kernel = cfg.attn_backend == "kernel"
+    softcap = cfg.attn_logit_softcap
     if cache is not None and cache_len is not None:
+        if kernel and softcap is not None:
+            raise ValueError("attn_backend='kernel': decode_attention has no "
+                             "logit softcap (nor has the reference's "
+                             "kernel); use attn_backend='ref'")
         new_cache = KVCache(_scatter_at(cache.k, k, cache_len),
                             _scatter_at(cache.v, v, cache_len))
-        out = _sdpa_decode(q, new_cache.k, new_cache.v, cache_len + s)
+        if kernel:
+            out = decode_attention(q[:, 0], new_cache.k, new_cache.v,
+                                   cache_len + s)[:, None]
+        else:
+            out = _sdpa_decode(q, new_cache.k, new_cache.v, cache_len + s,
+                               softcap=softcap)
     else:
-        out = _sdpa_chunked(q, k, v, positions, positions, causal=True,
-                            chunk=min(cfg.attn_chunk, s))
+        if kernel:
+            out = flash_attention(q, k, v, causal=True, softcap=softcap)
+        else:
+            out = _sdpa_chunked(q, k, v, positions, positions, causal=True,
+                                chunk=min(cfg.attn_chunk, s),
+                                softcap=softcap)
         new_cache = KVCache(k, v)
     out = out.reshape(b, s, n_q * hd)
     return nested_linear(out, params["wo"], q_spec, d_spec, level=level,

@@ -198,3 +198,139 @@ def test_kernel_backend_model_on_card_matches_cpu(cuda_device):
     before = nm.nested_matmul.launches
     assert model_cpu_vs_card(cuda_device, backend="kernel") < 1e-4
     assert nm.nested_matmul.launches > before
+
+
+# --------------------------------------------------------------------- #
+# flash_attention and decode_attention                                   #
+# --------------------------------------------------------------------- #
+FLASH_CARD = {
+    "main-path-h1": (4, 8, 1, 1, 96, {}),
+    "main-path-h8": (4, 8, 8, 8, 96, {}),
+    "gemma-window": (1, 1024, 4, 1, 256, {"window": 512}),
+    "gemma-softcap": (1, 1024, 4, 1, 256, {"window": 512, "softcap": 50.0}),
+    "ragged-gqa": (2, 37, 6, 2, 64, {"causal": False}),
+}
+DECODE_CARD = {
+    "main-path-h1": (4, 12, 1, 1, 96, [9, 10, 11, 12], {}),
+    "main-path-h8": (4, 12, 8, 8, 96, 11, {}),
+    "gemma-global": (4, 32768, 4, 1, 256, 32768, {}),
+    "gemma-window": (4, 32768, 4, 1, 256, [32768, 3000, 600, 1],
+                     {"window": 512}),
+    "ragged-gqa": (3, 77, 6, 2, 64, [77, 5, 40], {}),
+}
+
+
+@pytest.mark.parametrize("case", list(FLASH_CARD))
+def test_flash_attention_matches_plain(cuda_device, case):
+    """bf16 and float32 within chip_smoke.ATT_TOL: the worst error is at
+    most the tolerance (flash_case also raises past it)."""
+    from chip_smoke import flash_case
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s, h, kv, hd, kw = FLASH_CARD[case]
+    assert flash_case(cuda_device, case, b, s, h, kv, hd,
+                      **kw)["ratio"] <= 1.0
+
+
+@pytest.mark.parametrize("case", list(DECODE_CARD))
+def test_decode_attention_matches_plain(cuda_device, case):
+    """As :func:`test_flash_attention_matches_plain`, for decode."""
+    from chip_smoke import decode_case
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s, h, kv, hd, lens, kw = DECODE_CARD[case]
+    assert decode_case(cuda_device, case, b, s, h, kv, hd, lens,
+                       **kw)["ratio"] <= 1.0
+
+
+def _attention_inputs(device, dtype=torch.bfloat16):
+    gen = torch.Generator(device=device).manual_seed(7)
+    q = torch.randn(4, 64, 8, 96, generator=gen, device=device).to(dtype)
+    k = torch.randn(4, 64, 8, 96, generator=gen, device=device).to(dtype)
+    return q, k, torch.randn_like(k)
+
+
+def test_attention_calls_allocate_only_output_and_count(cuda_device):
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _attention_inputs(cuda_device)
+    qd = q[:, 0]                                     # a strided view
+    fa.flash_attention(q, k, v)
+    da.decode_attention(qd, k, v, 50)
+    torch.cuda.synchronize()
+    before = (fa.flash_attention.launches, da.decode_attention.launches)
+    for call in (lambda: fa.flash_attention(q, k, v, window=9),
+                 lambda: da.decode_attention(qd, k, v, 50)):
+        torch.cuda.reset_peak_memory_stats(cuda_device)
+        base = torch.cuda.memory_allocated(cuda_device)
+        out = call()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(cuda_device) - base
+        assert peak <= out.numel() * out.element_size() + 4096
+    assert (fa.flash_attention.launches,
+            da.decode_attention.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(da.decode_attention(qd, k, v, 50),
+                       da.decode_attention(qd.contiguous(), k, v,
+                                           torch.full((4,), 50,
+                                                      device=cuda_device)))
+
+
+def test_attention_wrappers_reject(cuda_device):
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _attention_inputs(cuda_device)
+    odd = torch.empty(q.numel() + 1, dtype=q.dtype,
+                      device=cuda_device)[1:].view(q.shape)
+    bad = {
+        "head_dim": (q[..., :12], k[..., :12], v[..., :12]),
+        "dtype": (q.half(), k.half(), v.half()),
+        "mixed devices": (q, k.cpu(), v),
+        "mixed dtypes": (q, k.float(), v),
+        "gqa": (q, k[:, :, :3], v[:, :, :3]),
+        "alignment": (odd, k, v),
+    }
+    before = (fa.flash_attention.launches, da.decode_attention.launches)
+    for what, (qb, kb, vb) in bad.items():
+        with pytest.raises(ValueError, match="flash_attention"):
+            fa.flash_attention(qb, kb, vb)
+        with pytest.raises(ValueError, match="decode_attention"):
+            da.decode_attention(qb[:, 0], kb, vb, 10)
+    with pytest.raises(ValueError, match="cache_len"):
+        da.decode_attention(q[:, 0], k, v, torch.tensor([10] * 4))
+    assert (fa.flash_attention.launches,
+            da.decode_attention.launches) == before
+
+
+def test_kernel_attention_decode_with_softcap_raises(cuda_device):
+    from repro_torch.configs.alert_anytime import reduced
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = reduced().replace(attn_backend="kernel", attn_logit_softcap=30.0)
+    params = tfm.init_lm(cfg, device=cuda_device)
+    toks = torch.zeros((2, 6), dtype=torch.long, device=cuda_device)
+    out = tfm.lm_apply(params, cfg, toks)
+    eng = ServeEngine(build_model(cfg), max_len=8, batch_size=2,
+                      device=cuda_device)
+    caches = eng._merge(eng.init_caches(), out.caches)
+    with pytest.raises(ValueError, match="no logit softcap"):
+        tfm.lm_apply(params, cfg, toks[:, :1], mode="decode", caches=caches,
+                     cache_len=6)
+
+
+def test_all_kernel_model_on_card_matches_cpu(cuda_device):
+    """The reduced float32 model (head_dim 8) with both kernel backends
+    on the card within 1e-4 of blocks/ref on the CPU."""
+    from chip_smoke import model_cpu_vs_card
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = (fa.flash_attention.launches, da.decode_attention.launches)
+    assert model_cpu_vs_card(cuda_device, backend="kernel",
+                             attn_backend="kernel") < 1e-4
+    assert fa.flash_attention.launches > before[0]
+    assert da.decode_attention.launches > before[1]
