@@ -64,7 +64,23 @@ Phases (each prints its own lines; any mismatch exits nonzero):
     ``generate`` latency of the blocks, kernel-nest and all-kernel engines
     at full depth through the profiling harness
     (``profile_anytime_measured(engine_level_fns(...))``), in turns.
-11. the last lines: one JSON object per kernel, the ``nvidia-smi`` line,
+11. ``rwkv_scan`` kernel vs plain, bf16 and float32 with s0 and u
+    nonzero, y and the final state within ``RS_TOL``: (a) rwkv6-3b's
+    served shapes (B=4, H=40, hd=64, an 8-token prefill and a 1-token
+    decode step), a ragged S=77 at hd 16, 32 and 64 (strided views at
+    64), (b) a 2048-token prompt (B=4) and (c) ``RWKV_LONG`` = 32768
+    tokens (B=1).  Times (b) and (c) in float32 with CUDA events and the
+    served shapes as device time (CUDA graph), beside the bound and the
+    plain version.
+12. the reduced float32 RWKV-6 model on the card (the kernel) against the
+    same model on the CPU (the plain scan): prefill logits and states,
+    then 3 decode steps, within 1e-4.
+13. serve ``rwkv6-3b`` at full width and depth (32 layers, d=2560) in
+    bf16, weights from a seed-0 generator on the card, behind the fleet
+    server as in phase 4 with its one level (power adapts only):
+    ``rwkv_scan`` 32 times per forward (prefill and decode),
+    ``alert_select`` once per tick, the other three kernels never.
+14. the last lines: one JSON object per kernel, the ``nvidia-smi`` line,
     and ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds.
@@ -99,6 +115,11 @@ FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention.py:86"
 DA_SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
 DA_REPLACES = "src/repro/kernels/decode_attention.py:74"
+RS_SOURCE = "src/repro_torch/kernels/csrc/rwkv_scan.cu"
+RS_REPLACES = "src/repro/kernels/rwkv_scan.py:59"
+# float32 FMAs outside the tensor cores (NVIDIA H100 SXM data sheet), the
+# type of rwkv_scan's arithmetic.
+H100_FP32_FLOPS = 67e12
 PRED_RTOL = 1e-12
 # nested_matmul vs its plain version: both accumulate in float32 in
 # different orders.  bf16: one bf16 ulp (rtol 2^-7) plus 2^-15 * max|plain|
@@ -116,12 +137,30 @@ NM_TOL = {"bfloat16": (2.0 ** -7, 2.0 ** -15), "float32": (1e-5, 1e-5)}
 # (2^-7 relative).  float32 (TF32 off): other summation orders and exp
 # implementations, 1e-5 of each.
 ATT_TOL = {"bfloat16": (2.0 ** -7, 2.0 ** -7), "float32": (1e-5, 1e-5)}
+# rwkv_scan against its plain version, element by element:
+# |kernel - plain| <= rtol * |plain| + atol * A, A the plain version run on
+# |r|, |k|, |v|, w, |u| and |s0| (the sum of the magnitudes of the terms
+# each output adds up).  Both compute in float32 in other orders; against
+# a float64 loop the plain version's error was at most 1.4e-7 A (y) and
+# 4e-7 A (state) at S=256..2048, w = sigmoid(normal) and w near 1, so
+# atol 1e-5 is 25x that.  bf16 inputs: y is rounded to bf16 (8
+# significant bits) from float32 values that differ by d <= 1e-5 A, so
+# |kernel - plain| <= 2^-8 (|y_kernel| + |y_plain|) + d, in terms of the
+# rounded plain value at most 2^-7 / (1 - 2^-8) |plain| + (1 + 2^-8) d:
+# one ulp where the two round apart (next to a power of two that is all
+# of the rtol, so the ratio there reads about 0.99).  The state stays
+# float32.
+RS_TOL = {"bfloat16": (2.0 ** -7 / (1 - 2.0 ** -8), 1.01e-5),
+          "float32": (1e-5, 1e-5)}
 L2_BYTES = 50e6                    # H100 L2; timed inputs exceed it twice
 LEVEL_ACCURACIES = [0.62, 0.71, 0.78, 0.83]
 N_TICKS = 4
 # Layers of the earlier serve phases 4 and 7, cut from 12 to keep the run
 # short; phase 10 serves the model at its full depth.
 SERVE_DEPTH = 4
+# Tokens of rwkv_scan's long-context case (c), the length this family's
+# O(1) state is for.
+RWKV_LONG = 32768
 
 
 class SmokeFailure(RuntimeError):
@@ -851,6 +890,220 @@ def attention_vs_plain(device, cfg, full: bool = True) -> dict:
 
 
 # --------------------------------------------------------------------- #
+# phase 11: rwkv_scan kernel vs plain                                    #
+# --------------------------------------------------------------------- #
+def rwkv_inputs(gen, b, s, h, hd, device, strided=False):
+    """float32 inputs of one scan: r, k, v standard normal, w =
+    sigmoid(normal) in (0, 1), u = sigmoid(normal) / 2, s0 normal / 10.
+    With ``strided`` r, k, v and w are views of one ``[B, S, 4*H*hd]``
+    tensor (token stride 4*H*hd), as projections of ``[B, S, d]`` are."""
+    import torch
+
+    shape = (b, s, 4 * h * hd) if strided else (4, b, s, h, hd)
+    x = torch.randn(shape, generator=gen, device=device)
+    if strided:
+        r, k, v, w = (x[..., i * h * hd:(i + 1) * h * hd].view(b, s, h, hd)
+                      for i in range(4))
+    else:
+        r, k, v, w = x.unbind(0)
+    w.copy_(torch.sigmoid(w))
+    u = torch.sigmoid(torch.randn((h, hd), generator=gen,
+                                  device=device)) * 0.5
+    s0 = torch.randn((b, h, hd, hd), generator=gen, device=device) * 0.1
+    return [r, k, v, w, u, s0]
+
+
+def rwkv_close(got, want, scale, dtype_name: str,
+               what: str) -> tuple[float, float]:
+    """(max abs error, worst error / tolerance) of one output of the kernel
+    against the plain version's under ``RS_TOL``, ``scale`` the plain
+    version's output on the absolute inputs; raises past 1 or on a
+    non-finite output."""
+    import torch
+
+    rtol, atol = RS_TOL[dtype_name]
+    g, w = got.float(), want.float()
+    if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+        raise SmokeFailure(f"{what}: shape {tuple(g.shape)} vs "
+                           f"{tuple(w.shape)} or non-finite output")
+    diff = (g - w).abs()
+    tol = rtol * w.abs() + atol * scale
+    ratio = float(torch.where(diff > 0, diff / tol, 0.0).max())
+    if ratio > 1.0:
+        raise SmokeFailure(f"{what}: max abs err {float(diff.max()):.3e}, "
+                           f"{ratio:.3f}x the tolerance")
+    return float(diff.max()), ratio
+
+
+def rwkv_bound(b, s, h, hd, itemsize) -> tuple[float, str, dict]:
+    """max(flops / 67 TFLOP/s (float32 outside the tensor cores), bytes /
+    3.35 TB/s) in ms, which of the two, and the cost."""
+    from repro_torch.kernels.rwkv_scan import rwkv_scan_cost
+
+    cost = rwkv_scan_cost(b, s, h, hd, itemsize)
+    t_ops = cost["flops"] / H100_FP32_FLOPS * 1e3
+    t_bytes = cost["bytes_accessed"] / H100_HBM_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), cost
+
+
+def rwkv_case(device, what, b, s, h, hd, *, strided=False, timed=False,
+              seed=0) -> dict:
+    """Phase 11: ``rwkv_scan`` against its plain version on the same
+    inputs, in bf16 and float32, y and the final state within ``RS_TOL``;
+    the float32 plain run is timed once with CUDA events.  With ``timed``,
+    the kernel in float32 with CUDA events (the inputs of (b) and (c) are
+    over 400 MB, beyond the 50 MB L2), beside the bound."""
+    import torch
+
+    from repro_torch.kernels import rwkv_scan as rs
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = rwkv_inputs(gen, b, s, h, hd, device, strided=strided)
+    absx = [t.abs() for t in x]
+    scale_y, scale_s = rs.rwkv_scan_plain(*absx)
+    del absx
+    out = {"shape": f"B={b},S={s},H={h},hd={hd},strided={strided}",
+           "err": 0.0, "ratio": 0.0}
+    for dt in ("bfloat16", "float32"):
+        xd = [t.to(getattr(torch, dt)) for t in x[:4]] + x[4:]
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        want_y, want_s = rs.rwkv_scan_plain(*xd)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        if dt == "float32":
+            out["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        got_y, got_s = rs.rwkv_scan(*xd)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        label = f"rwkv_scan {what} {dt}"
+        ey, ry = rwkv_close(got_y, want_y, scale_y, dt, f"{label} y")
+        es, r_s = rwkv_close(got_s, want_s, scale_s, "float32",
+                             f"{label} state")
+        out["err"] = max(out["err"], ey, es)
+        out["ratio"] = max(out["ratio"], ry, r_s)
+        say(f"  ok {label} {out['shape']}: max abs err y {ey:.3e} "
+            f"({ry:.3f} of the tolerance), state {es:.3e} ({r_s:.3f})")
+        del xd, want_y, want_s, got_y, got_s
+    if not timed or device.type != "cuda":
+        return out
+    out["ms"] = cuda_ms(lambda: rs.rwkv_scan(*x),
+                        launches=20 if s <= 4096 else 3, rounds=3, warmup=1)
+    out["library_ms"] = None
+    out["bound_ms"], out["bound_by"], cost = rwkv_bound(b, s, h, hd, 4)
+    out.update(flops=cost["flops"], bytes=cost["bytes_accessed"])
+    say(f"  time rwkv_scan {what} float32 {out['shape']} (CUDA events): "
+        f"kernel {out['ms']:.6f} ms, plain (one run) "
+        f"{out['plain_ms']:.3f} ms; bound {out['bound_ms']:.6f} ms by "
+        f"{out['bound_by']} ({cost['flops']:.4g} flop at 67 TFLOP/s, "
+        f"{cost['bytes_accessed']:.4g} B at 3.35 TB/s); no single PyTorch "
+        f"call computes it")
+    return out
+
+
+def time_main_path_rwkv(device, cfg) -> dict:
+    """The served shapes (B=4, ``rwkv_n_heads`` heads of
+    ``rwkv_head_dim``; an 8-token prefill and a 1-token decode step) in
+    float32, as the model calls the scan: the kernel as device time (CUDA
+    graph) and back to back, the plain version as device time, and
+    the bound."""
+    import torch
+
+    from repro_torch.kernels import rwkv_scan as rs
+
+    b, h, hd = 4, cfg.rwkv_n_heads, cfg.rwkv_head_dim
+    gen = torch.Generator(device=device).manual_seed(4)
+    res = {}
+    for name, s in (("prefill", 8), ("decode", 1)):
+        x = rwkv_inputs(gen, b, s, h, hd, device)
+        r = {"shape": f"B={b},S={s},H={h},hd={hd},float32"}
+        r["ms"] = graph_ms(lambda: rs.rwkv_scan(*x))
+        r["eager_ms"] = cuda_ms(lambda: rs.rwkv_scan(*x), launches=200)
+        r["plain_ms"] = graph_ms(lambda: rs.rwkv_scan_plain(*x), calls=8)
+        r["library_ms"] = None
+        r["bound_ms"], r["bound_by"], _ = rwkv_bound(b, s, h, hd, 4)
+        say(f"  time rwkv_scan main path {name} {r['shape']} (device time, "
+            f"CUDA graph): kernel {r['ms']:.6f} ms, plain "
+            f"{r['plain_ms']:.6f} ms; bound "
+            f"{r['bound_ms']:.6f} ms by {r['bound_by']}; back to back "
+            f"(host work between calls) {r['eager_ms']:.6f} ms")
+        res[name] = r
+    return res
+
+
+def rwkv_vs_plain(device, cfg, full: bool = True) -> dict:
+    """Phase 11: ``rwkv_scan`` against its plain version at (a) the served
+    shapes of ``cfg`` (B=4, an 8-token prefill and a 1-token decode step),
+    a ragged length no chunk divides, strided views and head dims 16 and
+    32, and with ``full`` (b) a 2048-token prompt (B=4) and (c) a
+    32768-token sequence (B=1), timed."""
+    h, hd = cfg.rwkv_n_heads, cfg.rwkv_head_dim
+    res = {"a_prefill": rwkv_case(device, "(a)", 4, 8, h, hd),
+           "a_decode": rwkv_case(device, "(a)", 4, 1, h, hd)}
+    for i, dim in enumerate((16, 32, 64)):
+        res[f"ragged_hd{dim}"] = rwkv_case(device, "ragged", 2, 77, 3, dim,
+                                           strided=dim == 64, seed=i + 1)
+    if full:
+        res["b"] = rwkv_case(device, "(b)", 4, 2048, h, hd, timed=True)
+        res["c"] = rwkv_case(device, "(c)", 1, RWKV_LONG, h, hd,
+                             timed=True)
+    return res
+
+
+def rwkv_model_cpu_vs_card(device) -> float:
+    """The reduced float32 RWKV-6 model with the same weights on the CPU
+    (plain scan) and on the card (the kernel): prefill logits and every
+    state leaf, then 3 decode steps, within 1e-4 (float32, TF32 off; the
+    card sums in another order).  Returns the largest logit difference."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.rwkv6_3b import reduced
+    from repro_torch.models import transformer as tfm
+
+    cfg = reduced().replace(dtype="float32")
+    cpu = torch.device("cpu")
+    params = tfm.init_lm(cfg, torch.Generator().manual_seed(0), device=cpu)
+    on_card = {k: v.to(device) for k, v in params.items() if k != "layers"}
+    on_card["layers"] = [{p: {n: w.to(device) for n, w in part.items()}
+                          for p, part in layer.items()}
+                         for layer in params["layers"]]
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 11))
+    worst = 0.0
+    with torch.inference_mode():
+        a = tfm.lm_apply(params, cfg, torch.as_tensor(toks[:, :8]))
+        b = tfm.lm_apply(on_card, cfg, torch.as_tensor(toks[:, :8],
+                                                       device=device))
+        for i in range(4):
+            pairs = [(a.logits, b.logits)] + [
+                (x, y) for sa, sb in zip(a.caches, b.caches)
+                for x, y in zip(sa, sb)]
+            for x, y in pairs:
+                y = y.cpu()
+                worst = max(worst, float((x - y).abs().max()))
+                if not torch.allclose(x, y, rtol=1e-4, atol=1e-4):
+                    raise SmokeFailure(
+                        f"reduced RWKV model, step {i}: card differs from "
+                        f"CPU by {float((x - y).abs().max())}")
+            if i == 3:
+                break
+            tok = toks[:, 8 + i:9 + i]
+            a = tfm.lm_apply(params, cfg, torch.as_tensor(tok),
+                             mode="decode", caches=a.caches,
+                             cache_len=8 + i)
+            b = tfm.lm_apply(on_card, cfg, torch.as_tensor(tok,
+                                                           device=device),
+                             mode="decode", caches=b.caches,
+                             cache_len=8 + i)
+    say(f"  reduced RWKV model (hd {cfg.rwkv_head_dim}), card (kernel) vs "
+        f"CPU (plain), prefill and 3 decode steps, logits and states: ok "
+        f"(max abs diff {worst:.3e})")
+    return worst
+
+
+# --------------------------------------------------------------------- #
 # phases 4, 6, 7, 9 and 10: the model and the server                    #
 # --------------------------------------------------------------------- #
 def model_cpu_vs_card(device, backend: str = "blocks",
@@ -929,15 +1182,16 @@ def tenants(table):
 
 def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
           gen_tokens=4, expect_kernel=True) -> dict:
-    """Phases 4, 7 and 10: the fleet server over ``cfg`` on ``device``.
-    Every launch counter starts at 0 here and is read after the last
-    tick.  With ``expect_kernel`` the scoring kernel must launch once per
-    tick.  On the card, with ``cfg.nest_backend == "kernel"``,
+    """Phases 4, 7, 10 and 13: the fleet server over ``cfg`` on
+    ``device``.  Every launch counter starts at 0 here and is read after
+    the last tick.  With ``expect_kernel`` the scoring kernel must launch
+    once per tick.  On the card, with ``cfg.nest_backend == "kernel"``,
     ``nested_matmul`` must launch 7 * n_layers times per forward pass (one
-    per generated token), and with ``cfg.attn_backend == "kernel"``
+    per generated token), with ``cfg.attn_backend == "kernel"``
     ``flash_attention`` n_layers times per prefill forward and
-    ``decode_attention`` n_layers times per decode forward; otherwise
-    they must not launch at all."""
+    ``decode_attention`` n_layers times per decode forward, and for an
+    RWKV model ``rwkv_scan`` n_layers times per forward; otherwise they
+    must not launch at all."""
     import numpy as np
     import torch
 
@@ -946,6 +1200,7 @@ def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import nested_matmul as nm
+    from repro_torch.kernels import rwkv_scan as rs
     from repro_torch.models.registry import build_model
     from repro_torch.models.transformer import init_lm
     from repro_torch.serving.alert_server import FleetAlertServer
@@ -968,11 +1223,13 @@ def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
     nm.nested_matmul.launches = 0
     fa.flash_attention.launches = 0
     da.decode_attention.launches = 0
+    rs.rwkv_scan.launches = 0
     card = device.type == "cuda"
     per_forward = 7 * cfg.n_layers if (cfg.nest_backend == "kernel"
                                        and card) else 0
     attn_per_forward = cfg.n_layers if (cfg.attn_backend == "kernel"
                                         and card) else 0
+    rwkv_per_forward = cfg.n_layers if (cfg.rwkv and card) else 0
     t0 = time.perf_counter()
     srv = FleetAlertServer(engine, params,
                            level_accuracies=LEVEL_ACCURACIES[
@@ -1011,6 +1268,7 @@ def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
         nm_before = nm.nested_matmul.launches
         fa_before = fa.flash_attention.launches
         da_before = da.decode_attention.launches
+        rs_before = rs.rwkv_scan.launches
         t1 = time.perf_counter()
         outs = srv.serve_tick(prompts)
         dt = time.perf_counter() - t1
@@ -1021,6 +1279,11 @@ def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
         nm_tick = nm.nested_matmul.launches - nm_before
         fa_tick = fa.flash_attention.launches - fa_before
         da_tick = da.decode_attention.launches - da_before
+        rs_tick = rs.rwkv_scan.launches - rs_before
+        if rs_tick != rwkv_per_forward * forwards:
+            raise SmokeFailure(f"tick {tick}: rwkv_scan launched {rs_tick} "
+                               f"times for {forwards} forward passes, "
+                               f"expected {rwkv_per_forward} each")
         if nm_tick != per_forward * forwards:
             raise SmokeFailure(f"tick {tick}: nested_matmul launched "
                                f"{nm_tick} times for {forwards} forward "
@@ -1056,22 +1319,27 @@ def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
               f"nested_matmul launches {nm_tick} for {forwards} forwards, "
               f"flash_attention {fa_tick} for {prefills} prefills, "
               f"decode_attention {da_tick} for {forwards - prefills} "
-              f"decode steps")
+              f"decode steps, rwkv_scan {rs_tick}")
     launches = ks.alert_select.launches   # main path ends here
     nm_launches = nm.nested_matmul.launches
     fa_launches = fa.flash_attention.launches
     da_launches = da.decode_attention.launches
+    rs_launches = rs.rwkv_scan.launches
     if expect_kernel and counts != list(range(1, N_TICKS + 1)):
         raise SmokeFailure(f"alert_select launch counts per tick {counts}, "
                            f"expected one launch per tick")
-    say(f"  served {N_TICKS} ticks ({cfg.nest_backend} nest backend, "
-        f"{cfg.attn_backend} attention); alert_select launches {launches}, "
+    backends = "RWKV-6" if cfg.rwkv else (f"{cfg.nest_backend} nest "
+                                          f"backend, {cfg.attn_backend} "
+                                          f"attention")
+    say(f"  served {N_TICKS} ticks of {cfg.name} ({backends}); "
+        f"alert_select launches {launches}, "
         f"nested_matmul {nm_launches}, flash_attention {fa_launches}, "
-        f"decode_attention {da_launches} (profiling included)")
+        f"decode_attention {da_launches}, rwkv_scan {rs_launches} "
+        f"(profiling included)")
     return {"server": srv, "engine": engine, "params": params,
             "launches": launches, "nm_launches": nm_launches,
             "fa_launches": fa_launches, "da_launches": da_launches,
-            "tick_s": tick_s}
+            "rs_launches": rs_launches, "tick_s": tick_s}
 
 
 def harness_latencies(engines, params) -> dict:
@@ -1176,6 +1444,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     from repro_torch.configs.alert_anytime import CONFIG
+    from repro_torch.configs.rwkv6_3b import CONFIG as RWKV_CONFIG
     from repro_torch.kernels import alert_select as ks
     from repro_torch.kernels.build import build
     from repro_torch.models.registry import build_model
@@ -1196,7 +1465,7 @@ def main() -> int:
 
     phase.start("phase 2: build")
     built = build(["alert_select", "nested_matmul", "flash_attention",
-                   "decode_attention"])
+                   "decode_attention", "rwkv_scan"])
     for name, b in built.items():
         say(f"  {name}: {'reused' if b.reused else 'built'} in "
             f"{b.seconds:.3f} s -> {b.path.name}")
@@ -1271,6 +1540,20 @@ def main() -> int:
         f"{[round(t, 4) for t in run_k['tick_s']]} at {SERVE_DEPTH} layers; "
         f"all-kernel {[round(t, 4) for t in run_a['tick_s']]} at "
         f"{CONFIG.n_layers}")
+
+    phase.start("phase 11: rwkv_scan kernel vs plain version on the card")
+    rwkv = rwkv_vs_plain(device, RWKV_CONFIG)
+    rwkv_mp = time_main_path_rwkv(device, RWKV_CONFIG)
+
+    phase.start("phase 12: reduced RWKV-6 model on the card")
+    err_model_r = rwkv_model_cpu_vs_card(device)
+
+    phase.start("phase 13: serve rwkv6-3b")
+    say(f"  nvidia-smi: {nvidia_smi_line()}")
+    run_r = serve(device, RWKV_CONFIG)
+    say(f"  tick times (s): {[round(t, 4) for t in run_r['tick_s']]}; "
+        f"profiled generate latency at full power "
+        f"{run_r['server'].table.latency[0, -1]:.6f} s")
     phase.start(None)
     say(f"== done in {time.perf_counter() - t_start:.1f} s")
 
@@ -1314,6 +1597,24 @@ def main() -> int:
         "decode_attention", DA_SOURCE, DA_REPLACES, run_a["da_launches"],
         att["da"], "b", att_mp["decode_attention"]))
     kernels[-1]["reduced_model_max_abs_diff"] = err_model_a
+    b_case = rwkv["b"]
+    kernels.append({
+        "name": "rwkv_scan", "route": "cuda", "source": RS_SOURCE,
+        "replaces": RS_REPLACES, "launches": run_r["rs_launches"],
+        "max_abs_err": max(c["err"] for c in rwkv.values()),
+        "ms": b_case["ms"], "plain_ms": b_case["plain_ms"],
+        "bound_ms": b_case["bound_ms"], "bound_by": b_case["bound_by"],
+        "library_ms": None, "shape": b_case["shape"] + ",float32",
+        "max_tolerance_ratio": max(c["ratio"] for c in rwkv.values()),
+        "other_shapes": {"c": {k: v for k, v in rwkv["c"].items()
+                               if k not in ("err", "ratio")}},
+        "main_path": rwkv_mp,
+        "reduced_model_max_abs_diff": err_model_r,
+        "serve": {"model": RWKV_CONFIG.name,
+                  "alert_select_launches": run_r["launches"],
+                  "tick_s": run_r["tick_s"],
+                  "profiled_latency_s": float(
+                      run_r["server"].table.latency[0, -1])}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
-"""ModelConfig of the port: the fields the dense width-nested LM reads
-(a subset of ``repro.configs.base.ModelConfig``, same names and
-defaults; embeddings are untied)."""
+"""ModelConfig of the port: the fields the dense width-nested LM and the
+RWKV-6 family read (a subset of ``repro.configs.base.ModelConfig``, same
+names and defaults; embeddings are untied)."""
 
 from __future__ import annotations
 
@@ -19,6 +19,9 @@ class ModelConfig:
     vocab: int
     rope_theta: float = 1e4
     attn_logit_softcap: float | None = None
+    rwkv: bool = False                   # RWKV-6 mixer in every layer
+    rwkv_head_dim: int = 64
+    rwkv_decay_lora: int = 64
     nest_levels: int = 1                 # width nesting; 1 = off
     dtype: str = "bfloat16"
     norm_eps: float = 1e-6
@@ -27,12 +30,26 @@ class ModelConfig:
     nest_backend: str = "blocks"         # blocks | masked | kernel
 
     def __post_init__(self):
-        if self.nest_levels < 2:
+        if self.rwkv:
+            if self.nest_levels != 1:
+                raise ValueError("the port runs RWKV models without width "
+                                 "nesting (nest_levels == 1)")
+            if self.d_model % self.rwkv_head_dim:
+                raise ValueError("d_model must divide into rwkv heads")
+        elif self.nest_levels < 2:
             raise ValueError("the port runs width-nested models "
-                             "(nest_levels >= 2) only")
+                             "(nest_levels >= 2) and RWKV models only")
         if self.attn_backend not in ("ref", "kernel"):
             raise ValueError(f"attn_backend must be 'ref' or 'kernel', not "
                              f"{self.attn_backend!r}")
+
+    @property
+    def rwkv_n_heads(self) -> int:
+        return self.d_model // self.rwkv_head_dim
+
+    def mixer_kind(self, layer: int) -> str:
+        """Which sequence mixer layer ``layer`` (0-based) uses."""
+        return "rwkv" if self.rwkv else "attn"
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

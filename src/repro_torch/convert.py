@@ -7,8 +7,9 @@ stacks layers per period position for ``lax.scan``
 (``params["group"]["pos<p>"]``, leading axis = repeat) and keeps
 remainder layers as ``params["rem<i>"]``; layer ``rep * period + pos``
 of the stack is unstacked into ``layers[rep * period + pos]`` and the
-remainders follow.  Matrices keep the reference's ``[in, out]`` layout
-(used as ``x @ W``), so nothing is transposed.
+remainders follow.  An RWKV layer keeps its whole block in ``"mixer"``
+and has an empty ``"ffn"``.  Matrices keep the reference's ``[in, out]``
+layout (used as ``x @ W``), so nothing is transposed.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> dict:
     n_pos = len(group)
     n_rep = 0
     if n_pos:
-        first = group["pos0"]["mixer"]["wq"]
+        first = next(iter(group["pos0"]["mixer"].values()))
         n_rep = np.asarray(first).shape[0]
     for rep in range(n_rep):
         for pos in range(n_pos):

@@ -1,0 +1,31 @@
+"""Input checks that the kernel wrappers share."""
+
+from __future__ import annotations
+
+import torch
+
+# dtype codes of the kernels in csrc/ that take both dtypes
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_rows(name: str, *tensors: torch.Tensor) -> None:
+    """One device, one dtype the kernels take, unit stride on the last
+    dim, and every row 16-byte aligned (the kernels load 16 bytes at a
+    time)."""
+    dev, dtype = tensors[0].device, tensors[0].dtype
+    if dtype not in DTYPE_CODE:
+        raise ValueError(f"{name}: takes float32 or bfloat16, not {dtype}")
+    for t in tensors:
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{name}: all inputs on one device in one "
+                             f"dtype; got {t.dtype} on {t.device} beside "
+                             f"{dtype} on {dev}")
+    if dev.type != "cuda":
+        return
+    for t in tensors:
+        item = t.element_size()
+        if (t.stride(-1) != 1 or t.data_ptr() % 16
+                or any(s * item % 16 for s in t.stride()[:-1])):
+            raise ValueError(f"{name}: needs unit stride on the last dim "
+                             f"and 16-byte aligned rows; got stride "
+                             f"{t.stride()} at {t.data_ptr():#x}")

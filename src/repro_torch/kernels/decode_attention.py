@@ -31,8 +31,8 @@ import numbers
 import numpy as np
 import torch
 
-from repro_torch.kernels.flash_attention import (DTYPE_CODE, check_head_dim,
-                                                 check_rows)
+from repro_torch.kernels.checks import DTYPE_CODE, check_rows
+from repro_torch.kernels.flash_attention import check_head_dim
 
 
 def _check(q, k, v, window) -> None:

@@ -28,8 +28,8 @@ import ctypes
 
 import torch
 
-# dtype codes of csrc/flash_attention.cu and csrc/decode_attention.cu
-DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+from repro_torch.kernels.checks import DTYPE_CODE, check_rows
+
 MAX_HEAD_DIM = 256
 
 
@@ -39,29 +39,6 @@ def check_head_dim(hd: int, name: str) -> None:
     if hd % 8 or not 8 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"{name}: head_dim {hd} is not a multiple of 8 in "
                          f"8..{MAX_HEAD_DIM}")
-
-
-def check_rows(name: str, *tensors: torch.Tensor) -> None:
-    """One device, one dtype the kernels take, unit stride on the head
-    dim, and every row 16-byte aligned (the kernels load 16 bytes at a
-    time)."""
-    dev, dtype = tensors[0].device, tensors[0].dtype
-    if dtype not in DTYPE_CODE:
-        raise ValueError(f"{name}: takes float32 or bfloat16, not {dtype}")
-    for t in tensors:
-        if t.device != dev or t.dtype != dtype:
-            raise ValueError(f"{name}: all inputs on one device in one "
-                             f"dtype; got {t.dtype} on {t.device} beside "
-                             f"{dtype} on {dev}")
-    if dev.type != "cuda":
-        return
-    for t in tensors:
-        item = t.element_size()
-        if (t.stride(-1) != 1 or t.data_ptr() % 16
-                or any(s * item % 16 for s in t.stride()[:-1])):
-            raise ValueError(f"{name}: needs unit stride on the head dim "
-                             f"and 16-byte aligned rows; got stride "
-                             f"{t.stride()} at {t.data_ptr():#x}")
 
 
 def _check(q, k, v, window, softcap) -> None:

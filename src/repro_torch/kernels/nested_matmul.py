@@ -31,9 +31,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.nesting import StripeSpec
+from repro_torch.kernels.checks import DTYPE_CODE
 
-# dtype codes of csrc/nested_matmul.cu
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_LEVELS = 8          # NM_MAX_LEVELS of the source
 
 
@@ -153,7 +152,7 @@ def _geometry(in_spec: StripeSpec, out_spec: StripeSpec, level: int):
 def _launch(x, w, in_spec, out_spec, level):
     ib, ob, n_cols, k_need = _geometry(in_spec, out_spec, level)
     dev = x.device
-    code = _DTYPE_CODE.get(x.dtype)
+    code = DTYPE_CODE.get(x.dtype)
     if (x.dim() != 2 or w.dim() != 2 or w.device != dev or w.dtype != x.dtype
             or code is None or x.stride(1) != 1 or w.stride(1) != 1
             or x.shape[1] < k_need or w.shape[0] < k_need

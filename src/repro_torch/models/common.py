@@ -1,6 +1,6 @@
-"""Shared model primitives: RMSNorm, rotary embeddings, init (port of
-``repro.models.common``).  Norm statistics and rotary angles are float32
-whatever the activation dtype, as in the reference."""
+"""Shared model primitives: RMSNorm, LayerNorm, rotary embeddings, init
+(port of ``repro.models.common``).  Norm statistics and rotary angles are
+float32 whatever the activation dtype, as in the reference."""
 
 from __future__ import annotations
 
@@ -14,6 +14,18 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(x.float().square(), dim=-1, keepdim=True)
     return (x * torch.rsqrt(var + eps).to(x.dtype)) * gamma
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis: float32 statistics (biased variance),
+    the normalised values cast back to ``x.dtype`` before ``* gamma +
+    beta``."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * gamma + beta
 
 
 def rope_freqs(head_dim: int, theta: float) -> np.ndarray:

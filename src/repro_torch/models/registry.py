@@ -1,5 +1,6 @@
 """Uniform model API (port of ``repro.models.registry`` for the LM
-family): ``build_model(cfg)`` ->
+families ported so far: ``dense`` width-nested anytime LMs and the ``ssm``
+family's RWKV-6): ``build_model(cfg)`` ->
 
     model.init(generator=None, device=None)   -> params
     model.prefill(params, batch)              -> (logits, caches)
@@ -28,7 +29,7 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    """The model API of a dense width-nested LM config."""
+    """The model API of a dense width-nested LM or an RWKV-6 config."""
 
     def prefill(params, batch):
         out = tfm.lm_apply(params, cfg, batch["tokens"], mode="prefill")

@@ -1,12 +1,16 @@
-"""Decoder-only width-nested anytime LM (port of the dense nested path of
-``repro.models.transformer``).
+"""Decoder-only LM (port of ``repro.models.transformer`` for the
+width-nested anytime LM and the RWKV-6 family).
 
 Parameters are a plain dict: ``embed [V, d]``, ``unembed [d, V]``,
-``final_norm [d]`` and ``layers``, a list with one
-``{"mixer": attention params, "ffn": MLP params}`` dict per layer (the
-reference stacks layers for ``lax.scan``; here they are a Python loop).
-``level`` selects the level-k prefix subnetwork: the whole pipeline runs
-on the ``d_k`` prefix of the residual stream.
+``final_norm [d]`` and ``layers``, a list with one ``{"mixer": ...,
+"ffn": ...}`` dict per layer (the reference stacks layers for
+``lax.scan``; here they are a Python loop).  ``cfg.mixer_kind(i)`` picks a
+layer's kind, as in the reference: ``"attn"`` layers hold nested
+attention and nested SwiGLU params and a KV cache; ``"rwkv"`` layers hold
+the time and channel mix in ``"mixer"``, an empty ``"ffn"``, and an
+``RwkvState`` cache.  For a nested model ``level`` selects the level-k
+prefix subnetwork: the whole pipeline runs on the ``d_k`` prefix of the
+residual stream.
 """
 
 from __future__ import annotations
@@ -20,13 +24,23 @@ from repro_torch.core.nesting import StripeSpec, prefix_rmsnorm
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.attention import KVCache
-from repro_torch.models.common import embed_init
+from repro_torch.models.common import embed_init, rms_norm
 
 
 class LMOutput(NamedTuple):
     logits: torch.Tensor
-    caches: list[KVCache]
+    caches: list[KVCache | rwkv_mod.RwkvState]
+
+
+def init_layer(cfg: ModelConfig, mixer: str, generator: torch.Generator,
+               device: torch.device) -> dict:
+    if mixer == "rwkv":
+        return {"mixer": rwkv_mod.rwkv_init(cfg, generator, device),
+                "ffn": {}}
+    return {"mixer": attn_mod.attn_init(cfg, generator, device),
+            "ffn": mlp_mod.mlp_init(cfg, generator, device)}
 
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
@@ -43,29 +57,41 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
         "unembed": embed_init((cfg.d_model, cfg.vocab), dtype, generator,
                               dev) * cfg.d_model ** -0.5,
     }
-    params["layers"] = [
-        {"mixer": attn_mod.attn_init(cfg, generator, dev),
-         "ffn": mlp_mod.mlp_init(cfg, generator, dev)}
-        for _ in range(cfg.n_layers)]
+    params["layers"] = [init_layer(cfg, cfg.mixer_kind(i), generator, dev)
+                        for i in range(cfg.n_layers)]
     return params
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                device=None) -> list[KVCache]:
-    """Zeroed ``[B, max_len, n_kv, head_dim]`` KV buffers, one per layer."""
+                device=None) -> list[KVCache | rwkv_mod.RwkvState]:
+    """One decode cache per layer: zeroed ``[B, max_len, n_kv, head_dim]``
+    KV buffers for attention, a zero ``RwkvState`` for RWKV."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return [KVCache(torch.zeros(shape, dtype=dtype, device=dev),
-                    torch.zeros(shape, dtype=dtype, device=dev))
-            for _ in range(cfg.n_layers)]
+    caches = []
+    for i in range(cfg.n_layers):
+        if cfg.mixer_kind(i) == "rwkv":
+            caches.append(rwkv_mod.rwkv_init_state(cfg, batch, dev))
+        else:
+            caches.append(KVCache(torch.zeros(shape, dtype=dtype, device=dev),
+                                  torch.zeros(shape, dtype=dtype,
+                                              device=dev)))
+    return caches
 
 
 def apply_layer(lp: dict, x: torch.Tensor, positions: torch.Tensor,
-                cfg: ModelConfig, *, cache: KVCache | None = None,
+                cfg: ModelConfig, mixer: str, *, cache=None,
                 cache_len: int | None = None, level: int | None = None):
-    """One pre-norm block (nested attention + nested SwiGLU).  Returns
-    ``(x, new_cache)``."""
+    """One pre-norm block: nested attention + nested SwiGLU, or the RWKV
+    time mix + channel mix.  Returns ``(x, new_cache)``."""
+    if mixer == "rwkv":
+        t, wkv, tail_t = rwkv_mod.rwkv_time_mix(lp["mixer"], x, cfg,
+                                                state=cache)
+        x = x + t
+        c, tail_c = rwkv_mod.rwkv_channel_mix(lp["mixer"], x, cfg,
+                                              state=cache)
+        return x + c, rwkv_mod.RwkvState(wkv, tail_t, tail_c)
     a, new_cache = attn_mod.nested_attention(
         lp["mixer"], x, positions, cfg, level=level, cache=cache,
         cache_len=cache_len)
@@ -75,16 +101,18 @@ def apply_layer(lp: dict, x: torch.Tensor, positions: torch.Tensor,
 
 
 def lm_apply(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
-             mode: str = "prefill", caches: list[KVCache] | None = None,
+             mode: str = "prefill", caches: list | None = None,
              cache_len: int | None = None,
              level: int | None = None) -> LMOutput:
-    """Forward pass at nesting ``level`` (default: the deepest).
+    """Forward pass at nesting ``level`` (default: the deepest; a model
+    without nesting takes ``None``).
 
     * ``mode='prefill'``: ``tokens [B, S]``, no caches in; the per-layer
-      k/v of the prompt come back (the serving engine copies them into
-      its ``max_len`` buffers).
+      k/v of the prompt (or the RWKV states after it) come back (the
+      serving engine merges them into its decode buffers).
     * ``mode='decode'``: ``tokens [B, 1]`` with ``caches`` and the int
-      ``cache_len``; the step's k/v are written into the caches in place.
+      ``cache_len``; an attention step's k/v are written into the caches
+      in place, an RWKV layer returns a new state.
 
     Returns ``[B, S, V]`` logits of the chosen level.
     """
@@ -98,16 +126,21 @@ def lm_apply(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     else:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = params["embed"][tokens]
-    d_spec = StripeSpec.pow2(cfg.d_model, cfg.nest_levels)
-    k = cfg.nest_levels if level is None else level
-    if k < cfg.nest_levels:
-        x = x[..., :d_spec.width(k)]
+    nested = cfg.nest_levels > 1
+    if nested:
+        d_spec = StripeSpec.pow2(cfg.d_model, cfg.nest_levels)
+        k = cfg.nest_levels if level is None else level
+        if k < cfg.nest_levels:
+            x = x[..., :d_spec.width(k)]
     new_caches = []
     for i, lp in enumerate(params["layers"]):
-        x, nc = apply_layer(lp, x, positions, cfg,
+        x, nc = apply_layer(lp, x, positions, cfg, cfg.mixer_kind(i),
                             cache=caches[i] if decode else None,
                             cache_len=cache_len if decode else None,
                             level=level)
         new_caches.append(nc)
+    if not nested:
+        h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return LMOutput(h @ params["unembed"], new_caches)
     hk = prefix_rmsnorm(x, params["final_norm"], d_spec, k, cfg.norm_eps)
     return LMOutput(hk @ params["unembed"][:d_spec.width(k), :], new_caches)

@@ -35,7 +35,8 @@ from repro_torch.serving.engine import ServeEngine
 
 @dataclasses.dataclass
 class ServedInput:
-    """One served request: executed level, booked power cap, realised
+    """One served request: executed level (0 for a model without
+    nesting, as in the reference), booked power cap, realised
     latency/accuracy/energy, and whether the controller's pick was
     feasible."""
 
@@ -57,7 +58,8 @@ def profile_serve_table(engine: ServeEngine, params,
                         gen_tokens: int = 4) -> ProfileTable:
     """t^train profiling: measure each anytime level with ``generate``
     (one warmup, then ``profile_iters`` runs) and extrapolate across power
-    buckets with the compute-bound 1/f rule."""
+    buckets with the compute-bound 1/f rule.  A model without nesting is
+    one candidate that is no anytime level, so only power adapts."""
     cfg = engine.model.cfg
     levels = engine.levels
     base = np.zeros(len(levels))
@@ -72,10 +74,12 @@ def profile_serve_table(engine: ServeEngine, params,
 
     caps, lat, pw = extrapolate_power_buckets(base, power_model,
                                               n_power_buckets)
+    nested = cfg.nest_levels > 1
     cands = [
         Candidate(name=f"level{lvl}", flops=0.0, bytes_hbm=0.0,
-                  accuracy=level_accuracies[li], is_anytime_level=True,
-                  anytime_group="anytime", level=li + 1)
+                  accuracy=level_accuracies[li], is_anytime_level=nested,
+                  anytime_group="anytime" if nested else None,
+                  level=li + 1)
         for li, lvl in enumerate(levels)]
     return ProfileTable(cands, caps, lat, pw, q_fail=q_fail)
 
@@ -125,7 +129,7 @@ class AlertServer:
         self.controller.observe(
             run_t, deadline_missed=missed,
             idle_power=0.25 * p, delivered_accuracy=acc)
-        out = ServedInput(level=lvl, power_cap=d.power_cap,
+        out = ServedInput(level=lvl or 0, power_cap=d.power_cap,
                           latency=lat, missed=missed, accuracy=acc,
                           energy=energy, feasible=d.feasible)
         self.history.append(out)
@@ -320,7 +324,7 @@ class FleetAlertServer:
             observed[s], missed[s], accs[s] = run_t, miss, acc
             active_p[s] = p
             outs[s] = ServedInput(
-                level=lvl, power_cap=cap_w, latency=lat,
+                level=lvl or 0, power_cap=cap_w, latency=lat,
                 missed=bool(miss), accuracy=float(acc),
                 energy=float(energy), feasible=bool(batch.feasible[s]))
 

@@ -1,9 +1,10 @@
-"""Serving engine: batched prefill + KV-cached greedy decode, one program
+"""Serving engine: batched prefill + cached greedy decode, one program
 per anytime level (port of ``repro.serving.engine``).
 
 PyTorch runs eagerly, so a "program per level" is simply ``lm_apply`` at
 that level; caches are sized to the level's KV width, since the controller
-fixes a request's level for its whole generation.
+fixes a request's level for its whole generation.  A model without
+nesting (RWKV-6) has the one level ``None``.
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ from repro_torch.models.registry import Model
 
 @dataclasses.dataclass
 class ServeEngine:
-    """Per-level serving of one width-nested model on ``device`` (default
-    ``"cuda"``): prefill, then greedy KV-cached decode."""
+    """Per-level serving of one model on ``device`` (default ``"cuda"``):
+    prefill, then greedy cached decode."""
 
     model: Model
     max_len: int
@@ -31,10 +32,13 @@ class ServeEngine:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        self.levels = list(range(1, self.model.cfg.nest_levels + 1))
+        cfg = self.model.cfg
+        self.levels = list(range(1, cfg.nest_levels + 1)) \
+            if cfg.nest_levels > 1 else [None]
 
     def init_caches(self, level: int | None = None):
-        """Fresh decode caches sized to ``level``'s KV width."""
+        """Fresh KV decode caches of a nested model, sized to ``level``'s
+        KV width."""
         from repro_torch.models.attention import head_stripe_specs
 
         cfg = self.model.cfg
@@ -51,9 +55,10 @@ class ServeEngine:
                  clock=None) -> dict:
         """Greedy-decode ``n_new`` tokens after ``prompt [B, S0]``.
 
-        ``level`` None runs the deepest level.  A deadline (seconds on
-        ``clock``, default ``time.perf_counter``) makes generate return the
-        tokens complete at expiry.  Each step's token is copied to the
+        ``level`` None runs the deepest level (a model without nesting has
+        no other).  A deadline (seconds on ``clock``, default
+        ``time.perf_counter``) makes generate return the tokens complete at
+        expiry.  Each step's token is copied to the
         host before the next clock read, which waits for the card, so
         deadline checks and the reported latency include the compute.
         """
@@ -61,14 +66,18 @@ class ServeEngine:
             clock = time.perf_counter
         t0 = clock()
         cfg = self.model.cfg
-        lvl = level if level is not None else cfg.nest_levels
+        lvl = level if level is not None or cfg.nest_levels == 1 \
+            else cfg.nest_levels
         s0 = prompt.shape[1]
         with torch.inference_mode():
             tokens = torch.as_tensor(np.asarray(prompt, np.int64),
                                      device=self.device)
             out = tfm.lm_apply(params, cfg, tokens, mode="prefill",
                                level=lvl)
-            caches = self._merge(self.init_caches(lvl), out.caches)
+            # A model without nesting (RWKV-6) carries fixed-size states
+            # that decode continues from as they are.
+            caches = out.caches if cfg.nest_levels == 1 else \
+                self._merge(self.init_caches(lvl), out.caches)
             next_tok = torch.argmax(out.logits[:, -1:], dim=-1)
             toks = [next_tok.cpu().numpy().astype(np.int32)]
             for i in range(n_new - 1):

@@ -334,3 +334,93 @@ def test_all_kernel_model_on_card_matches_cpu(cuda_device):
                              attn_backend="kernel") < 1e-4
     assert fa.flash_attention.launches > before[0]
     assert da.decode_attention.launches > before[1]
+
+
+# --------------------------------------------------------------------- #
+# rwkv_scan                                                              #
+# --------------------------------------------------------------------- #
+RWKV_CARD = {  # (b, s, h, hd, strided)
+    "main-path-prefill": (4, 8, 40, 64, False),
+    "main-path-decode": (4, 1, 40, 64, False),
+    "ragged-hd16": (2, 77, 3, 16, False),
+    "ragged-hd32": (3, 45, 2, 32, False),
+    "ragged-hd64-strided": (2, 77, 3, 64, True),
+    "strided-hd16": (1, 33, 4, 16, True),
+    "long-hd64": (1, 1000, 5, 64, False),
+}
+
+
+@pytest.mark.parametrize("case", list(RWKV_CARD))
+def test_rwkv_scan_matches_plain(cuda_device, case):
+    """bf16 and float32, y and the final state within
+    chip_smoke.RS_TOL (rwkv_case also raises past it); strided cases read
+    r/k/v/w as views of one [B,S,4*H*hd] tensor."""
+    from chip_smoke import rwkv_case
+
+    b, s, h, hd, strided = RWKV_CARD[case]
+    assert rwkv_case(cuda_device, case, b, s, h, hd,
+                     strided=strided)["ratio"] <= 1.0
+
+
+def _rwkv_inputs(device, b=2, s=9, h=3, hd=32):
+    from chip_smoke import rwkv_inputs
+
+    gen = torch.Generator(device=device).manual_seed(9)
+    return rwkv_inputs(gen, b, s, h, hd, device)
+
+
+def test_rwkv_scan_counts_launches_and_allocates_only_outputs(cuda_device):
+    from repro_torch.kernels import rwkv_scan as rs
+
+    x = _rwkv_inputs(cuda_device)
+    rs.rwkv_scan(*x)
+    torch.cuda.synchronize()
+    before = rs.rwkv_scan.launches
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    y, s_n = rs.rwkv_scan(*x)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda_device) - base
+    assert peak <= y.numel() * 4 + s_n.numel() * 4 + 4096
+    assert rs.rwkv_scan.launches == before + 1
+    assert y.dtype == torch.float32 and s_n.dtype == torch.float32
+    rs.rwkv_scan_plain(*x)
+    assert rs.rwkv_scan.launches == before + 1
+
+
+def test_rwkv_scan_rejects_without_fallback(cuda_device):
+    """What the kernel does not take raises; nothing runs the plain
+    version instead."""
+    from repro_torch.kernels import rwkv_scan as rs
+
+    r, k, v, w, u, s0 = _rwkv_inputs(cuda_device)
+    odd = torch.empty(r.numel() + 1, dtype=r.dtype,
+                      device=cuda_device)[1:].view(r.shape)
+    odd.copy_(r)
+    bad = {
+        "alignment": ((odd, k, v, w, u, s0), "aligned"),
+        "head_dim": ((r[..., :8], k[..., :8], v[..., :8], w[..., :8],
+                      u[:, :8], s0[..., :8, :8]), "head_dim"),
+        "dtype": ((r.half(), k.half(), v.half(), w.half(), u, s0),
+                  "float32 or bfloat16"),
+        "mixed devices": ((r, k.cpu(), v, w, u, s0), "one device"),
+        "state dtype": ((r, k, v, w, u, s0.double()), "float32"),
+    }
+    before = rs.rwkv_scan.launches
+    for what, (args, match) in bad.items():
+        with pytest.raises(ValueError, match=match):
+            rs.rwkv_scan(*args)
+    assert rs.rwkv_scan.launches == before
+
+
+def test_rwkv_model_on_card_matches_cpu(cuda_device):
+    """The reduced float32 RWKV-6 model (hd 32) on the card, its scans on
+    the kernel, within 1e-4 of the CPU's plain scans: prefill and 3
+    decode steps, logits and every state leaf."""
+    from chip_smoke import rwkv_model_cpu_vs_card
+    from repro_torch.kernels import rwkv_scan as rs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = rs.rwkv_scan.launches
+    assert rwkv_model_cpu_vs_card(cuda_device) < 1e-4
+    assert rs.rwkv_scan.launches == before + 4 * 2   # 4 forwards x 2 layers
