@@ -49,10 +49,22 @@ Phases (each prints its own lines; any mismatch exits nonzero):
    cache with ragged per-row lengths); (c) gemma3-1b's attention geometry
    (h=4, kv=1, hd=256: prefill B=1, S=T=4096, causal with window 512, and
    once more with softcap 50; decode B=4 over a 32768 cache, global and
-   with window 512).  Times (b) and (c) in bf16 with CUDA events over
-   input sets rotated beyond the 50 MB L2: kernel, plain version and
-   ``scaled_dot_product_attention`` (the library yardstick, which the port
-   never calls), beside the bound; and the served shapes as device time.
+   with window 512); then the split and padding paths (decode at B=1
+   over a 32768 cache with 8 query heads on one kv head, ragged rows
+   [32768, 31, 0, 4097], a window over per-row lengths; prefill at hd 8,
+   40, 72 and 128, a ragged causal S=100, a window at S=1000, and at hd
+   96 past one key tile (the ``wgmma`` kernel) with softcap 50 and
+   without the causal mask).  Each decode call's kernels are read back
+   from a CUDA graph of the call (names and grids through the driver
+   API), printed with the splits and blocks they show, and must be the
+   split plan's: the split kernel, and the combine exactly when the plan
+   splits.  Times (b) and (c) in bf16 as device time (a CUDA graph of
+   calls over input sets rotated beyond the 50 MB L2): kernel and
+   ``scaled_dot_product_attention`` (the library yardstick, which the
+   port never calls), both also back to back (host work between calls),
+   the plain version back to back, the bound, and the TFLOP/s or GB/s
+   reached with its share of the bound; and the served shapes as device
+   time.
 9. the reduced float32 model with the ``kernel`` nest backend and
    ``attn_backend="kernel"`` on the card against the same model with
    ``blocks``/``ref`` on the CPU, within 1e-4 (head_dim 8).
@@ -115,6 +127,12 @@ FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention.py:86"
 DA_SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
 DA_REPLACES = "src/repro/kernels/decode_attention.py:74"
+FA_VERSION = ("v2: bf16 on the tensor cores (FlashAttention-2 design, "
+              "2-stage cp.async ring): wgmma at hd 72-96 past one key "
+              "tile, mma.sync otherwise; float32 on the CUDA cores as v1")
+DA_VERSION = ("v4: split-K flash-decoding (runs of whole tiles across "
+              "blocks, then a combine kernel); one split at the served "
+              "shapes")
 RS_SOURCE = "src/repro_torch/kernels/csrc/rwkv_scan.cu"
 RS_REPLACES = "src/repro/kernels/rwkv_scan.py:59"
 # float32 FMAs outside the tensor cores (NVIDIA H100 SXM data sheet), the
@@ -257,6 +275,65 @@ def host_us_per_call(fn, calls: int = 200) -> float:
     dt = time.perf_counter() - t0
     torch.cuda.synchronize()
     return dt / calls * 1e6
+
+
+def captured_kernels(fn) -> list[tuple[str, tuple[int, int, int]]]:
+    """``(function name, grid)`` of each kernel that one ``fn()`` call
+    launches, read back through the driver API (``cuGraphGetNodes`` and
+    each kernel node's parameters) from a CUDA graph of that call: what
+    the call really launched, not what its caller planned."""
+    import ctypes
+
+    import torch
+
+    class NodeParams(ctypes.Structure):     # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                    ("block", ctypes.c_uint * 3),
+                    ("shared_mem_bytes", ctypes.c_uint),
+                    ("kernel_params", ctypes.c_void_p),
+                    ("extra", ctypes.c_void_p), ("kern", ctypes.c_void_p),
+                    ("ctx", ctypes.c_void_p)]
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc: int, what: str) -> None:
+        if rc != 0:
+            raise SmokeFailure(f"{what}: CUDA driver error {rc}")
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)),
+          "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)),
+          "cuGraphGetNodes")
+    out = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        if kind.value != 0:                      # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        par = NodeParams()
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                               ctypes.byref(par)),
+              "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if par.func:
+            check(cu.cuFuncGetName(ctypes.byref(name),
+                                   ctypes.c_void_p(par.func)), "cuFuncGetName")
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name),
+                                     ctypes.c_void_p(par.kern)),
+                  "cuKernelGetName")
+        out.append((name.value.decode(), tuple(par.grid)))
+    del graph
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -647,6 +724,15 @@ def bound(cost: dict) -> tuple[float, str]:
                                  else "bytes")
 
 
+def achieved(cost: dict, timing: dict) -> dict:
+    """The rates a timed case reached: TFLOP/s and GB/s of its cost over
+    the kernel's time, and the bound's share of that time."""
+    ms = timing["ms"]
+    return {"tflop_s": cost["flops"] / ms / 1e9,
+            "gb_s": cost["bytes_accessed"] / ms / 1e6,
+            "bound_share": timing["bound_ms"] / ms}
+
+
 def sdpa_prefill(q, k, v, causal, window):
     """``scaled_dot_product_attention`` on the port's layout, as the
     library yardstick: heads moved in front by views made here (outside
@@ -725,7 +811,9 @@ def flash_case(device, what, b, s, h, kv, hd, *, causal=True, window=None,
     per_set = 2 * (b * s * h * hd + 2 * b * s * kv * hd)
     sets = randn_sets(gen, shapes, dtype, device,
                       max(1, math.ceil(2 * L2_BYTES / per_set)))
-    out["ms"] = cuda_ms(rotating(lambda q, k, v: fa.flash_attention(
+    out["ms"] = graph_ms(rotating(lambda q, k, v: fa.flash_attention(
+        q, k, v, **kw), sets), calls=12)
+    out["eager_ms"] = cuda_ms(rotating(lambda q, k, v: fa.flash_attention(
         q, k, v, **kw), sets), launches=10)
     out["plain_ms"] = cuda_ms(rotating(lambda q, k, v:
                                        fa.flash_attention_plain(
@@ -734,18 +822,25 @@ def flash_case(device, what, b, s, h, kv, hd, *, causal=True, window=None,
     out["library_ms"] = None
     if softcap is None:
         lib_sets = [(sdpa_prefill(*x, causal, window),) for x in sets]
-        out["library_ms"] = cuda_ms(rotating(lambda f: f(), lib_sets),
-                                    launches=10)
+        out["library_ms"] = graph_ms(rotating(lambda f: f(), lib_sets),
+                                     calls=12)
+        out["library_eager_ms"] = cuda_ms(rotating(lambda f: f(), lib_sets),
+                                          launches=10)
     cost = fa.flash_attention_cost(b, s, s, h, kv, hd, dtype, causal=causal,
                                    window=window)
     out["bound_ms"], out["bound_by"] = bound(cost)
     out.update(flops=cost["flops"], bytes=cost["bytes_accessed"],
-               input_sets=len(sets))
+               input_sets=len(sets), **achieved(cost, out))
     say(f"  time flash_attention {what} bf16 ({len(sets)} input sets in "
-        f"turn): kernel {out['ms']:.6f} ms, plain {out['plain_ms']:.6f} ms, "
+        f"turn, device time in a CUDA graph): kernel {out['ms']:.6f} ms "
+        f"({out['tflop_s']:.1f} TFLOP/s, {out['bound_share']:.3f} of the "
+        f"bound), plain {out['plain_ms']:.6f} ms (back to back), "
         f"scaled_dot_product_attention {out['library_ms']} ms; bound "
         f"{out['bound_ms']:.6f} ms by {out['bound_by']} "
-        f"({cost['flops']:.4g} flop, {cost['bytes_accessed']:.4g} B)")
+        f"({cost['flops']:.4g} flop, {cost['bytes_accessed']:.4g} B); back "
+        f"to back (host work between calls): kernel {out['eager_ms']:.6f} "
+        f"ms, scaled_dot_product_attention "
+        f"{out.get('library_eager_ms')} ms")
     return out
 
 
@@ -771,6 +866,10 @@ def decode_case(device, what, b, s, h, kv, hd, lens, *, window=None,
         got = da.decode_attention(q, k, v, cache_len, window=window)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+            out.update(decode_launched(
+                device, f"{what} {out['shape']} {dt}", b, s, h, kv, window,
+                lambda: da.decode_attention(q, k, v, cache_len,
+                                            window=window)))
         want = da.decode_attention_plain(q, k, v, cache_len, window=window)
         vscale = da.decode_attention_plain(q.float(), k.float(),
                                            v.float().abs(), cache_len,
@@ -791,24 +890,59 @@ def decode_case(device, what, b, s, h, kv, hd, lens, *, window=None,
                                     window=window)
     sets = randn_sets(gen, shapes, dtype, device, max(1, math.ceil(
         2 * L2_BYTES / (2 * 2 * b * s * kv * hd))))
-    out["ms"] = cuda_ms(rotating(lambda q, k, v: da.decode_attention(
+    out["ms"] = graph_ms(rotating(lambda q, k, v: da.decode_attention(
+        q, k, v, cache_len, window=window), sets), calls=20)
+    out["eager_ms"] = cuda_ms(rotating(lambda q, k, v: da.decode_attention(
         q, k, v, cache_len, window=window), sets), launches=20)
     out["plain_ms"] = cuda_ms(rotating(lambda q, k, v:
                                        da.decode_attention_plain(
                                            q, k, v, lens_t, window=window),
                                        sets), launches=5, rounds=3)
     lib_sets = [(sdpa_decode(*x, lens_t, window),) for x in sets]
-    out["library_ms"] = cuda_ms(rotating(lambda f: f(), lib_sets),
-                                launches=20)
+    out["library_ms"] = graph_ms(rotating(lambda f: f(), lib_sets),
+                                 calls=20)
+    out["library_eager_ms"] = cuda_ms(rotating(lambda f: f(), lib_sets),
+                                      launches=20)
     out["bound_ms"], out["bound_by"] = bound(cost)
     out.update(flops=cost["flops"], bytes=cost["bytes_accessed"],
-               input_sets=len(sets))
-    say(f"  time decode_attention {what} bf16 ({len(sets)} caches in turn): "
-        f"kernel {out['ms']:.6f} ms, plain {out['plain_ms']:.6f} ms, "
+               input_sets=len(sets), **achieved(cost, out))
+    say(f"  time decode_attention {what} bf16 ({len(sets)} caches in turn, "
+        f"device time in a CUDA graph): kernel {out['ms']:.6f} ms "
+        f"({out['gb_s']:.1f} GB/s, {out['bound_share']:.3f} of the bound), "
+        f"plain {out['plain_ms']:.6f} ms (back to back), "
         f"scaled_dot_product_attention {out['library_ms']:.6f} ms; bound "
         f"{out['bound_ms']:.6f} ms by {out['bound_by']} "
-        f"({cost['flops']:.4g} flop, {cost['bytes_accessed']:.4g} B)")
+        f"({cost['flops']:.4g} flop, {cost['bytes_accessed']:.4g} B); back "
+        f"to back (host work between calls): kernel {out['eager_ms']:.6f} "
+        f"ms, scaled_dot_product_attention {out['library_eager_ms']:.6f} ms")
     return out
+
+
+def decode_launched(device, what, b, s, h, kv, window, call) -> dict:
+    """The kernels one ``decode_attention`` call launched (read from a
+    CUDA graph of the call): the split kernel's grid gives the splits and
+    blocks; raises unless they are the plan's, with the combine launched
+    exactly when the plan splits, and nothing else launched."""
+    from repro_torch.kernels import decode_attention as da
+
+    plan, most = da.decode_split_plan(b, kv, h // kv, s, window,
+                                      da.sm_count(device))
+    launched = captured_kernels(call)
+    main = [grid for name, grid in launched
+            if "decode_attention_kernel" in name]
+    combine = [grid for name, grid in launched
+               if "decode_attention_combine" in name]
+    splits = main[0][0] // kv if len(main) == 1 else None
+    say(f"  launched decode_attention {what}: {len(launched)} CUDA "
+        f"launch(es), {[name[:40] for name, _ in launched]}, grids "
+        f"{[grid for _, grid in launched]}; {splits} split(s) (the plan: "
+        f"{plan} of at most {most} tile(s) each)")
+    if len(main) != 1 or splits != plan or len(combine) != (plan > 1) \
+            or len(launched) != 1 + (plan > 1):
+        raise SmokeFailure(f"decode_attention {what} launched {launched}, "
+                           f"not the plan's {plan} split(s)")
+    return {"splits": splits, "blocks": math.prod(main[0]),
+            "cuda_launches": len(launched)}
 
 
 def time_main_path_attention(device, cfg) -> dict:
@@ -848,8 +982,10 @@ def time_main_path_attention(device, cfg) -> dict:
     dec["shape"] = (f"B={b},S={slots},h=kv={n},cache_len={slots - 1},"
                     f"hd={hd},bf16")
     for name, r in (("flash_attention", pre), ("decode_attention", dec)):
+        r["bound_share"] = r["bound_ms"] / r["ms"]
         say(f"  time {name} main path {r['shape']} (device time, CUDA "
-            f"graph): kernel {r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, "
+            f"graph): kernel {r['ms']:.6f} ms ({r['bound_share']:.4f} of "
+            f"the bound), plain {r['plain_ms']:.6f} ms, "
             f"scaled_dot_product_attention {r['library_ms']:.6f} ms; bound "
             f"{r['bound_ms']:.9f} ms by {r['bound_by']}; back to back "
             f"(host work between calls) {r['eager_ms']:.6f} ms")
@@ -862,7 +998,12 @@ def attention_vs_plain(device, cfg, full: bool = True) -> dict:
     8}; decode over the 12-slot cache at cache_len 9-12, by value and per
     row), and with ``full`` (b) ``cfg`` at a 2048-token prompt and (c)
     gemma3-1b's attention geometry (h=4, kv=1, hd=256, window 512; shapes
-    only), timed.  Returns the cases by name."""
+    only), timed; then untimed, the split and padding paths: decode with
+    many splits at B=1 (h=8, kv=1), ragged rows with an empty one and a
+    window over per-row lengths; prefill at head dims 8, 40, 72 and 128
+    (zero padding in shared memory), a ragged causal S=100, a window at
+    S=1000, softcap 50 and no causal mask at S=200 (the wgmma path at hd
+    96).  Returns the cases by name."""
     hd, heads = cfg.head_dim, [2 ** i for i in range(cfg.nest_levels)]
     res = {"fa": {}, "da": {}}
     for n in heads:
@@ -886,6 +1027,25 @@ def attention_vs_plain(device, cfg, full: bool = True) -> dict:
                                         32768, timed=True)
     res["da"]["c_window"] = decode_case(device, "(c)", 4, 32768, 4, 1, 256,
                                         32768, window=512, timed=True)
+    for name, args, kw in (
+            ("split_b1", (1, 32768, 8, 1, 128, 32768), {}),
+            ("split_ragged", (4, 32768, 4, 1, 256, [32768, 31, 0, 4097]),
+             {}),
+            ("split_window_rows", (4, 32768, 4, 1, 256,
+                                   [32768, 3000, 600, 1]), {"window": 512})):
+        res["da"][name] = decode_case(device, name, *args, **kw)
+    for name, args, kw in (("pad_hd8", (2, 100, 2, 2, 8), {}),
+                           ("pad_hd40", (2, 100, 4, 2, 40), {}),
+                           ("pad_hd72", (2, 150, 4, 2, 72), {}),
+                           ("hd128", (2, 300, 4, 4, 128), {}),
+                           ("ragged_s100", (2, 100, 8, 8, hd), {}),
+                           ("window_s1000", (1, 1000, 2, 1, hd),
+                            {"window": 100}),
+                           ("softcap_s200", (2, 200, 4, 2, hd),
+                            {"softcap": 50.0}),
+                           ("bidirectional_s200", (2, 200, 4, 2, hd),
+                            {"causal": False})):
+        res["fa"][name] = flash_case(device, name, *args, **kw)
     return res
 
 
@@ -1412,22 +1572,28 @@ class Phases:
             say(f"== {title}")
 
 
-def attention_entry(name, source, replaces, launches, cases, headline,
-                    main_path) -> dict:
+def attention_entry(name, version, source, replaces, launches, cases,
+                    headline, main_path) -> dict:
     """The ``kernels`` line's entry of one attention kernel: headline
     numbers of the ``headline`` case, the other timed cases and the
     main-path times beside them."""
     h = cases[headline]
-    keys = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "flops", "bytes", "input_sets")
+    keys = ("shape", "ms", "eager_ms", "plain_ms", "library_ms",
+            "library_eager_ms", "bound_ms", "bound_by", "flops", "bytes",
+            "input_sets", "tflop_s", "gb_s", "bound_share", "splits",
+            "blocks", "cuda_launches")
     return {
-        "name": name, "route": "cuda", "source": source,
+        "name": name, "version": version, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
         "max_abs_err": max(c["err"] for c in cases.values()),
         "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
         "bound_by": h["bound_by"], "library_ms": h["library_ms"],
         "shape": h["shape"],
-        "other_shapes": {k: {f: c[f] for f in keys}
+        "max_tolerance_ratio": max(c["ratio"] for c in cases.values()),
+        **{f: h[f] for f in ("eager_ms", "library_eager_ms", "tflop_s",
+                             "gb_s", "bound_share", "splits", "blocks",
+                             "cuda_launches") if f in h},
+        "other_shapes": {k: {f: c[f] for f in keys if f in c}
                          for k, c in cases.items()
                          if "ms" in c and k != headline},
         "main_path": main_path}
@@ -1591,11 +1757,11 @@ def main() -> int:
                    "all-kernel": run_a["tick_s"]},
         "generate_s_by_level": harness})
     kernels.append(attention_entry(
-        "flash_attention", FA_SOURCE, FA_REPLACES, run_a["fa_launches"],
-        att["fa"], "b", att_mp["flash_attention"]))
+        "flash_attention", FA_VERSION, FA_SOURCE, FA_REPLACES,
+        run_a["fa_launches"], att["fa"], "b", att_mp["flash_attention"]))
     kernels.append(attention_entry(
-        "decode_attention", DA_SOURCE, DA_REPLACES, run_a["da_launches"],
-        att["da"], "b", att_mp["decode_attention"]))
+        "decode_attention", DA_VERSION, DA_SOURCE, DA_REPLACES,
+        run_a["da_launches"], att["da"], "b", att_mp["decode_attention"]))
     kernels[-1]["reduced_model_max_abs_diff"] = err_model_a
     b_case = rwkv["b"]
     kernels.append({

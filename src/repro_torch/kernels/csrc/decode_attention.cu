@@ -14,29 +14,45 @@
 // for 4*g*hd flops, about g flops per byte in bf16, so it is bound by the
 // bytes of the live cache (decode_attention_cost in the Python module):
 // 134 MB for a 32k-token cache at gemma3-1b's geometry, 0.040 ms at
-// 3.35 TB/s.  What keeps it from that bound is bytes in flight: each block
-// streams its cache through a 3-stage ring of cp.async copies, so about
-// two tiles are on their way while one is computed.  One block per (kv
-// head, batch row) is few blocks when B * kv is small (4 at gemma3-1b's
-// B=4, kv=1); splitting the cache across blocks (flash-decoding with a
-// combine step) is later work.
+// 3.35 TB/s.  Reaching that takes bytes in flight on every SM: one block
+// per (kv head, batch row) is only B * kv blocks (4 at gemma3-1b's B=4,
+// kv=1), each with about two tiles on their way, which pulled 65 GB/s.
 //
-// Design: 256 threads (8 warps) per block, carrying GM = 1, 2 or 4 query
-// heads of one kv head (g itself up to 2; more than 4 heads take more
-// blocks along z, each rereading the cache).  Tiles are 32 positions; warp w owns positions 4w..4w+3 of a
-// tile and lane c the head-dim columns 8c..8c+7, so one 16-byte (bf16) or
-// two (float32) shared loads give a lane its slice of a k or v row.  The
-// logit of a (head, position) is a warp sum; warp gi then runs head gi's
-// online softmax over the tile's 32 logits (one per lane); every warp
-// keeps its own partial accumulator over its positions, and the 8 partials
-// are summed through shared memory at the end.  A warp's 4 x GM logit
-// sums of a tile go through one interleaved butterfly of shuffles: done
-// one after another they were a dependent chain of up to 80 shuffles per
-// tile, which made a 32k-token cache take 3.3 ms on an H100, slower than
-// the plain version.  Positions outside the
-// live range are never read: the ring holds zeros there and their logits
-// are minus infinity, so a row with no live position comes out 0 (the
-// Pallas kernel, whose m starts at -1e30, gives a mean of v instead).
+// Design (flash-decoding): the n 32-position tiles that the live range of
+// a row touches are cut into `splits` runs of whole tiles, run j holding
+// tiles [j*n/splits, (j+1)*n/splits) (decode_split_plan in the Python
+// module picks `splits` on the host from the shapes alone, so that the
+// grid holds about 2 blocks per SM, one wave where 2 fit; cache_len is
+// never read back, and n is worked out on the device per row).  Each block
+// (kv head, split, batch row, head group) streams its run through a
+// 3-stage ring of cp.async copies and writes unnormalised float32
+// partials acc[hd], m and l per query head to a workspace [B,H,splits,
+// hd+2]; a run with no live position writes m = -inf, l = 0.  A second
+// kernel, decode_attention_combine, one block per (query head, batch
+// row), forms m* = max m_i, w_i = exp(m_i - m*) (0 where m_i = -inf) and
+// writes sum_i w_i acc_i / max(sum_i w_i l_i, 1e-30) in the input type.
+// With one split (the served shapes: B * kv blocks already cover the
+// short cache) the block writes the output itself: one launch, no
+// workspace.  p is rounded to the input type relative to the run's
+// running maximum, as the one-split kernel rounds relative to its own.
+//
+// The per-tile body: 256 threads (8 warps) per block, carrying GM = 1, 2 or
+// 4 query heads of one kv head (heads_per_block in the Python module picks
+// GM from g and passes it; more than GM heads take more blocks along z,
+// each rereading the cache).  Tiles are DA_BK = 32 positions (the Python
+// module's TILE, which checks decode_attention_tile() on loading); warp w
+// owns positions 4w..4w+3 of a tile and lane c the head-dim columns
+// 8c..8c+7, so one 16-byte (bf16) or two (float32) shared loads give a lane
+// its slice of a k or v row.  The logit of a (head, position) is a warp sum;
+// warp gi then runs head gi's online softmax over the tile's 32 logits (one
+// per lane); every warp keeps its own partial accumulator over its
+// positions, and the 8 partials are summed through shared memory at the
+// end.  A warp's 4 x GM logit sums of a tile go through one interleaved
+// butterfly of shuffles: done one after another they were a dependent chain
+// of up to 80 shuffles per tile.  Positions outside the live range are never
+// read: the ring holds zeros there and their logits are minus infinity, so
+// a row with no live position comes out 0 (the Pallas kernel, whose m
+// starts at -1e30, gives a mean of v instead).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -119,6 +135,19 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// A thread's 16-byte chunks of a [DA_BK][hd] tile: chunk threadIdx.x +
+// i * DA_THREADS is row r0 + i * dr (+ carries), chunk column c0 + i * dc
+// (mod cpr), worked out once so the tile loop divides nothing.
+struct ChunkWalk {
+  int r0, c0, dr, dc, cpr;
+  __device__ explicit ChunkWalk(int cpr_) : cpr(cpr_) {
+    r0 = threadIdx.x / cpr;
+    c0 = threadIdx.x - r0 * cpr;
+    dr = DA_THREADS / cpr;
+    dc = DA_THREADS - dr * cpr;
+  }
+};
+
 // Ask for positions k0 .. k0+DA_BK-1 of k and v into one ring stage
 // ([DA_BK][hd] each); positions outside [lo, hi) are zeroed instead.
 template <typename T>
@@ -126,12 +155,12 @@ __device__ __forceinline__ void fetch_tile(const T* __restrict__ kb,
                                            const T* __restrict__ vb,
                                            long long kss, long long vss,
                                            int k0, int lo, int hi, int hd,
-                                           T* ks, T* vs) {
+                                           const ChunkWalk& w, T* ks,
+                                           T* vs) {
   constexpr int E = 16 / sizeof(T);
-  const int cpr = hd / E;
-  for (int idx = threadIdx.x; idx < DA_BK * cpr; idx += DA_THREADS) {
-    const int r = idx / cpr, c = (idx - r * cpr) * E;
-    const int pos = k0 + r;
+  int r = w.r0, cc = w.c0;
+  while (r < DA_BK) {
+    const int c = cc * E, pos = k0 + r;
     T* kd = ks + r * hd + c;
     T* vd = vs + r * hd + c;
     if (pos >= lo && pos < hi) {
@@ -141,17 +170,29 @@ __device__ __forceinline__ void fetch_tile(const T* __restrict__ kb,
       *reinterpret_cast<uint4*>(kd) = make_uint4(0u, 0u, 0u, 0u);
       *reinterpret_cast<uint4*>(vd) = make_uint4(0u, 0u, 0u, 0u);
     }
+    r += w.dr;
+    cc += w.dc;
+    if (cc >= w.cpr) {
+      cc -= w.cpr;
+      ++r;
+    }
   }
 }
 
-// GM: query heads per block (1, 2 or 4, from g).
-template <typename T, int GM>
+// GM: query heads per block (1, 2 or 4).  SPLIT: blockIdx.x = kv
+// head + KV * split, split j of `splits` takes tiles [j * n / splits,
+// (j + 1) * n / splits) of the n its row's live range touches and writes
+// its partials to ws [B,H,splits,hd+2]; else (one split, the served
+// shapes: no split arithmetic before the first fetch) blockIdx.x is the kv
+// head and the block writes out.
+template <typename T, int GM, bool SPLIT>
 __global__ void __launch_bounds__(DA_THREADS) decode_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out, int S, int H, int G,
     int hd, long long qsb, long long qsh, long long ksb, long long kss,
     long long ksh, long long vsb, long long vss, long long vsh,
-    const int* __restrict__ lens, int len_value, int window, float scale) {
+    const int* __restrict__ lens, int len_value, int window, float scale,
+    int splits, float* __restrict__ ws) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int stage_elems = DA_BK * hd;
   T* ring = reinterpret_cast<T*>(smem_raw);  // [DA_STAGES][2][DA_BK][hd]
@@ -160,8 +201,14 @@ __global__ void __launch_bounds__(DA_THREADS) decode_attention_kernel(
   float* Ps = Ls + GM * DA_BK;                              // [GM][BK]
   float* alpha_s = Ps + GM * DA_BK;                         // [GM]
   float* l_s = alpha_s + GM;                                // [GM]
+  float* m_s = l_s + GM;                                    // [GM]
 
-  const int kvh = blockIdx.x, bi = blockIdx.y;
+  int split = 0, kvh = blockIdx.x;
+  if constexpr (SPLIT) {
+    split = blockIdx.x / (H / G);
+    kvh = blockIdx.x - split * (H / G);
+  }
+  const int bi = blockIdx.y;
   const int g0 = blockIdx.z * GM;
   const int ng = min(GM, G - g0);
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -170,8 +217,16 @@ __global__ void __launch_bounds__(DA_THREADS) decode_attention_kernel(
   const int len = lens ? lens[bi] : len_value;
   const int lo = window > 0 ? max(0, len - window) : 0;
   const int hi = min(len, S);
-  const int t_lo = lo / DA_BK;
-  const int nt = hi > lo ? (hi + DA_BK - 1) / DA_BK - t_lo : 0;
+  // This split's run of tiles of the row's live range.
+  const int row_nt = hi > lo ? (hi + DA_BK - 1) / DA_BK - lo / DA_BK : 0;
+  int j0 = 0, nt = row_nt;
+  if constexpr (SPLIT) {
+    j0 = static_cast<int>(static_cast<long long>(split) * row_nt / splits);
+    nt = static_cast<int>(static_cast<long long>(split + 1) * row_nt /
+                          splits) - j0;
+  }
+  const int t_lo = lo / DA_BK + j0;
+  const ChunkWalk walk(hd / (16 / static_cast<int>(sizeof(T))));
 
   const T* kb = k + bi * ksb + kvh * ksh;
   const T* vb = v + bi * vsb + kvh * vsh;
@@ -191,8 +246,8 @@ __global__ void __launch_bounds__(DA_THREADS) decode_attention_kernel(
   for (int st = 0; st < DA_STAGES - 1; ++st) {
     if (st < nt) {
       T* base = ring + st * 2 * stage_elems;
-      fetch_tile(kb, vb, kss, vss, (t_lo + st) * DA_BK, lo, hi, hd, base,
-                 base + stage_elems);
+      fetch_tile(kb, vb, kss, vss, (t_lo + st) * DA_BK, lo, hi, hd, walk,
+                 base, base + stage_elems);
     }
     cp_async_commit();
   }
@@ -213,8 +268,8 @@ __global__ void __launch_bounds__(DA_THREADS) decode_attention_kernel(
     const int nxt = it + DA_STAGES - 1;
     if (nxt < nt) {
       T* base = ring + (nxt % DA_STAGES) * 2 * stage_elems;
-      fetch_tile(kb, vb, kss, vss, (t_lo + nxt) * DA_BK, lo, hi, hd, base,
-                 base + stage_elems);
+      fetch_tile(kb, vb, kss, vss, (t_lo + nxt) * DA_BK, lo, hi, hd, walk,
+                 base, base + stage_elems);
     }
     cp_async_commit();
     cp_async_wait<DA_STAGES - 1>();
@@ -313,15 +368,72 @@ __global__ void __launch_bounds__(DA_THREADS) decode_attention_kernel(
         red[(warp * GM + gi) * hd + lane * 8 + e] = acc[gi][e];
     }
   }
-  if (warp < ng && lane == 0) l_s[warp] = l;
+  if (warp < ng && lane == 0) {
+    l_s[warp] = l;
+    m_s[warp] = m;
+  }
   __syncthreads();
   for (int o = threadIdx.x; o < ng * hd; o += DA_THREADS) {
     const int gi = o / hd, d = o - gi * hd;
     float sum = 0.f;
 #pragma unroll
     for (int w = 0; w < DA_WARPS; ++w) sum += red[(w * GM + gi) * hd + d];
-    out[(static_cast<long long>(bi) * H + kvh * G + g0 + gi) * hd + d] =
-        from_f32<T>(sum / fmaxf(l_s[gi], 1e-30f));
+    const long long row = static_cast<long long>(bi) * H + kvh * G + g0 + gi;
+    if constexpr (!SPLIT) {
+      out[row * hd + d] = from_f32<T>(sum / fmaxf(l_s[gi], 1e-30f));
+    } else {
+      float* part = ws + (row * splits + split) * (hd + 2);
+      part[d] = sum;
+      if (d == 0) {
+        part[hd] = m_s[gi];
+        part[hd + 1] = l_s[gi];
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float block_reduce(float x, float* red, bool mx) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float y = __shfl_xor_sync(0xffffffffu, x, o);
+    x = mx ? fmaxf(x, y) : x + y;
+  }
+  __syncthreads();  // red is free (an earlier reduction may be reading it)
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  x = red[0];
+  for (int w = 1; w < DA_WARPS; ++w) x = mx ? fmaxf(x, red[w]) : x + red[w];
+  return x;
+}
+
+// One block per (query head, batch row): merges the head's `splits`
+// partials (acc[hd], m, l) from ws into out[b, head].
+template <typename T>
+__global__ void __launch_bounds__(DA_THREADS) decode_attention_combine(
+    const float* __restrict__ ws, T* __restrict__ out, int H, int hd,
+    int splits) {
+  extern __shared__ float wts[];  // [splits]
+  __shared__ float red[DA_WARPS];
+  const long long row = static_cast<long long>(blockIdx.y) * H + blockIdx.x;
+  const float* part = ws + row * splits * (hd + 2);
+  float mx = -INFINITY;
+  for (int i = threadIdx.x; i < splits; i += DA_THREADS)
+    mx = fmaxf(mx, part[i * (hd + 2) + hd]);
+  mx = block_reduce(mx, red, true);
+  float den = 0.f;
+  for (int i = threadIdx.x; i < splits; i += DA_THREADS) {
+    const float mi = part[i * (hd + 2) + hd];
+    const float w = mi == -INFINITY ? 0.f : expf(mi - mx);
+    wts[i] = w;
+    den += w * part[i * (hd + 2) + hd + 1];
+  }
+  den = fmaxf(block_reduce(den, red, false), 1e-30f);  // syncs: wts ready
+  for (int d = threadIdx.x; d < hd; d += DA_THREADS) {
+    float acc = 0.f;
+    for (int i = 0; i < splits; ++i)
+      acc = fmaf(wts[i], part[i * (hd + 2) + d], acc);
+    out[row * hd + d] = from_f32<T>(acc / den);
   }
 }
 
@@ -329,47 +441,57 @@ template <typename T, int GM>
 static cudaError_t launch(const void* q, const void* k, const void* v,
                           void* out, int B, int S, int H, int KV, int hd,
                           const long long* st, const int* lens,
-                          int len_value, int window, float scale, int device,
+                          int len_value, int window, float scale,
+                          int splits, float* ws, int device,
                           cudaStream_t stream) {
   static int configured = -1;  // device whose shared-memory limit is set
-  auto kern = decode_attention_kernel<T, GM>;
+  auto kern = splits > 1 ? decode_attention_kernel<T, GM, true>
+                         : decode_attention_kernel<T, GM, false>;
   if (configured != device) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
-    if (err != cudaSuccess) return err;
+    for (auto f : {decode_attention_kernel<T, GM, true>,
+                   decode_attention_kernel<T, GM, false>}) {
+      cudaError_t err = cudaFuncSetAttribute(
+          f, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+      if (err != cudaSuccess) return err;
+    }
     configured = device;
   }
   // The ring (at least 384 * hd bytes) also holds the final cross-warp
   // sums (DA_WARPS * GM * hd floats, at most 128 * hd bytes).
   const size_t smem = sizeof(T) * DA_STAGES * 2 * DA_BK * hd +
-                      sizeof(float) * (2 * GM * DA_BK + 2 * GM);
+                      sizeof(float) * (2 * GM * DA_BK + 3 * GM);
   const int G = H / KV;
-  const dim3 grid(KV, B, (G + GM - 1) / GM);
+  const dim3 grid(KV * splits, B, (G + GM - 1) / GM);
   kern<<<grid, DA_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), S, H, G, hd, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], lens, len_value,
-      window, scale);
+      window, scale, splits, ws);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  decode_attention_combine<T>
+      <<<dim3(H, B), DA_THREADS, sizeof(float) * splits, stream>>>(
+          ws, static_cast<T*>(out), H, hd, splits);
   return cudaGetLastError();
 }
 
-// One block carries GM = 1, 2 or 4 of a kv head's g query heads: g itself
-// up to 2, else 4 (more heads take more blocks along z).
+// One block carries gm = 1, 2 or 4 of a kv head's g query heads (more
+// heads take more blocks along z).
 template <typename T>
 static cudaError_t launch_g(const void* q, const void* k, const void* v,
                             void* out, int B, int S, int H, int KV, int hd,
                             const long long* st, const int* lens,
                             int len_value, int window, float scale,
-                            int device, cudaStream_t s) {
-  const int G = H / KV;
-  if (G == 1)
+                            int splits, float* ws, int gm, int device,
+                            cudaStream_t s) {
+  if (gm == 1)
     return launch<T, 1>(q, k, v, out, B, S, H, KV, hd, st, lens, len_value,
-                        window, scale, device, s);
-  if (G == 2)
+                        window, scale, splits, ws, device, s);
+  if (gm == 2)
     return launch<T, 2>(q, k, v, out, B, S, H, KV, hd, st, lens, len_value,
-                        window, scale, device, s);
+                        window, scale, splits, ws, device, s);
   return launch<T, 4>(q, k, v, out, B, S, H, KV, hd, st, lens, len_value,
-                      window, scale, device, s);
+                      window, scale, splits, ws, device, s);
 }
 
 extern "C" {
@@ -378,35 +500,49 @@ const char* decode_attention_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// Cache positions per tile, for the Python module's split plan.
+int decode_attention_tile(void) { return DA_BK; }
+
 // out [B,H,hd] (contiguous) = attention of q [B,H,hd] over the cache k, v
 // [B,S,KV,hd] on `stream` of `device`.  Strides in elements: q's batch
 // and head strides, then k's batch, position and head strides, then v's;
 // the head dim has unit stride and every row is 16-byte aligned.
 // cache_len is lens[b] when lens is not null, else len_value; window 0 =
-// none.  Returns cudaGetLastError() after the launch.
+// none.  With splits > 1 each row's live range is cut into `splits` runs
+// of whole 32-position tiles, ws is a float32 workspace [B,H,splits,hd+2],
+// and a second kernel (decode_attention_combine) follows on the same
+// stream; with splits == 1, ws is not read.  gm (1, 2 or 4) query heads
+// go to one block.  Returns cudaGetLastError() after the launches.
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             void* out, int B, int S, int H, int KV, int hd,
                             long long qsb, long long qsh, long long ksb,
                             long long kss, long long ksh, long long vsb,
                             long long vss, long long vsh, const int* lens,
                             int len_value, int window, float scale,
-                            int dtype, int device, void* stream) {
+                            int splits, void* ws, int gm, int dtype,
+                            int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B < 0 || S < 0 || H < 1 || KV < 1 || H % KV || hd % 8 || hd < 8 ||
-      hd > 256 || window < 0 || B > 65535 || (H / KV + 3) / 4 > 65535)
+      hd > 256 || window < 0 || B > 65535 ||
+      !(gm == 1 || gm == 2 || gm == 4) || (H / KV + gm - 1) / gm > 65535 ||
+      splits < 1 || splits > 8192 ||
+      static_cast<long long>(KV) * splits > 2147483647LL ||
+      (splits > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   const long long st[8] = {qsb, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(ws);
   if (dtype == DA_FLOAT32)
     return static_cast<int>(launch_g<float>(q, k, v, out, B, S, H, KV, hd,
                                             st, lens, len_value, window,
-                                            scale, device, s));
+                                            scale, splits, w, gm, device,
+                                            s));
   if (dtype == DA_BFLOAT16)
     return static_cast<int>(launch_g<__nv_bfloat16>(
         q, k, v, out, B, S, H, KV, hd, st, lens, len_value, window, scale,
-        device, s));
+        splits, w, gm, device, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -20,6 +20,8 @@ the same weights and to the port's own ``attn_backend="ref"``, rtol =
 atol = 1e-5 as in ``tests/test_torch_model.py``.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -135,6 +137,100 @@ def test_decode_plain_matches_reference_kernel(geometry, dtype):
            dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _decode_references(geometry, dtype):
+    """(torch inputs, Pallas interpret-mode output, ``ref`` output) of a
+    ``DECODE`` geometry, computed once for every split count."""
+    b, s, h, kv, hd, lens, window = geometry
+    arrays = _qkv(s + h + hd, (b, h, hd), (b, s, kv, hd))
+    (jq, jk, jv), tqkv = _as(dtype, *arrays)
+    j_len = jnp.asarray(lens, jnp.int32)
+    t_len = lens if isinstance(lens, int) else torch.tensor(lens,
+                                                            dtype=torch.int32)
+    return (tqkv, t_len,
+            j_decode(jq, jk, jv, j_len, window=window, bk=64, interpret=True),
+            ref.decode_attention_ref(jq, jk, jv, j_len, window=window))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+@pytest.mark.parametrize("geometry", DECODE,
+                         ids=[f"g{i}" for i in range(len(DECODE))])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_split_plain_matches_reference_kernel(geometry, dtype,
+                                                     splits):
+    """The split kernel's arithmetic (per-split partials and the combine)
+    against the unsplit plain version, the Pallas kernel in interpret mode
+    and ``ref``; 7 splits of a 4-tile cache leave runs with no position."""
+    (tq, tk, tv), t_len, pallas, want = _decode_references(geometry, dtype)
+    window = geometry[-1]
+    got = da.decode_attention_split_plain(tq, tk, tv, t_len, window=window,
+                                          splits=splits)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _close(got, da.decode_attention_plain(tq, tk, tv, t_len,
+                                          window=window).float(), dtype)
+    _close(got, pallas, dtype)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("splits", [2, 3, 7, 40])
+def test_decode_split_plain_empty_runs_window_and_empty_row(splits):
+    """Per-row lengths with a window whose range starts inside a tile, a
+    row with ``cache_len`` 0 (0 from every split count, never NaN), a row
+    past the cache and runs that see no live position: equal to the
+    unsplit plain version, and to ``ref`` on the rows with live keys."""
+    arrays = _qkv(splits, (4, 6, 32), (4, 300, 2, 32))
+    (jq, jk, jv), (tq, tk, tv) = _as("float32", *arrays)
+    lens = [300, 0, 77, 320]
+    for window in (None, 45):
+        got = da.decode_attention_split_plain(
+            tq, tk, tv, torch.tensor(lens), window=window, splits=splits)
+        assert torch.equal(got[1], torch.zeros_like(got[1]))
+        _close(got, da.decode_attention_plain(tq, tk, tv, torch.tensor(lens),
+                                              window=window), "float32")
+        want = np.asarray(ref.decode_attention_ref(
+            jq, jk, jv, jnp.asarray(lens), window=window))
+        _close(got[[0, 2, 3]], want[[0, 2, 3]], "float32")
+
+
+@pytest.mark.parametrize("b,n_kv,g,s,window", [
+    (4, 8, 1, 12, None),           # the served shapes
+    (4, 1, 4, 32768, None),        # (c) gemma3-1b, global
+    (4, 1, 4, 32768, 512),         # (c) window
+    (4, 8, 1, 2048, None),         # (b)
+    (1, 1, 8, 32768, None),        # B=1, 8 query heads on one kv head
+    (3, 2, 3, 4096, 300),          # GQA 3:1 with a window
+    (64, 8, 1, 2048, None),        # a grid that already fills the card
+    (2, 1, 1, 0, None),            # an empty cache
+])
+def test_decode_split_plan(b, n_kv, g, s, window):
+    """Whole tiles per split, the splits of the longest row covering every
+    tile it touches, each with at least one; one split at the served
+    shapes; at least 2 x n_sm blocks at (c) for n_sm = 132."""
+    n_sm = 132
+    splits, most = da.decode_split_plan(b, n_kv, g, s, window, n_sm)
+    tiles = max(da.max_row_tiles(s, window), 1)
+    assert isinstance(splits, int) and isinstance(most, int)
+    assert 1 <= splits <= tiles
+    runs = [(j + 1) * tiles // splits - j * tiles // splits
+            for j in range(splits)]
+    assert sum(runs) == tiles and min(runs) >= 1 and max(runs) == most
+    base = b * n_kv * -(-g // da.heads_per_block(g))
+    if (b, s) == (4, 12):
+        assert splits == 1
+    if s == 32768 and window is None:
+        assert splits * base >= 2 * n_sm
+    assert splits * base <= max(4 * n_sm, base)
+
+
+def test_split_workspace_bytes():
+    assert da.decode_attention_workspace_bytes(4, 12, 8, 8, 96,
+                                               n_sm=132) == 0
+    splits, _ = da.decode_split_plan(4, 1, 4, 32768, None, 132)
+    assert splits > 1
+    assert da.decode_attention_workspace_bytes(
+        4, 32768, 4, 1, 256, n_sm=132) == 4 * 4 * 4 * splits * 258
+
+
 def test_decode_plain_ragged_matches_ref():
     """A 77-slot cache (not a multiple of the Pallas block) with per-row
     lengths, and the same through the CPU wrapper with an int."""
@@ -242,6 +338,17 @@ def test_smoke_tolerance_rejects_a_dropped_tile(s, dtype):
     dropped = da.decode_attention_plain(q, k, v, s - 32)
     with pytest.raises(SmokeFailure, match="the tolerance"):
         attention_close(dropped, want, vscale, dtype, "dropped tile")
+    # a combine that drops the middle split of the kernel's plan (n_sm
+    # 132): attention over the cache without that split's positions
+    splits, _ = da.decode_split_plan(2, 1, 4, s, None, 132)
+    assert splits > 1
+    n, j = s // da.TILE, splits // 2
+    lo, hi = j * n // splits * da.TILE, (j + 1) * n // splits * da.TILE
+    dropped = da.decode_attention_plain(
+        q, torch.cat([k[:, :lo], k[:, hi:]], 1),
+        torch.cat([v[:, :lo], v[:, hi:]], 1), s - (hi - lo))
+    with pytest.raises(SmokeFailure, match="the tolerance"):
+        attention_close(dropped, want, vscale, dtype, "dropped split")
 
 
 def test_costs_count_live_work():

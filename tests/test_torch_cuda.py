@@ -209,6 +209,14 @@ FLASH_CARD = {
     "gemma-window": (1, 1024, 4, 1, 256, {"window": 512}),
     "gemma-softcap": (1, 1024, 4, 1, 256, {"window": 512, "softcap": 50.0}),
     "ragged-gqa": (2, 37, 6, 2, 64, {"causal": False}),
+    "pad-hd8": (2, 100, 2, 2, 8, {}),          # zero-padded to 32 in smem
+    "pad-hd40": (2, 100, 4, 2, 40, {}),        # zero-padded to 64
+    "hd128": (2, 300, 4, 4, 128, {}),
+    "ragged-causal-s100": (2, 100, 8, 8, 96, {}),   # wgmma, ragged tile
+    "wgmma-hd72-gqa": (2, 150, 4, 2, 72, {}),      # wgmma, padded to 96
+    "wgmma-window": (1, 1000, 2, 1, 96, {"window": 100}),
+    "wgmma-softcap": (2, 200, 4, 2, 96, {"softcap": 50.0}),
+    "wgmma-bidirectional": (2, 200, 4, 2, 96, {"causal": False}),
 }
 DECODE_CARD = {
     "main-path-h1": (4, 12, 1, 1, 96, [9, 10, 11, 12], {}),
@@ -217,6 +225,10 @@ DECODE_CARD = {
     "gemma-window": (4, 32768, 4, 1, 256, [32768, 3000, 600, 1],
                      {"window": 512}),
     "ragged-gqa": (3, 77, 6, 2, 64, [77, 5, 40], {}),
+    "split-b1": (1, 32768, 8, 1, 128, 32768, {}),
+    "split-ragged": (4, 32768, 4, 1, 256, [32768, 31, 0, 4097], {}),
+    "split-window-rows": (3, 4096, 4, 2, 64, [4096, 100, 2000],
+                          {"window": 300}),
 }
 
 
@@ -243,6 +255,75 @@ def test_decode_attention_matches_plain(cuda_device, case):
                        **kw)["ratio"] <= 1.0
 
 
+def _decode_inputs(device, case, dtype):
+    b, s, h, kv, hd, lens, kw = DECODE_CARD[case]
+    gen = torch.Generator(device=device).manual_seed(11)
+    q, k, v = (torch.randn(shape, generator=gen, device=device).to(dtype)
+               for shape in ((b, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+    cache_len = lens if isinstance(lens, int) else torch.tensor(
+        lens, dtype=torch.int32, device=device)
+    return q, k, v, cache_len, kw
+
+
+@pytest.mark.parametrize("case", ["gemma-global", "split-b1", "split-ragged",
+                                  "split-window-rows"])
+def test_split_call_matches_one_split_plan(cuda_device, monkeypatch, case):
+    """The plan's split call (two CUDA launches) against the same call
+    with the plan monkeypatched to one split (today's one-block path),
+    bf16 and float32, within chip_smoke.ATT_TOL; one count each."""
+    from chip_smoke import attention_close
+    from repro_torch.kernels import decode_attention as da
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s, h, kv, hd, _, kw = DECODE_CARD[case]
+    splits, _ = da.decode_split_plan(b, kv, h // kv, s, kw.get("window"),
+                                     da.sm_count(cuda_device))
+    assert splits > 1
+    for dt in ("bfloat16", "float32"):
+        q, k, v, cache_len, kw = _decode_inputs(cuda_device, case,
+                                                getattr(torch, dt))
+        before = da.decode_attention.launches
+        got = da.decode_attention(q, k, v, cache_len, **kw)
+        with monkeypatch.context() as m:
+            m.setattr(da, "decode_split_plan", lambda b, kv, g, s, window,
+                      n_sm: (1, max(da.max_row_tiles(s, window), 1)))
+            one = da.decode_attention(q, k, v, cache_len, **kw)
+        torch.cuda.synchronize()
+        assert da.decode_attention.launches == before + 2
+        vscale = da.decode_attention_plain(q.float(), k.float(),
+                                           v.float().abs(), cache_len, **kw)
+        _, ratio = attention_close(got, one, vscale, dt, f"{case} {dt}")
+        assert ratio <= 1.0
+
+
+@pytest.mark.parametrize("splits", [2, 7, 300])
+def test_split_kernel_matches_split_plain(cuda_device, monkeypatch, splits):
+    """The kernel with the plan monkeypatched to ``splits`` runs (300:
+    more runs than a short row has tiles, so some see no position)
+    against decode_attention_split_plain at the same count."""
+    from chip_smoke import attention_close
+    from repro_torch.kernels import decode_attention as da
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(da, "decode_split_plan", lambda b, kv, g, s, window,
+                        n_sm: (splits, -(-max(da.max_row_tiles(s, window),
+                                              1) // splits)))
+    for case in ("split-ragged", "split-window-rows"):
+        for dt in ("bfloat16", "float32"):
+            q, k, v, cache_len, kw = _decode_inputs(cuda_device, case,
+                                                    getattr(torch, dt))
+            got = da.decode_attention(q, k, v, cache_len, **kw)
+            torch.cuda.synchronize()
+            want = da.decode_attention_split_plain(q, k, v, cache_len,
+                                                   splits=splits, **kw)
+            vscale = da.decode_attention_plain(q.float(), k.float(),
+                                               v.float().abs(), cache_len,
+                                               **kw)
+            _, ratio = attention_close(got, want, vscale, dt,
+                                       f"{case} {dt} {splits} splits")
+            assert ratio <= 1.0
+
+
 def _attention_inputs(device, dtype=torch.bfloat16):
     gen = torch.Generator(device=device).manual_seed(7)
     q = torch.randn(4, 64, 8, 96, generator=gen, device=device).to(dtype)
@@ -251,6 +332,9 @@ def _attention_inputs(device, dtype=torch.bfloat16):
 
 
 def test_attention_calls_allocate_only_output_and_count(cuda_device):
+    """Each call allocates its output and, for a split decode call, the
+    workspace that decode_attention_workspace_bytes reports, nothing
+    more; one count per call."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
 
@@ -260,14 +344,17 @@ def test_attention_calls_allocate_only_output_and_count(cuda_device):
     da.decode_attention(qd, k, v, 50)
     torch.cuda.synchronize()
     before = (fa.flash_attention.launches, da.decode_attention.launches)
-    for call in (lambda: fa.flash_attention(q, k, v, window=9),
-                 lambda: da.decode_attention(qd, k, v, 50)):
+    ws = da.decode_attention_workspace_bytes(
+        4, 64, 8, 8, 96, n_sm=da.sm_count(cuda_device))
+    assert ws > 0                                    # this call splits
+    for call, extra in ((lambda: fa.flash_attention(q, k, v, window=9), 0),
+                        (lambda: da.decode_attention(qd, k, v, 50), ws)):
         torch.cuda.reset_peak_memory_stats(cuda_device)
         base = torch.cuda.memory_allocated(cuda_device)
         out = call()
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated(cuda_device) - base
-        assert peak <= out.numel() * out.element_size() + 4096
+        assert peak <= out.numel() * out.element_size() + extra + 4096
     assert (fa.flash_attention.launches,
             da.decode_attention.launches) == (before[0] + 1, before[1] + 1)
     assert torch.equal(da.decode_attention(qd, k, v, 50),
