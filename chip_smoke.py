@@ -21,16 +21,32 @@ Phases (each prints its own lines; any mismatch exits nonzero):
    seed-0 ``torch.Generator`` on the card,
    behind a ``FleetAlertServer`` (8 streams, batch 4, prompt 8, 4 new
    tokens) profiled on the card, for 4 ticks of Eq. 4 and Eq. 5 tenants
-   with one retire/admit.  Checks every live lane's result, the tokens,
+   with one retire/admit; the engine replays one CUDA graph per level
+   (prefill per prompt length, decode), captured while the server
+   profiles.  Checks every live lane's result, the tokens,
    that ``alert_select``'s launch counter grew by one per tick and that
    ``nested_matmul`` never launched; then holds ``alert_select`` to its
    plain version on the server's own lane state.  Before that, the port's
    model on the card is held to the same model on the CPU at a reduced
-   size.
+   size.  After it, the same server with the engine's steps run eagerly
+   (the yardstick for the tick times), and the graphed engine against the
+   eager one at every level over three rounds of level switches: tokens
+   bitwise equal, ``n_compiles()`` flat, the launches a replay counts
+   equal to the eager call's and to the kernel nodes read back from each
+   graph.
 5. ``nested_matmul`` kernel vs plain: the model's three projection
    geometries (768x768, 768x3072, 3072x768, 4 pow2 levels) at every level,
    M in {4, 32}, bf16 and float32, a level-prefix view of ``x`` and the
-   full ``w``, within ``NM_TOL``.  Times the d->d_ff geometry at level 4
+   full ``w``, within ``NM_TOL``.  Times every geometry at every level,
+   M in {4, 32}, as device time (CUDA graph, weights rotated beyond L2)
+   beside the library call, the bound and its share, with the grid and
+   cluster each call launched read back from a CUDA graph of it (they
+   must be the split plan's); the deepest level of each geometry at
+   forced split counts beside the plan's, each read back the same way;
+   the deepest level in one launch against its low stripes and its top
+   stripe launched apart (what the idle blocks of a uniform split
+   cost); then the d->d_ff
+   geometry at level 4
    (M=32 and M=4) and one level-4 forward's 84 projections: the kernel,
    its plain version, the ``blocks`` backend and a dense matmul on the
    block-masked weight (the library call) as device time (CUDA graph),
@@ -40,7 +56,8 @@ Phases (each prints its own lines; any mismatch exits nonzero):
 7. serve (``kernel`` nest backend): phase 4 again with
    ``nest_backend="kernel"``; ``nested_matmul`` must launch 28 times per
    forward pass (7 projections x 4 layers; one forward per generated
-   token) and ``alert_select`` once per tick.
+   token) and ``alert_select`` once per tick; graphed against eager as in
+   phase 4.
 8. ``flash_attention`` and ``decode_attention`` kernel vs plain, bf16 and
    float32, within ``ATT_TOL``: (a) the served shapes (prefill B=4,
    S=T=8, h=kv in {1, 2, 4, 8}, hd=96; decode over the 12-slot cache at
@@ -72,10 +89,19 @@ Phases (each prints its own lines; any mismatch exits nonzero):
     layers with both kernel backends; ``alert_select`` once per tick,
     ``nested_matmul`` 84 times
     per forward, ``flash_attention`` 12 times per prefill forward and
-    ``decode_attention`` 12 times per decode forward.  Then per-level
-    ``generate`` latency of the blocks, kernel-nest and all-kernel engines
-    at full depth through the profiling harness
-    (``profile_anytime_measured(engine_level_fns(...))``), in turns.
+    ``decode_attention`` 12 times per decode forward; graphed against
+    eager as in phase 4.  Then the per-level ``generate`` latency (the
+    staircase) of the graphed and the eager engine through the profiling
+    harness (``profile_anytime_measured(engine_level_fns(...))``), in
+    turns; the staircase of both engines from the profile that builds
+    ALERT's table (``serve_level_latencies``: the levels interleaved
+    round by round), two repeated profiles from the halves of its rounds
+    and their spread (a graphed staircase that does not rise by more
+    than that spread fails); the device time of
+    one prefill and one decode forward at levels 1 and 4 (CUDA events
+    around one replay of the engine's graph) beside its launch floor (its
+    kernel nodes times the device time of a near-empty graph node); and
+    the tick times of every served configuration, graphed and eager.
 11. ``rwkv_scan`` kernel vs plain, bf16 and float32 with s0 and u
     nonzero, y and the final state within ``RS_TOL``: (a) rwkv6-3b's
     served shapes (B=4, H=40, hd=64, an 8-token prefill and a 1-token
@@ -91,7 +117,9 @@ Phases (each prints its own lines; any mismatch exits nonzero):
     bf16, weights from a seed-0 generator on the card, behind the fleet
     server as in phase 4 with its one level (power adapts only):
     ``rwkv_scan`` 32 times per forward (prefill and decode),
-    ``alert_select`` once per tick, the other three kernels never.
+    ``alert_select`` once per tick, the other three kernels never;
+    graphed against eager as in phase 4, and one graphed forward's device
+    time beside the time to read the model's weights.
 14. the last lines: one JSON object per kernel, the ``nvidia-smi`` line,
     and ``{"ok": true, "device": {...}}``.
 
@@ -130,6 +158,10 @@ DA_REPLACES = "src/repro/kernels/decode_attention.py:74"
 FA_VERSION = ("v2: bf16 on the tensor cores (FlashAttention-2 design, "
               "2-stage cp.async ring): wgmma at hd 72-96 past one key "
               "tile, mma.sync otherwise; float32 on the CUDA cores as v1")
+NM_VERSION = ("v3: bf16 on the tensor cores (mma.sync), 64-column tiles "
+              "split in k across a thread-block cluster, 4-stage cp.async "
+              "ring, fixed-order sum through distributed shared memory; "
+              "float32 and unaligned bf16 on the CUDA-core kernel (v2)")
 DA_VERSION = ("v4: split-K flash-decoding (runs of whole tiles across "
               "blocks, then a combine kernel); one split at the served "
               "shapes")
@@ -277,14 +309,14 @@ def host_us_per_call(fn, calls: int = 200) -> float:
     return dt / calls * 1e6
 
 
-def captured_kernels(fn) -> list[tuple[str, tuple[int, int, int]]]:
-    """``(function name, grid)`` of each kernel that one ``fn()`` call
-    launches, read back through the driver API (``cuGraphGetNodes`` and
-    each kernel node's parameters) from a CUDA graph of that call: what
-    the call really launched, not what its caller planned."""
+def graph_kernels(graph, cluster: bool = False) -> list[tuple]:
+    """``(function name, grid)`` of each kernel node of a captured
+    ``torch.cuda.CUDAGraph(keep_graph=True)``, read back through the
+    driver API (``cuGraphGetNodes`` and each kernel node's parameters):
+    what the graph really launches, not what its caller planned.  With
+    ``cluster``, ``(name, grid, cluster dims)``: the node's thread-block
+    cluster attribute, ``(0, 0, 0)`` when it was launched without one."""
     import ctypes
-
-    import torch
 
     class NodeParams(ctypes.Structure):     # CUDA_KERNEL_NODE_PARAMS_v2
         _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
@@ -300,11 +332,6 @@ def captured_kernels(fn) -> list[tuple[str, tuple[int, int, int]]]:
         if rc != 0:
             raise SmokeFailure(f"{what}: CUDA driver error {rc}")
 
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph):
-        fn()
     handle = ctypes.c_void_p(graph.raw_cuda_graph())
     n = ctypes.c_size_t(0)
     check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)),
@@ -331,7 +358,29 @@ def captured_kernels(fn) -> list[tuple[str, tuple[int, int, int]]]:
             check(cu.cuKernelGetName(ctypes.byref(name),
                                      ctypes.c_void_p(par.kern)),
                   "cuKernelGetName")
-        out.append((name.value.decode(), tuple(par.grid)))
+        entry = (name.value.decode(), tuple(par.grid))
+        if cluster:
+            val = (ctypes.c_uint * 16)()     # CUlaunchAttributeValue
+            check(cu.cuGraphKernelNodeGetAttribute(
+                ctypes.c_void_p(node), 4, ctypes.byref(val)),
+                "cuGraphKernelNodeGetAttribute(CLUSTER_DIMENSION)")
+            entry += (tuple(val[:3]),)
+        out.append(entry)
+    return out
+
+
+def captured_kernels(fn, cluster: bool = False) -> list[tuple]:
+    """``(function name, grid)`` of each kernel that one ``fn()`` call
+    launches, read from a CUDA graph of that call (:func:`graph_kernels`;
+    with ``cluster``, the cluster dims too)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    out = graph_kernels(graph, cluster)
     del graph
     return out
 
@@ -593,6 +642,208 @@ def time_nested(device, cfg, m: int) -> dict:
         f"{out['host_us_per_call']:.2f} us, blocks backend "
         f"{out['blocks_host_us_per_call']:.2f} us")
     return out
+
+
+def nested_launched(call, what: str, want_splits: int | None = None
+                    ) -> dict:
+    """The kernel one ``nested_matmul`` call launched, read from a CUDA
+    graph of the call: its grid (splits, column tiles, row tiles) and
+    cluster.  Raises unless it is one v3 launch whose cluster spans its
+    splits, and, given ``want_splits``, has that many."""
+    launched = captured_kernels(call, cluster=True)
+    if len(launched) != 1 or "nested_matmul_v3" not in launched[0][0]:
+        raise SmokeFailure(f"nested_matmul {what} launched {launched}, not "
+                           f"one v3 kernel")
+    _, grid, clus = launched[0]
+    if clus != (grid[0], 1, 1) or (want_splits is not None
+                                   and grid[0] != want_splits):
+        raise SmokeFailure(f"nested_matmul {what} launched grid {grid} in "
+                           f"clusters of {clus}, not {want_splits} splits "
+                           f"in one cluster per tile")
+    return {"splits": grid[0], "blocks": math.prod(grid), "grid": grid,
+            "cluster": clus[0]}
+
+
+def time_nested_levels(device, cfg) -> list[dict]:
+    """Phase 5 table: the kernel at each projection geometry of ``cfg``,
+    level and M in {4, 32}, in bf16, as device time (a CUDA graph of calls
+    over weights rotated beyond twice the L2), beside the library call on
+    the same inputs (a dense matmul of the level-prefix ``x`` on the
+    block-masked weight's live rows and columns), the bound and the share
+    of it reached."""
+    import torch
+
+    from repro_torch.core.nesting import block_triangular_mask
+    from repro_torch.kernels import nested_matmul as nm
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    rows = []
+    for name, si, so in projection_geometries(cfg):
+        n_w = math.ceil(2 * L2_BYTES / (2 * si.total * so.total))
+        ws = [(torch.randn(si.total, so.total, generator=gen, device=device)
+               * si.total ** -0.5).to(torch.bfloat16) for _ in range(n_w)]
+        mask = torch.as_tensor(block_triangular_mask(si, so), device=device,
+                               dtype=torch.bfloat16)
+        masked = [w * mask for w in ws]
+        for m in (4, 32):
+            x = torch.randn(m, si.total, generator=gen,
+                            device=device).to(torch.bfloat16)
+            for level in range(1, so.levels + 1):
+                k_need = si.width(min(level, si.levels))
+                n_cols = so.width(level)
+                xk = x[:, :k_need]
+                sets = list(zip(ws, masked))
+                ms = graph_ms(rotating(lambda w, mw: nm.nested_matmul(
+                    xk, w, si, so, level), sets))
+                lib = graph_ms(rotating(lambda w, mw: torch.matmul(
+                    xk, mw[:k_need, :n_cols]), sets))
+                cost = nm.nested_matmul_cost(m, si, so, level, torch.bfloat16)
+                b_ms, b_by = bound(cost)
+                plan = nm.nested_split_plan(m, n_cols, k_need,
+                                            nm.sm_count(device))
+                got = nested_launched(
+                    lambda: nm.nested_matmul(xk, ws[0], si, so, level),
+                    f"{name} level {level} M={m}", plan[0])
+                if got["grid"] != (plan[0], plan[2], plan[1]):
+                    raise SmokeFailure(f"nested_matmul {name} level {level} "
+                                       f"M={m} launched grid {got['grid']}, "
+                                       f"the plan is {plan}")
+                row = {"geometry": name, "level": level, "m": m, "ms": ms,
+                       "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
+                       "bound_share": b_ms / ms, "bytes": cost[
+                           "bytes_accessed"],
+                       "blocks": got["blocks"], "splits": got["splits"]}
+                rows.append(row)
+                say(f"  time {name} level {level} M={m} bf16 (device time, "
+                    f"CUDA graph, {n_w} weights in turn): kernel {ms:.6f} ms "
+                    f"(launched: grid {got['grid']}, clusters of "
+                    f"{got['cluster']}), library "
+                    f"{lib:.6f} ms; bound {b_ms:.6f} ms by {b_by} "
+                    f"({cost['bytes_accessed']:.4g} B), "
+                    f"{row['bound_share']:.3f} of it")
+        del ws, masked
+    return rows
+
+
+def nested_split_sweep(device, cfg, m: int = 32) -> dict:
+    """Phase 5: the kernel at each geometry's deepest level with the split
+    count forced to 1, 2, 4, 8 and 16 (as far as the k range has steps)
+    beside the plan's own, as device time (CUDA graph, weights rotated
+    beyond L2): how near the plan, made from the shapes alone, comes to
+    the best split."""
+    import torch
+
+    from repro_torch.kernels import nested_matmul as nm
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    planned = nm.nested_split_plan
+    out = {}
+    try:
+        for name, si, so in projection_geometries(cfg):
+            level = so.levels
+            k_need = si.width(min(level, si.levels))
+            n_w = math.ceil(2 * L2_BYTES / (2 * si.total * so.total))
+            sets = [((torch.randn(si.total, so.total, generator=gen,
+                                  device=device) * si.total ** -0.5)
+                     .to(torch.bfloat16),) for _ in range(n_w)]
+            x = torch.randn(m, k_need, generator=gen,
+                            device=device).to(torch.bfloat16)
+            plan = planned(m, so.width(level), k_need, nm.sm_count(device))
+            steps = -(-k_need // nm.STEP_K)
+            def call(x=x, w=sets[0][0], si=si, so=so, level=level):
+                return nm.nested_matmul(x, w, si, so, level)
+
+            nm.nested_split_plan = planned
+            planned_splits = nested_launched(call, f"{name} level {level}",
+                                             plan[0])["splits"]
+            row = {}
+            for splits in sorted({1, 2, 4, 8, 16, plan[0]}):
+                if splits > steps:
+                    continue
+                nm.nested_split_plan = lambda *a, s=splits: (s,) + plan[1:]
+                got = nested_launched(call, f"{name} forced to {splits} "
+                                      f"splits", splits)["splits"]
+                row[got] = graph_ms(rotating(
+                    lambda w: nm.nested_matmul(x, w, si, so, level), sets))
+            out[name] = {"plan": planned_splits, "ms_by_splits": row}
+            say(f"  split sweep {name} level {level} M={m} bf16 (device "
+                f"time, CUDA graph; each split count read from a graph of "
+                f"the call): " + ", ".join(
+                    f"{s} split(s) {t:.6f} ms" for s, t in row.items())
+                + f"; the plan launched {planned_splits}")
+    finally:
+        nm.nested_split_plan = planned
+    return out
+
+
+def nested_live_split(device, cfg) -> dict:
+    """Phase 5: what the idle blocks of v3's uniform split cost.  One
+    launch gives every tile the same split count, sized from the longest
+    k range, so the tiles of the low stripes get blocks with no steps.
+    At each geometry's deepest level L and M in {4, 32}, bf16, device time
+    (CUDA graph, weights rotated beyond L2): the one call against the low
+    stripes (a level L-1 call) and the top stripe (a one-level call on
+    its columns) launched separately, each with its own plan; the two
+    outputs together are checked against the plain version."""
+    import torch
+
+    from repro_torch.core.nesting import StripeSpec
+    from repro_torch.kernels import nested_matmul as nm
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    out = {}
+    for name, si, so in projection_geometries(cfg):
+        lvl = so.levels
+        k_top, k_low = si.width(min(lvl, si.levels)), si.width(
+            min(lvl - 1, si.levels))
+        c_low = so.width(lvl - 1)
+        top_in, top_out = StripeSpec((0, k_top)), StripeSpec(
+            (0, so.width(lvl) - c_low))
+        n_w = math.ceil(2 * L2_BYTES / (2 * si.total * so.total))
+        sets = [((torch.randn(si.total, so.total, generator=gen,
+                              device=device) * si.total ** -0.5)
+                 .to(torch.bfloat16),) for _ in range(n_w)]
+        for m in (4, 32):
+            x = torch.randn(m, k_top, generator=gen,
+                            device=device).to(torch.bfloat16)
+
+            def apart(w):
+                return (nm.nested_matmul(x[:, :k_low], w, si, so, lvl - 1),
+                        nm.nested_matmul(x, w[:, c_low:], top_in, top_out, 1))
+
+            got = torch.cat(apart(sets[0][0]), dim=1)
+            e, r = nested_close(got, nm.nested_matmul_plain(
+                x, sets[0][0], si, so, lvl), "bfloat16")
+            if r > 1.0:
+                raise SmokeFailure(f"nested_matmul {name} stripes apart "
+                                   f"M={m}: max abs err {e:.3e}")
+            one = graph_ms(rotating(
+                lambda w: nm.nested_matmul(x, w, si, so, lvl), sets))
+            two = graph_ms(rotating(apart, sets))
+            splits, m_tiles, n_tiles = nm.nested_split_plan(
+                m, so.width(lvl), k_top, nm.sm_count(device))
+            idle = m_tiles * sum(
+                max(0, splits - -(-nm_tile_limit(si, so, lvl, t)
+                                  // nm.STEP_K)) for t in range(n_tiles))
+            out[f"{name},M={m}"] = {"one_launch_ms": one,
+                                    "stripes_apart_ms": two}
+            say(f"  live triangle {name} level {lvl} M={m} bf16 (device "
+                f"time, CUDA graph): one launch {one:.6f} ms (by its plan "
+                f"{idle} of {splits * m_tiles * n_tiles} blocks have no "
+                f"k steps), low stripes and top stripe launched apart "
+                f"{two:.6f} ms")
+        del sets
+    return out
+
+
+def nm_tile_limit(si, so, level: int, tile: int) -> int:
+    """The k range of v3's ``tile``-th column tile at ``level``: the input
+    prefix of its last column's stripe (``column_limit`` of the source)."""
+    from repro_torch.kernels import nested_matmul as nm
+
+    last = min((tile + 1) * nm.TILE_N, so.width(level)) - 1
+    stripe = next(i for i in range(1, level + 1) if last < so.width(i))
+    return si.width(min(stripe, si.levels))
 
 
 def time_forward_projections(device, cfg, m: int) -> dict:
@@ -1341,10 +1592,13 @@ def tenants(table):
 
 
 def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
-          gen_tokens=4, expect_kernel=True) -> dict:
+          gen_tokens=4, expect_kernel=True, params=None,
+          graphs=True) -> dict:
     """Phases 4, 7, 10 and 13: the fleet server over ``cfg`` on
-    ``device``.  Every launch counter starts at 0 here and is read after
-    the last tick.  With ``expect_kernel`` the scoring kernel must launch
+    ``device``, its engine replaying one CUDA graph per level and prompt
+    length (``graphs``; False runs the same steps eagerly, the yardstick),
+    with ``params`` or weights drawn from a seed-0 generator.  Every
+    launch counter starts at 0 here and is read after the last tick.  With ``expect_kernel`` the scoring kernel must launch
     once per tick.  On the card, with ``cfg.nest_backend == "kernel"``,
     ``nested_matmul`` must launch 7 * n_layers times per forward pass (one
     per generated token), with ``cfg.attn_backend == "kernel"``
@@ -1367,8 +1621,9 @@ def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
     from repro_torch.serving.engine import ServeEngine
 
     t0 = time.perf_counter()
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = init_lm(cfg, gen, device=device)
+    if params is None:
+        params = init_lm(cfg, torch.Generator(device=device).manual_seed(0),
+                         device=device)
     n_params = sum(p.numel() for p in [params["embed"], params["unembed"],
                                        params["final_norm"]]
                    + [w for layer in params["layers"]
@@ -1377,7 +1632,7 @@ def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
         f"{cfg.n_layers} layers, d={cfg.d_model}, init "
         f"{time.perf_counter() - t0:.3f} s")
     engine = ServeEngine(build_model(cfg), max_len=prompt_len + gen_tokens,
-                         batch_size=batch_size, device=device)
+                         batch_size=batch_size, device=device, graphs=graphs)
 
     ks.alert_select.launches = 0           # main path starts here
     nm.nested_matmul.launches = 0
@@ -1397,7 +1652,8 @@ def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
                            goal=Goal.MINIMIZE_ENERGY, n_streams=n_streams,
                            prompt_len=prompt_len, gen_tokens=gen_tokens,
                            start_active=False)
-    say(f"  profiled on {device.type} in {time.perf_counter() - t0:.3f} s; "
+    say(f"  profiled on {device.type} ({'CUDA graphs' if graphs and card else 'eager'}"
+        f") in {time.perf_counter() - t0:.3f} s; "
         f"per-level latency at full power (s): "
         + ", ".join(f"L{i + 1}={x:.6f}"
                     for i, x in enumerate(srv.table.latency[:, -1])))
@@ -1519,13 +1775,155 @@ def harness_latencies(engines, params) -> dict:
         table = profile_anytime_measured(
             engine_level_fns(eng, params), LEVEL_ACCURACIES[
                 :eng.model.cfg.nest_levels], PowerModel(),
-            n_power_buckets=4, warmup=1, iters=3,
+            n_power_buckets=4, warmup=3, iters=15,
             sync=None if eng.device.type == "cuda" else (lambda v: v))
         lat = [float(x) for x in table.latency[:, -1]]
         out[n].append(lat)
         say(f"  harness, {n} backend: per-level generate latency (s) "
             + ", ".join(f"L{i + 1}={x:.6f}" for i, x in enumerate(lat)))
     return out
+
+
+# The kernel wrappers the engine counts (serving.engine.COUNTED, in its
+# order) and the kernel-node name each launch of them adds to a graph
+# (decode_attention's combine node comes only with a split call).
+WRAPPER_NODES = (("nested_matmul", "nested_matmul"),
+                 ("flash_attention", "flash_attention"),
+                 ("decode_attention", "decode_attention_kernel"),
+                 ("rwkv_scan", "rwkv_scan_kernel"))
+
+
+def engine_graphs_vs_eager(engine, params, prompt_len: int,
+                           gen_tokens: int, rounds: int = 3) -> dict:
+    """A graphed engine against the same steps run eagerly on the card,
+    over the same weights: after one warm-up per level, ``rounds`` rounds
+    of level switches (the order turned each round) must give bitwise
+    equal tokens, add to every launch counter what the eager call adds,
+    and leave ``n_compiles()`` flat; each graph's kernel nodes, read back
+    from the graph, must match what its replay adds to each counter."""
+    import numpy as np
+
+    from repro_torch.serving.engine import COUNTED, ServeEngine
+
+    eager = ServeEngine(engine.model, max_len=engine.max_len,
+                        batch_size=engine.batch_size, device=engine.device,
+                        graphs=False)
+    engine.warmup(params, prompt_len)
+    compiles = engine.n_compiles()
+    levels = list(engine.levels)
+    if compiles != (len(levels), len(levels)):
+        raise SmokeFailure(f"warm-up made {compiles} steps for "
+                           f"{len(levels)} levels")
+    nodes = {}
+    for key, step in engine.steps.items():
+        if step.graph is None:
+            raise SmokeFailure(f"step {key} was not captured")
+        names = [name for name, _ in graph_kernels(step.graph)]
+        counted = tuple(sum(pat in n for n in names)
+                        for _, pat in WRAPPER_NODES)
+        if counted != step.launches:
+            raise SmokeFailure(f"step {key}: its graph holds {counted} "
+                               f"kernel nodes of {[w for w, _ in WRAPPER_NODES]}"
+                               f", its replay counts {step.launches}")
+        nodes["/".join(str(k) for k in key)] = {
+            "kernel_nodes": len(names),
+            "launches": dict(zip((w for w, _ in WRAPPER_NODES),
+                                 step.launches))}
+    prompt = np.random.default_rng(9).integers(
+        0, engine.model.cfg.vocab, (engine.batch_size, prompt_len)).astype(
+            np.int32)
+    for r in range(rounds):
+        for lvl in levels[r % len(levels):] + levels[:r % len(levels)]:
+            before = [w.launches for w in COUNTED]
+            got = engine.generate(params, prompt, gen_tokens, level=lvl)
+            mid = [w.launches for w in COUNTED]
+            want = eager.generate(params, prompt, gen_tokens, level=lvl)
+            after = [w.launches for w in COUNTED]
+            if not np.array_equal(got["tokens"], want["tokens"]):
+                raise SmokeFailure(f"level {lvl}, round {r}: graphed tokens "
+                                   f"{got['tokens'].tolist()} != eager "
+                                   f"{want['tokens'].tolist()}")
+            graphed = [b - a for a, b in zip(before, mid)]
+            eagerly = [b - a for a, b in zip(mid, after)]
+            if graphed != eagerly:
+                raise SmokeFailure(f"level {lvl}: replays counted {graphed} "
+                                   f"launches, the eager call {eagerly}")
+    if engine.n_compiles() != compiles:
+        raise SmokeFailure(f"n_compiles went from {compiles} to "
+                           f"{engine.n_compiles()} over {rounds} rounds of "
+                           f"level switches")
+    say(f"  graphs vs eager ({engine.model.cfg.name}, levels {levels}): "
+        f"tokens bitwise equal over {rounds} rounds of level switches, "
+        f"n_compiles {compiles} before and after, launches per replay "
+        f"equal to the eager call's and to each graph's kernel nodes: "
+        + ", ".join(f"{k} {v['kernel_nodes']} nodes {v['launches']}"
+                    for k, v in nodes.items()))
+    return {"levels": [str(x) for x in levels], "n_compiles": list(compiles),
+            "rounds": rounds, "graphs": nodes}
+
+
+def node_floor_ms(device) -> float:
+    """Device time per node of a CUDA graph of one-element adds: what one
+    launch costs the card when its kernel does almost nothing."""
+    import torch
+
+    t = torch.zeros(1, device=device)
+    return graph_ms(lambda: t.add_(1.0), calls=200)
+
+
+def forward_device_ms(engine, params, level, prompt_len: int,
+                      reps: int = 20) -> dict:
+    """Device time of one prefill and one decode forward at ``level``:
+    CUDA events around single replays of the engine's own graphs, the
+    median of ``reps``; ``cache_len`` is set back before each decode
+    replay so every replay decodes the same position."""
+    import torch
+
+    engine.warmup(params, prompt_len)
+    buf = engine._buffers[level]
+    out = {}
+    for kind, step in (("prefill", engine.steps["prefill", level,
+                                               prompt_len]),
+                       ("decode", engine.steps["decode", level])):
+        times = []
+        for _ in range(reps + 2):
+            with torch.inference_mode():
+                buf.cache_len.fill_(prompt_len)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step.graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out[f"{kind}_ms"] = statistics.median(times[2:])
+        out[f"{kind}_kernel_nodes"] = len(graph_kernels(step.graph))
+    return out
+
+
+def staircase(name: str, samples) -> dict:
+    """The staircase of one engine from the samples of the profile that
+    builds ALERT's table (``serve_level_latencies``, ``[levels, rounds]``
+    seconds, the levels interleaved round by round).  The medians of the
+    first and of the second half of the rounds are two repeated profiles;
+    their largest per-level gap is the spread.  The staircase "rises" when
+    each level's median is at least the one below it less the spread, and
+    the deepest exceeds the first by more than the spread."""
+    rounds = samples.shape[1]
+    med = [statistics.median(row) for row in samples.tolist()]
+    halves = [[statistics.median(row[h * rounds // 2:(h + 1) * rounds // 2])
+               for row in samples.tolist()] for h in (0, 1)]
+    spread = max(abs(a - b) for a, b in zip(*halves))
+    rising = bool(all(med[i + 1] >= med[i] - spread
+                      for i in range(len(med) - 1))
+                  and med[-1] - med[0] > spread)
+    say(f"  staircase, {name} engine (serve_level_latencies, {rounds} "
+        f"interleaved rounds, median per level, s): "
+        + ", ".join(f"L{i + 1}={x:.6f}" for i, x in enumerate(med))
+        + f"; halves {[[round(x, 6) for x in h] for h in halves]}; "
+          f"spread {spread:.6f} s; {'rising' if rising else 'NOT rising'}")
+    return {"median_s": med, "halves_s": halves, "spread_s": spread,
+            "rising": rising}
 
 
 def main_path_inputs(srv):
@@ -1613,8 +2011,7 @@ def main() -> int:
     from repro_torch.configs.rwkv6_3b import CONFIG as RWKV_CONFIG
     from repro_torch.kernels import alert_select as ks
     from repro_torch.kernels.build import build
-    from repro_torch.models.registry import build_model
-    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.alert_server import serve_level_latencies
 
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1644,7 +2041,11 @@ def main() -> int:
 
     phase.start("phase 4: serve (blocks nest backend)")
     err_model = model_cpu_vs_card(device)
-    run = serve(device, CONFIG.replace(n_layers=SERVE_DEPTH))
+    cfg4 = CONFIG.replace(n_layers=SERVE_DEPTH)
+    run = serve(device, cfg4)
+    run_e = serve(device, cfg4, params=run["params"], graphs=False)
+    graphs = {"blocks": engine_graphs_vs_eager(run["engine"], run["params"],
+                                               8, 4)}
     args, kw = main_path_inputs(run["server"])
     got = ks.alert_select(*args, **kw)
     torch.cuda.synchronize(device)
@@ -1671,6 +2072,9 @@ def main() -> int:
 
     phase.start("phase 5: nested_matmul kernel vs plain version on the card")
     nm_err = nested_vs_plain(device, CONFIG)
+    nm_levels = time_nested_levels(device, CONFIG)
+    nm_sweep = nested_split_sweep(device, CONFIG)
+    nm_live = nested_live_split(device, CONFIG)
     nm_time = {m: time_nested(device, CONFIG, m) for m in (32, 4)}
     fwd = {m: time_forward_projections(device, CONFIG, m) for m in (32, 4)}
 
@@ -1678,8 +2082,11 @@ def main() -> int:
     err_model_k = model_cpu_vs_card(device, backend="kernel")
 
     phase.start("phase 7: serve (kernel nest backend)")
-    run_k = serve(device, CONFIG.replace(nest_backend="kernel",
-                                         n_layers=SERVE_DEPTH))
+    cfg7 = CONFIG.replace(nest_backend="kernel", n_layers=SERVE_DEPTH)
+    run_k = serve(device, cfg7)
+    run_ke = serve(device, cfg7, params=run_k["params"], graphs=False)
+    graphs["kernel"] = engine_graphs_vs_eager(run_k["engine"],
+                                              run_k["params"], 8, 4)
 
     phase.start("phase 8: attention kernels vs plain versions on the card")
     att = attention_vs_plain(device, CONFIG)
@@ -1692,20 +2099,41 @@ def main() -> int:
     phase.start("phase 10: serve with every kernel on the path")
     all_cfg = CONFIG.replace(nest_backend="kernel", attn_backend="kernel")
     run_a = serve(device, all_cfg)
-    full_depth = {name: ServeEngine(build_model(cfg),
-                                    max_len=run_a["engine"].max_len,
-                                    batch_size=run_a["engine"].batch_size,
-                                    device=device)
-                  for name, cfg in (("blocks", CONFIG), ("kernel", CONFIG
-                                    .replace(nest_backend="kernel")))}
-    harness = harness_latencies({**full_depth,
-                                 "all-kernel": run_a["engine"]},
+    run_ae = serve(device, all_cfg, params=run_a["params"], graphs=False)
+    graphs["all-kernel"] = engine_graphs_vs_eager(run_a["engine"],
+                                                  run_a["params"], 8, 4)
+    harness = harness_latencies({"graphs": run_a["engine"],
+                                 "eager": run_ae["engine"]},
                                 run_a["params"])
-    say(f"  tick times (s): blocks "
-        f"{[round(t, 4) for t in run['tick_s']]} and kernel nest "
-        f"{[round(t, 4) for t in run_k['tick_s']]} at {SERVE_DEPTH} layers; "
-        f"all-kernel {[round(t, 4) for t in run_a['tick_s']]} at "
-        f"{CONFIG.n_layers}")
+    stairs = {name: staircase(name, serve_level_latencies(
+        r["engine"], r["params"], rounds=16))
+        for name, r in (("graphs", run_a), ("eager", run_ae))}
+    say(f"  ALERT's table (profile_serve_table at startup), graphs engine, "
+        f"full power (s): {run_a['server'].table.latency[:, -1].tolist()}")
+    floor_ms = node_floor_ms(device)
+    fwd_dev = {}
+    for lvl in (1, all_cfg.nest_levels):
+        f = fwd_dev[lvl] = forward_device_ms(run_a["engine"],
+                                             run_a["params"], lvl, 8)
+        say(f"  level {lvl} forward, device time (CUDA events around one "
+            f"graph replay): prefill {f['prefill_ms']:.6f} ms "
+            f"({f['prefill_kernel_nodes']} kernel nodes, launch floor "
+            f"{f['prefill_kernel_nodes'] * floor_ms:.6f} ms), decode "
+            f"{f['decode_ms']:.6f} ms ({f['decode_kernel_nodes']} nodes, "
+            f"floor {f['decode_kernel_nodes'] * floor_ms:.6f} ms); "
+            f"{floor_ms * 1e3:.3f} us per near-empty graph node")
+    if not stairs["graphs"]["rising"]:
+        raise SmokeFailure("the graphed staircase does not rise: a level's "
+                           "generate is faster than the one below it, or "
+                           "the deepest is not slower than level 1, by more "
+                           "than the spread of repeated profiles")
+    say(f"  tick times (s), graphs / eager: blocks "
+        f"{[round(t, 4) for t in run['tick_s']]} / "
+        f"{[round(t, 4) for t in run_e['tick_s']]} and kernel nest "
+        f"{[round(t, 4) for t in run_k['tick_s']]} / "
+        f"{[round(t, 4) for t in run_ke['tick_s']]} at {SERVE_DEPTH} "
+        f"layers; all-kernel {[round(t, 4) for t in run_a['tick_s']]} / "
+        f"{[round(t, 4) for t in run_ae['tick_s']]} at {CONFIG.n_layers}")
 
     phase.start("phase 11: rwkv_scan kernel vs plain version on the card")
     rwkv = rwkv_vs_plain(device, RWKV_CONFIG)
@@ -1717,9 +2145,26 @@ def main() -> int:
     phase.start("phase 13: serve rwkv6-3b")
     say(f"  nvidia-smi: {nvidia_smi_line()}")
     run_r = serve(device, RWKV_CONFIG)
-    say(f"  tick times (s): {[round(t, 4) for t in run_r['tick_s']]}; "
-        f"profiled generate latency at full power "
-        f"{run_r['server'].table.latency[0, -1]:.6f} s")
+    run_re = serve(device, RWKV_CONFIG, params=run_r["params"], graphs=False)
+    graphs["rwkv6-3b"] = engine_graphs_vs_eager(run_r["engine"],
+                                                run_r["params"], 8, 4)
+    rwkv_fwd = forward_device_ms(run_r["engine"], run_r["params"], None, 8)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in [run_r["params"][k] for k in (
+                           "embed", "unembed", "final_norm")]
+                       + [w for layer in run_r["params"]["layers"]
+                          for part in layer.values() for w in part.values()])
+    rwkv_fwd["weight_read_ms"] = weight_bytes / H100_HBM_BYTES_S * 1e3
+    say(f"  rwkv6-3b forward, device time (one graph replay): decode "
+        f"{rwkv_fwd['decode_ms']:.6f} ms ({rwkv_fwd['decode_kernel_nodes']} "
+        f"kernel nodes), prefill {rwkv_fwd['prefill_ms']:.6f} ms; reading "
+        f"its {weight_bytes / 1e9:.3f} GB of weights takes "
+        f"{rwkv_fwd['weight_read_ms']:.6f} ms at 3.35 TB/s")
+    say(f"  tick times (s), graphs / eager: "
+        f"{[round(t, 4) for t in run_r['tick_s']]} / "
+        f"{[round(t, 4) for t in run_re['tick_s']]}; profiled generate "
+        f"latency at full power {run_r['server'].table.latency[0, -1]:.6f} "
+        f"/ {run_re['server'].table.latency[0, -1]:.6f} s")
     phase.start(None)
     say(f"== done in {time.perf_counter() - t_start:.1f} s")
 
@@ -1750,12 +2195,19 @@ def main() -> int:
             "launches", "ms", "plain_ms", "blocks_ms", "library_ms",
             "bound_ms", "bound_by", "eager_ms", "blocks_eager_ms")}
             for m in fwd},
+        "version": NM_VERSION, "levels": nm_levels, "split_sweep": nm_sweep,
+        "live_triangle": nm_live,
         "reduced_model_max_abs_diff": err_model_k,
         "phase7_launches": run_k["nm_launches"],
         "tick_s": {f"blocks_{SERVE_DEPTH}_layers": run["tick_s"],
                    f"kernel_{SERVE_DEPTH}_layers": run_k["tick_s"],
                    "all-kernel": run_a["tick_s"]},
-        "generate_s_by_level": harness})
+        "eager_tick_s": {f"blocks_{SERVE_DEPTH}_layers": run_e["tick_s"],
+                         f"kernel_{SERVE_DEPTH}_layers": run_ke["tick_s"],
+                         "all-kernel": run_ae["tick_s"]},
+        "generate_s_by_level": harness, "staircase": stairs,
+        "forward_device_ms": {f"level_{k}": v for k, v in fwd_dev.items()},
+        "node_floor_ms": floor_ms, "engine_graphs": graphs})
     kernels.append(attention_entry(
         "flash_attention", FA_VERSION, FA_SOURCE, FA_REPLACES,
         run_a["fa_launches"], att["fa"], "b", att_mp["flash_attention"]))
@@ -1778,9 +2230,12 @@ def main() -> int:
         "reduced_model_max_abs_diff": err_model_r,
         "serve": {"model": RWKV_CONFIG.name,
                   "alert_select_launches": run_r["launches"],
-                  "tick_s": run_r["tick_s"],
+                  "tick_s": run_r["tick_s"], "eager_tick_s": run_re["tick_s"],
                   "profiled_latency_s": float(
-                      run_r["server"].table.latency[0, -1])}})
+                      run_r["server"].table.latency[0, -1]),
+                  "eager_profiled_latency_s": float(
+                      run_re["server"].table.latency[0, -1]),
+                  "forward_device_ms": rwkv_fwd}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,3 +29,16 @@ def check_rows(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: needs unit stride on the last dim "
                              f"and 16-byte aligned rows; got stride "
                              f"{t.stride()} at {t.data_ptr():#x}")
+
+
+_SM_COUNT: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device, read once per device
+    (the kernels' launch plans size their grids from it)."""
+    index = torch.device(device).index or 0
+    if index not in _SM_COUNT:
+        _SM_COUNT[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SM_COUNT[index]

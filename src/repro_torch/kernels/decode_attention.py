@@ -37,7 +37,7 @@ import numbers
 import numpy as np
 import torch
 
-from repro_torch.kernels.checks import DTYPE_CODE, check_rows
+from repro_torch.kernels.checks import DTYPE_CODE, check_rows, sm_count
 from repro_torch.kernels.flash_attention import check_head_dim
 
 
@@ -123,18 +123,6 @@ def decode_split_plan(b: int, n_kv: int, g: int, s: int,
     base = b * n_kv * -(-g // heads_per_block(g))
     splits = max(1, min(tiles, -(-BLOCKS_PER_SM * n_sm // max(base, 1))))
     return splits, -(-tiles // splits)
-
-
-_SM_COUNT: dict[int, int] = {}
-
-
-def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of a CUDA device, read once per device."""
-    index = torch.device(device).index or 0
-    if index not in _SM_COUNT:
-        _SM_COUNT[index] = torch.cuda.get_device_properties(
-            index).multi_processor_count
-    return _SM_COUNT[index]
 
 
 def decode_attention_workspace_bytes(b: int, s: int, h: int, kv: int,

@@ -8,11 +8,15 @@ w [K_in, N]`` where output stripe i reads only the input prefix
 to ``out_spec.width(level)`` columns; float32 accumulation, output in
 ``x.dtype``.
 
-* On a CUDA tensor the wrapper launches ``csrc/nested_matmul.cu`` (one
-  block of 8 warps per 32-column output tile, k split across the warps,
-  a per-column k limit from the stripe boundaries passed by value, x and
-  w read through their row strides) and adds one to
-  ``nested_matmul.launches``.
+* On a CUDA tensor the wrapper launches ``csrc/nested_matmul.cu`` and
+  adds one to ``nested_matmul.launches``.  In bf16 with 16-byte aligned
+  rows (the served path) that is the v3 kernel: 64-column output tiles
+  whose k range is split across the blocks of one thread-block cluster
+  (:func:`nested_split_plan`, from the shapes alone), bf16 tensor cores,
+  and a fixed-order sum of the partials through distributed shared
+  memory, so the result is deterministic; otherwise the CUDA-core kernel
+  (v2).  Per-column k limits come from the stripe boundaries passed by
+  value; x and w are read through their row strides.
 * On a CPU tensor it runs :func:`nested_matmul_plain`, the port of
   ``repro.kernels.ref.nested_matmul_ref``.
 
@@ -31,9 +35,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.nesting import StripeSpec
-from repro_torch.kernels.checks import DTYPE_CODE
+from repro_torch.kernels.checks import DTYPE_CODE, sm_count
 
 _MAX_LEVELS = 8          # NM_MAX_LEVELS of the source
+TILE_N = 64              # NM3_BN: output columns of a v3 tile
+STEP_K = 64              # NM3_KS: k rows of a v3 ring stage
+MAX_SPLITS = 16          # NM3_MAX_SPLITS: largest cluster
 
 
 def tile_limits(in_spec: StripeSpec, out_spec: StripeSpec, level: int,
@@ -90,6 +97,29 @@ def nested_matmul_cost(m: int, in_spec: StripeSpec, out_spec: StripeSpec,
             "live_weight_elements": live_w}
 
 
+@functools.lru_cache(maxsize=None)
+def nested_split_plan(m: int, n_cols: int, k_end: int,
+                      n_sm: int) -> tuple[int, int, int]:
+    """``(splits, row tiles, column tiles)`` of one v3 launch, from the
+    shapes alone: ``TILE_N``-column tiles of 16 rows (``m <= 16``) or 32,
+    and ``splits`` blocks per tile along k, enough for about 1.5 blocks per
+    SM, at most ``MAX_SPLITS`` and at most one per ``STEP_K`` step of the
+    longest k range (``k_end``, the last column's limit).  Where even one
+    block per step leaves most SMs idle (tiles x steps <= n_sm / 4) each
+    step gets its block; otherwise a block takes 1.5 steps or more: a
+    sweep of the split count on the card found a block's fixed cost (its
+    first load's latency, the cluster barrier) outweighing finer splits
+    there.  A tile's ``n`` steps go to its blocks as runs
+    ``[r*n // splits, (r+1)*n // splits)``."""
+    m_tiles = -(-m // (16 if m <= 16 else 32))
+    n_tiles = -(-n_cols // TILE_N)
+    steps = max(-(-k_end // STEP_K), 1)
+    base = max(m_tiles * n_tiles, 1)
+    runs = steps if base * steps <= n_sm // 4 else -(-2 * steps // 3)
+    splits = min(MAX_SPLITS, runs, -(-3 * n_sm // (2 * base)))
+    return max(1, splits), m_tiles, n_tiles
+
+
 # --------------------------------------------------------------------- #
 # Plain version                                                          #
 # --------------------------------------------------------------------- #
@@ -125,7 +155,7 @@ def _library():
         lib.nested_matmul_launch.argtypes = [
             _P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_int, _IP, ctypes.c_int, _IP, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, _P]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
         lib.nested_matmul_launch.restype = ctypes.c_int
         lib.nested_matmul_error_string.argtypes = [ctypes.c_int]
         lib.nested_matmul_error_string.restype = ctypes.c_char_p
@@ -166,10 +196,11 @@ def _launch(x, w, in_spec, out_spec, level):
     m = x.shape[0]
     out = torch.empty((m, n_cols), dtype=x.dtype, device=dev)
     if m and n_cols:
+        splits, _, _ = nested_split_plan(m, n_cols, k_need, sm_count(dev))
         lib = _library()
         rc = lib.nested_matmul_launch(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), m, x.stride(0),
-            w.stride(0), n_cols, ib, in_spec.levels, ob, level, code,
+            w.stride(0), n_cols, ib, in_spec.levels, ob, level, splits, code,
             dev.index, torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             msg = lib.nested_matmul_error_string(rc).decode()

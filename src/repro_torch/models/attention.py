@@ -84,7 +84,7 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _sdpa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 cache_len: int, softcap: float | None = None
+                 cache_len, softcap: float | None = None
                  ) -> torch.Tensor:
     """Single-position decode: q ``[B,1,h,hd]`` over cache k/v
     ``[B,S,kv,hd]`` whose first ``cache_len`` positions are valid."""
@@ -102,10 +102,15 @@ def _sdpa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _scatter_at(buf: torch.Tensor, update: torch.Tensor,
-                index: int) -> torch.Tensor:
+                index) -> torch.Tensor:
     """Write ``update`` ``[B,s,...]`` into ``buf`` ``[B,S,...]`` at
     position ``index`` along axis 1, in place (the cache buffer is owned
-    by one request's generation loop), and return ``buf``."""
+    by one request's generation loop), and return ``buf``.  ``index`` is
+    an int or a 0-d integer tensor, read on the device (no host copy, so
+    a CUDA graph of the call replays at the tensor's current value)."""
+    if isinstance(index, torch.Tensor):
+        rows = index + torch.arange(update.shape[1], device=buf.device)
+        return buf.index_copy_(1, rows, update.to(buf.dtype))
     buf[:, index:index + update.shape[1]] = update.to(buf.dtype)
     return buf
 
@@ -130,13 +135,14 @@ def head_stripe_specs(cfg: ModelConfig) -> tuple[StripeSpec, StripeSpec,
 def nested_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
                      cfg: ModelConfig, *, level: int | None = None,
                      cache: KVCache | None = None,
-                     cache_len: int | None = None,
+                     cache_len: int | torch.Tensor | None = None,
                      ) -> tuple[torch.Tensor, KVCache]:
     """Anytime width-nested causal attention.  Level k uses the first
     ``width_q(k)/head_dim`` query heads and the matching KV prefix.
     Without a cache (prefill) the returned cache holds this call's k/v;
-    with ``cache`` and ``cache_len`` (decode) the step's k/v are written at
-    ``cache_len`` and the updated cache is returned.
+    with ``cache`` and ``cache_len`` (decode; an int or a 0-d integer
+    tensor on the device) the step's k/v are written at ``cache_len`` and
+    the updated cache is returned.
 
     With ``cfg.attn_backend == "kernel"`` prefill masks on index positions,
     which equal ``positions`` because prefill starts at 0

@@ -82,7 +82,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
 
 def apply_layer(lp: dict, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ModelConfig, mixer: str, *, cache=None,
-                cache_len: int | None = None, level: int | None = None):
+                cache_len=None, level: int | None = None):
     """One pre-norm block: nested attention + nested SwiGLU, or the RWKV
     time mix + channel mix.  Returns ``(x, new_cache)``."""
     if mixer == "rwkv":
@@ -102,7 +102,7 @@ def apply_layer(lp: dict, x: torch.Tensor, positions: torch.Tensor,
 
 def lm_apply(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
              mode: str = "prefill", caches: list | None = None,
-             cache_len: int | None = None,
+             cache_len: int | torch.Tensor | None = None,
              level: int | None = None) -> LMOutput:
     """Forward pass at nesting ``level`` (default: the deepest; a model
     without nesting takes ``None``).
@@ -110,9 +110,11 @@ def lm_apply(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     * ``mode='prefill'``: ``tokens [B, S]``, no caches in; the per-layer
       k/v of the prompt (or the RWKV states after it) come back (the
       serving engine merges them into its decode buffers).
-    * ``mode='decode'``: ``tokens [B, 1]`` with ``caches`` and the int
-      ``cache_len``; an attention step's k/v are written into the caches
-      in place, an RWKV layer returns a new state.
+    * ``mode='decode'``: ``tokens [B, 1]`` with ``caches`` and
+      ``cache_len``, an int or a 0-d integer tensor on the device (the
+      serving engine's, which its CUDA graphs read at replay); an
+      attention step's k/v are written into the caches in place, an RWKV
+      layer returns a new state.
 
     Returns ``[B, S, V]`` logits of the chosen level.
     """
@@ -120,7 +122,11 @@ def lm_apply(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         raise ValueError(f"unknown mode {mode!r}")
     b, s = tokens.shape
     decode = mode == "decode"
-    if decode:
+    if decode and isinstance(cache_len, torch.Tensor):
+        # read on the device, so a CUDA graph of the step replays at the
+        # tensor's current value
+        positions = cache_len.to(torch.int32).reshape(-1, 1).expand(b, s)
+    elif decode:
         positions = torch.full((b, s), int(cache_len), dtype=torch.int32,
                                device=tokens.device)
     else:

@@ -78,7 +78,10 @@ def engine_level_fns(engine, params, *, prompt_len: int = 8,
                      gen_tokens: int = 4, seed: int = 0) -> list:
     """Per-level closures over ``engine.generate`` (prefill + greedy
     decode of one seeded prompt batch); each returns the tokens as a host
-    array, so the card has finished the work when it returns."""
+    array, so the card has finished the work when it returns.  The
+    engine's steps for the prompt length are made here (on the card its
+    CUDA graphs are captured), so no capture falls inside a timed call."""
+    engine.warmup(params, prompt_len)
     rng = np.random.default_rng(seed)
     vocab = engine.model.cfg.vocab
     prompt = rng.integers(0, vocab, size=(engine.batch_size, prompt_len),

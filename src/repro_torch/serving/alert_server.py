@@ -49,6 +49,28 @@ class ServedInput:
     feasible: bool
 
 
+def serve_level_latencies(engine: ServeEngine, params, rounds: int,
+                          prompt_len: int = 8,
+                          gen_tokens: int = 4) -> np.ndarray:
+    """``generate`` latency of each level over ``rounds`` rounds, ``[levels,
+    rounds]`` seconds.  Each level gets one warm-up call first; then every
+    round runs each level once, the order turned by one level a round, so
+    that drift of the card's clocks over the profile falls on every level
+    alike rather than on the levels profiled last."""
+    levels = engine.levels
+    prompt = np.zeros((engine.batch_size, prompt_len), np.int32)
+    engine.warmup(params, prompt_len)    # captures, outside the timing
+    for lvl in levels:
+        engine.generate(params, prompt, gen_tokens, level=lvl)
+    out = np.zeros((len(levels), rounds))
+    for r in range(rounds):
+        for i in range(len(levels)):
+            li = (i + r) % len(levels)
+            out[li, r] = engine.generate(params, prompt, gen_tokens,
+                                         level=levels[li])["latency"]
+    return out
+
+
 def profile_serve_table(engine: ServeEngine, params,
                         level_accuracies: list[float],
                         power_model: PowerModel,
@@ -56,21 +78,15 @@ def profile_serve_table(engine: ServeEngine, params,
                         profile_iters: int = 3, q_fail: float = 0.0,
                         prompt_len: int = 8,
                         gen_tokens: int = 4) -> ProfileTable:
-    """t^train profiling: measure each anytime level with ``generate``
-    (one warmup, then ``profile_iters`` runs) and extrapolate across power
-    buckets with the compute-bound 1/f rule.  A model without nesting is
-    one candidate that is no anytime level, so only power adapts."""
+    """t^train profiling: the mean ``generate`` latency of each anytime
+    level over ``profile_iters`` interleaved rounds
+    (:func:`serve_level_latencies`), extrapolated across power buckets
+    with the compute-bound 1/f rule.  A model without nesting is one
+    candidate that is no anytime level, so only power adapts."""
     cfg = engine.model.cfg
     levels = engine.levels
-    base = np.zeros(len(levels))
-    prompt = np.zeros((engine.batch_size, prompt_len), np.int32)
-    for li, lvl in enumerate(levels):
-        engine.generate(params, prompt, gen_tokens, level=lvl)  # warmup
-        ts = []
-        for _ in range(profile_iters):
-            r = engine.generate(params, prompt, gen_tokens, level=lvl)
-            ts.append(r["latency"])
-        base[li] = float(np.mean(ts))
+    base = serve_level_latencies(engine, params, profile_iters, prompt_len,
+                                 gen_tokens).mean(axis=1)
 
     caps, lat, pw = extrapolate_power_buckets(base, power_model,
                                               n_power_buckets)

@@ -511,3 +511,211 @@ def test_rwkv_model_on_card_matches_cpu(cuda_device):
     before = rs.rwkv_scan.launches
     assert rwkv_model_cpu_vs_card(cuda_device) < 1e-4
     assert rs.rwkv_scan.launches == before + 4 * 2   # 4 forwards x 2 layers
+
+
+# --------------------------------------------------------------------- #
+# nested_matmul v3: odd shapes, determinism, graphs                       #
+# --------------------------------------------------------------------- #
+def _odd_specs():
+    """Stripes of 24-104 columns (no multiple of the 64-column tile) over
+    input prefixes of 40, 100, 200 and 328 (100 is no multiple of 8, none
+    of the 64-row step): rows stay 16-byte aligned, so the v3 kernel runs
+    and masks each column at its own limit."""
+    from repro_torch.core.nesting import StripeSpec
+
+    return StripeSpec((0, 40, 100, 200, 328)), StripeSpec((0, 24, 72, 176,
+                                                           264))
+
+
+@pytest.mark.parametrize("m", [1, 4, 5, 32, 33])
+def test_nested_matmul_v3_odd_limits_and_stripes(cuda_device, m):
+    """Every level within NM_TOL; two calls and a CUDA-graph replay of
+    the call give the same bits."""
+    from chip_smoke import nested_close
+
+    from repro_torch.kernels import nested_matmul as nm
+
+    si, so = _odd_specs()
+    gen = torch.Generator(device=cuda_device).manual_seed(m)
+    w = torch.randn(si.total, so.total, generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    x = torch.randn(m, si.total, generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    for level in range(1, so.levels + 1):
+        xk = x[:, :si.width(level)]
+        got = nm.nested_matmul(xk, w, si, so, level)
+        again = nm.nested_matmul(xk, w, si, so, level)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = nm.nested_matmul(xk, w, si, so, level)
+        graph.replay()
+        torch.cuda.synchronize()
+        _, ratio = nested_close(got, nm.nested_matmul_plain(
+            xk, w, si, so, level), "bfloat16")
+        assert ratio <= 1.0, (level, ratio)
+        assert torch.equal(got, again) and torch.equal(got, replayed), level
+
+
+@pytest.mark.parametrize("geometry", [0, 1, 2],
+                         ids=["d->d", "d->d_ff", "d_ff->d"])
+def test_nested_matmul_v3_deterministic_at_served_shapes(cuda_device,
+                                                         geometry):
+    """At the model's geometries, every level and M in {4, 32} (the
+    split plans of 1 to 16 blocks a tile): two calls are bitwise equal,
+    and so is a replay of a CUDA graph of the call; the kernel that runs
+    is v3, one launch a call, its grid the split plan's."""
+    from chip_smoke import captured_kernels
+
+    from repro_torch.kernels import nested_matmul as nm
+
+    _, si, so = _full_width_geometries()[geometry]
+    gen = torch.Generator(device=cuda_device).manual_seed(10 + geometry)
+    w = torch.randn(si.total, so.total, generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    for m in (4, 32):
+        x = torch.randn(m, si.total, generator=gen,
+                        device=cuda_device).to(torch.bfloat16)
+        for level in range(1, so.levels + 1):
+            xk = x[:, :si.width(min(level, si.levels))]
+            first = nm.nested_matmul(xk, w, si, so, level)
+            second = nm.nested_matmul(xk, w, si, so, level)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                replayed = nm.nested_matmul(xk, w, si, so, level)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(first, second), (m, level)
+            assert torch.equal(first, replayed), (m, level)
+            splits, m_tiles, n_tiles = nm.nested_split_plan(
+                m, so.width(level), xk.shape[1], nm.sm_count(cuda_device))
+            launched = captured_kernels(
+                lambda: nm.nested_matmul(xk, w, si, so, level))
+            assert len(launched) == 1 and "nested_matmul_v3" in \
+                launched[0][0], launched
+            assert launched[0][1] == (splits, n_tiles, m_tiles)
+
+
+# --------------------------------------------------------------------- #
+# the serving engine's CUDA graphs                                        #
+# --------------------------------------------------------------------- #
+ENGINE_CASES = ["blocks-ref", "kernel-ref", "blocks-kernel", "kernel-kernel",
+                "rwkv"]
+
+
+def _serve_engine(cuda_device, case, max_len=12):
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serving.engine import ServeEngine
+
+    if case == "rwkv":
+        from repro_torch.configs.rwkv6_3b import reduced
+
+        cfg = reduced()
+    else:
+        from repro_torch.configs.alert_anytime import reduced
+
+        nest, attn = case.split("-")
+        cfg = reduced().replace(nest_backend=nest, attn_backend=attn)
+    params = init_lm(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                     device=cuda_device)
+    return ServeEngine(build_model(cfg), max_len=max_len, batch_size=4,
+                       device=cuda_device), params
+
+
+@pytest.mark.parametrize("case", ENGINE_CASES)
+def test_graphed_engine_matches_eager(cuda_device, case):
+    """Graphed tokens bitwise equal to the eager engine's at every level
+    over three rounds of level switches; ``n_compiles()`` is (levels,
+    levels) after the warm-up and stays so; each replay adds to every
+    launch counter what the eager call adds, and what its graph's kernel
+    nodes say (``chip_smoke.engine_graphs_vs_eager``)."""
+    from chip_smoke import engine_graphs_vs_eager
+
+    eng, params = _serve_engine(cuda_device, case)
+    out = engine_graphs_vs_eager(eng, params, 8, 4)
+    n = len(eng.levels)
+    assert out["n_compiles"] == [n, n]
+
+
+def test_engine_compiles_once_per_level_and_prompt_shape(cuda_device):
+    """Two prompt lengths: (levels x 2, levels) graphs after the warm-ups,
+    flat over three rounds of level and length switches, and no capture
+    counted as a launch."""
+    from repro_torch.kernels import nested_matmul as nm
+
+    eng, params = _serve_engine(cuda_device, "kernel-kernel", max_len=16)
+    n = len(eng.levels)
+    eng.warmup(params, 8)
+    eng.warmup(params, 5)
+    assert eng.n_compiles() == (2 * n, n)
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        for level in reversed(eng.levels):
+            for s0 in (5, 8):
+                prompt = rng.integers(0, eng.model.cfg.vocab, (4, s0))
+                before = nm.nested_matmul.launches
+                eng.generate(params, prompt.astype(np.int32), 3, level=level)
+                assert nm.nested_matmul.launches - before == \
+                    3 * 7 * eng.model.cfg.n_layers
+    assert eng.n_compiles() == (2 * n, n)
+
+
+def test_graphed_decode_leaves_no_trace_between_requests(cuda_device):
+    """A long request, then a short one: the short one's tokens equal a
+    fresh graphed engine's."""
+    used, params = _serve_engine(cuda_device, "kernel-kernel", max_len=16)
+    fresh, _ = _serve_engine(cuda_device, "kernel-kernel", max_len=16)
+    rng = np.random.default_rng(1)
+    vocab = used.model.cfg.vocab
+    long_p = rng.integers(0, vocab, (4, 10)).astype(np.int32)
+    short_p = rng.integers(0, vocab, (4, 4)).astype(np.int32)
+    for level in used.levels:
+        used.generate(params, long_p, 6, level=level)
+        got = used.generate(params, short_p, 4, level=level)["tokens"]
+        want = fresh.generate(params, short_p, 4, level=level)["tokens"]
+        np.testing.assert_array_equal(got, want)
+
+
+# --------------------------------------------------------------------- #
+# alert_select: CUDA's erf against torch's, over the Eq. 7 range          #
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("paper_faithful", [True, False])
+def test_alert_select_erf_sweep_is_bitwise(cuda_device, paper_faithful):
+    """Lanes whose Eq. 7 argument ``z / sqrt2`` at one cell sweeps
+    [-6, 6] in steps of 1.8e-4 (erf is +-1 to the last bit beyond), the
+    other cells at other ``z``: the kernel (nvcc's double ``erf``) and
+    the plain version (torch's) give the same picks, feasibility, relax
+    codes and predicted accuracies, bit for bit."""
+    eng = _engine(cuda_device, paper_faithful)
+    s = 65536
+    lat0 = float(eng.table.latency[3, 5])
+    arg = np.linspace(-6.0, 6.0, s)                 # z / sqrt2 at (3, 5)
+    sd = np.where(np.arange(s) % 2, 0.05, 0.2)
+    mu = np.ones(s)
+    deadline = eng.overhead + mu * lat0 + np.sqrt(2.0) * arg * sd * lat0
+    rng = np.random.default_rng(0)
+    f64 = lambda a: torch.as_tensor(a, dtype=torch.float64,
+                                    device=cuda_device)
+    goal_kind = torch.as_tensor((np.arange(s) % 3 == 0).astype(np.int32),
+                                device=cuda_device)
+    args = [f64(mu), f64(sd), f64(rng.uniform(0.05, 0.8, s)),
+            f64(np.maximum(deadline, 1e-6)), f64(rng.uniform(0.3, 1.0, s)),
+            f64(rng.uniform(0.1, 3.0, s) * lat0 * 200.0), goal_kind,
+            torch.ones(s, dtype=torch.int32, device=cuda_device)]
+    kw = _consts(eng, paper_faithful_energy=paper_faithful, predictions=True)
+    got = ks.alert_select(*args, **kw)
+    torch.cuda.synchronize()
+    want = ks.alert_select_plain(*args, **kw)
+    names = ("model_index", "power_index", "predicted_latency",
+             "predicted_accuracy", "predicted_energy", "feasible",
+             "relaxed_code")
+    for name, a, b in zip(names, got, want):
+        if not torch.equal(a, b):
+            bad = torch.nonzero(a != b).flatten()[:8].tolist()
+            ulp = ""
+            if a.dtype == torch.float64:
+                gap = (a.view(torch.int64) - b.view(torch.int64)).abs()
+                ulp = f", worst {int(gap.max())} ulp"
+            pytest.fail(f"{name} differs on {int((a != b).sum())} lanes "
+                        f"(first {bad}{ulp})")
+

@@ -162,3 +162,30 @@ def test_cpu_wrapper_runs_plain_and_counts_nothing():
     assert nm.nested_matmul.launches == before
     with pytest.raises(ValueError, match="CUDA or CPU"):
         nm.nested_matmul(x.to("meta"), w.to("meta"), spec, spec)
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 32, 33])
+def test_split_plan_from_shapes(m):
+    """The v3 launch plan at the anytime LM's three geometries and every
+    level, on 132 SMs: 16- or 32-row tiles covering M, 64-column tiles
+    covering the level's outputs, between 1 and 16 splits and no more
+    than the 64-row steps of the longest k range (2/3 of them once the
+    grid is not small), and at level 4
+    the d->d_ff and d_ff->d launches at least 1.45 blocks per SM."""
+    d, f = TSpec.pow2(768, 4), TSpec.pow2(3072, 4)
+    for name, si, so in (("d->d", d, d), ("d->d_ff", d, f),
+                         ("d_ff->d", f, d)):
+        for level in range(1, 5):
+            k_end = si.width(min(level, si.levels))
+            splits, m_tiles, n_tiles = nm.nested_split_plan(
+                m, so.width(level), k_end, 132)
+            bm = 16 if m <= 16 else 32
+            assert (m_tiles - 1) * bm < m <= m_tiles * bm
+            assert (n_tiles - 1) * nm.TILE_N < so.width(level) <= \
+                n_tiles * nm.TILE_N
+            steps = -(-k_end // nm.STEP_K)
+            assert 1 <= splits <= min(nm.MAX_SPLITS, steps)
+            if m_tiles * n_tiles * steps > 132 // 4:
+                assert splits <= -(-2 * steps // 3)
+            if level == 4 and name != "d->d" and m <= 32:
+                assert splits * m_tiles * n_tiles >= 1.45 * 132, name

@@ -30,6 +30,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core import batched as tb
 from repro_torch.core import controller as tc
 from repro_torch.core import profiles as tpr
+from repro_torch.core.power import PowerModel
 from repro_torch.models.registry import build_model as t_build
 from repro_torch.serving import alert_server as ts
 from repro_torch.serving.engine import ServeEngine as TServeEngine
@@ -200,3 +201,45 @@ def test_alert_server_serve_one_matches(setup):
         assert_served_equal([t_o], [j_o])
     assert t_srv.controller.slowdown.mu == pytest.approx(
         j_srv.controller.slowdown.mu, rel=RTOL, abs=0)
+
+
+class DriftingEngine:
+    """A stand-in engine whose ``generate`` takes ``0.01 * level`` seconds
+    plus a drift that grows by 1 ms a call, and records the levels it ran."""
+
+    levels = [1, 2, 3]
+    batch_size = 2
+    model = type("M", (), {"cfg": t_cfgs.reduced()})()
+
+    def __init__(self):
+        self.calls, self.warmed = [], []
+
+    def warmup(self, params, prompt_len):
+        self.warmed.append(prompt_len)
+
+    def generate(self, params, prompt, n_new, level=None):
+        assert prompt.shape == (self.batch_size, 5) and n_new == 3
+        self.calls.append(level)
+        return {"latency": 0.01 * level + 1e-3 * len(self.calls)}
+
+
+@pytest.mark.parametrize("rounds", [3, 6])
+def test_profile_serve_table_interleaves_levels(rounds):
+    """ALERT's table is profiled round by round with the level order
+    turned each round, after one warm-up call per level, so a drift that
+    grows over the profile falls on every level alike: the profiled steps
+    between levels are the engine's own 10 ms."""
+    eng = DriftingEngine()
+    got = ts.serve_level_latencies(eng, None, rounds, prompt_len=5,
+                                   gen_tokens=3)
+    assert eng.warmed == [5] and got.shape == (3, rounds)
+    order = [1, 2, 3] + [eng.levels[(i + r) % 3] for r in range(rounds)
+                         for i in range(3)]
+    assert eng.calls == order
+    eng = DriftingEngine()
+    tbl = ts.profile_serve_table(eng, None, ACCS, PowerModel(),
+                                 profile_iters=rounds, prompt_len=5,
+                                 gen_tokens=3)
+    full = tbl.latency[:, -1]
+    np.testing.assert_allclose(np.diff(full), [0.01, 0.01], rtol=1e-9)
+    np.testing.assert_allclose(full, got.mean(axis=1), rtol=0, atol=0)
