@@ -8,14 +8,21 @@ Phases (each prints its own lines; any mismatch exits nonzero):
 1. device: the card's name and power limit (``nvidia-smi``); no CUDA
    device -> exit 1 before anything else.
 2. build: compile every kernel of the served path (``nvcc``, one process
-   per source, started together) and print the build time.
-3. kernel vs plain: ``alert_select`` on the card against its plain
+   per source, started together) and print the build time; count the
+   FP64 instructions of ``erf``, ``exp`` and a division in the SASS of one
+   call of each (``cuobjdump -sass``), for ``alert_select``'s second
+   bound.
+3. kernel vs plain: ``alert_select`` v2 on the card against its plain
    PyTorch version on the same inputs, at S in {1, 4097, 65536} lanes of a
    seeded K=12 x L=8 table (mixed goals, dead lanes holding garbage, both
-   energy modes, predictions on and off).  Picks, feasibility and relax
-   codes must be equal; predictions equal bitwise (or within rtol 1e-12,
-   with the reason printed).  Times the kernel and the plain version at
-   S=65536 with CUDA events and prints the bound.
+   energy modes, predictions on and off); then K x L in {1x1, 4x4, 5x7,
+   12x8, 32x4} at S in {1, 7, 257, 4097} (none a multiple of the lanes a
+   block takes, but 1) with live lanes whose mu is NaN and lanes whose
+   every Eq. 7 CDF is 0, on the engine's tables and on tables that force
+   tied scores, +0.0 and -0.0 scores, and NaN cells.  Every output must
+   be bitwise equal (NaN equal to NaN).  Times the kernel and the plain
+   version at S=65536 with CUDA events and prints the bound and a second
+   bound that counts every FP64 instruction of a cell.
 4. serve (``blocks`` nest backend): ``alert-anytime-120m`` at full width
    and ``SERVE_DEPTH`` = 4 of its 12 layers in bf16 with weights from a
    seed-0 ``torch.Generator`` on the card,
@@ -33,7 +40,8 @@ Phases (each prints its own lines; any mismatch exits nonzero):
    eager one at every level over three rounds of level switches: tokens
    bitwise equal, ``n_compiles()`` flat, the launches a replay counts
    equal to the eager call's and to the kernel nodes read back from each
-   graph.
+   graph.  Times ``alert_select`` at the main-path shape back to back and
+   as device time (CUDA graph), and one ``select`` call's host time.
 5. ``nested_matmul`` kernel vs plain: the model's three projection
    geometries (768x768, 768x3072, 3072x768, 4 pow2 levels) at every level,
    M in {4, 32}, bf16 and float32, a level-prefix view of ``x`` and the
@@ -102,14 +110,17 @@ Phases (each prints its own lines; any mismatch exits nonzero):
     around one replay of the engine's graph) beside its launch floor (its
     kernel nodes times the device time of a near-empty graph node); and
     the tick times of every served configuration, graphed and eager.
-11. ``rwkv_scan`` kernel vs plain, bf16 and float32 with s0 and u
+11. ``rwkv_scan`` v3 kernel vs plain, bf16 and float32 with s0 and u
     nonzero, y and the final state within ``RS_TOL``: (a) rwkv6-3b's
     served shapes (B=4, H=40, hd=64, an 8-token prefill and a 1-token
     decode step), a ragged S=77 at hd 16, 32 and 64 (strided views at
-    64), (b) a 2048-token prompt (B=4) and (c) ``RWKV_LONG`` = 32768
-    tokens (B=1).  Times (b) and (c) in float32 with CUDA events and the
-    served shapes as device time (CUDA graph), beside the bound and the
-    plain version.
+    64), plans forced to 1, 2, 3 and 7 segments (ragged segments, and
+    S < P), (b) a 2048-token prompt (B=4) and (c) ``RWKV_LONG`` = 32768
+    tokens (B=1).  Every call is made twice and must be bitwise equal,
+    and the kernels of each float32 call, read from a CUDA graph of it,
+    must be its plan's.  Times (b) and (c) in float32 with CUDA events at
+    the plan's segments and at other counts, and the served shapes as
+    device time (CUDA graph), beside the bound and the plain version.
 12. the reduced float32 RWKV-6 model on the card (the kernel) against the
     same model on the CPU (the plain scan): prefill logits and states,
     then 3 decode steps, within 1e-4.
@@ -128,6 +139,7 @@ Each phase prints its seconds.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -167,10 +179,18 @@ DA_VERSION = ("v4: split-K flash-decoding (runs of whole tiles across "
               "shapes")
 RS_SOURCE = "src/repro_torch/kernels/csrc/rwkv_scan.cu"
 RS_REPLACES = "src/repro/kernels/rwkv_scan.py:59"
+RS_VERSION = ("v3: each sequence cut into the plan's segments (states "
+              "pass from zero, a fold in segment order, then every "
+              "segment rerun for y), a 16 x 4 state tile a thread, a "
+              "2-stage cp.async ring; one segment at the served shapes, "
+              "a decode step without shared memory")
+SELECT_VERSION = ("v2: a warp per lane (several lanes a warp where "
+                  "K*L <= 16), the F grid in shared memory, accuracy and "
+                  "energy in registers, shuffle reductions; outputs in "
+                  "one int32 [4,S] and one float64 [3,S] buffer")
 # float32 FMAs outside the tensor cores (NVIDIA H100 SXM data sheet), the
 # type of rwkv_scan's arithmetic.
 H100_FP32_FLOPS = 67e12
-PRED_RTOL = 1e-12
 # nested_matmul vs its plain version: both accumulate in float32 in
 # different orders.  bf16: one bf16 ulp (rtol 2^-7) plus 2^-15 * max|plain|
 # for sums that cancel towards zero; float32 (TF32 off): rtol 1e-5 plus
@@ -414,38 +434,41 @@ def fleet_inputs(table, s: int, seed: int, device):
     return f64 + ints
 
 
+SELECT_NAMES = ("model_index", "power_index", "predicted_latency",
+                "predicted_accuracy", "predicted_energy", "feasible",
+                "relaxed_code")
+# (n_single, n_levels, n_power) of the tables phase 3 holds the kernel to:
+# K x L = 1x1, 4x4 (the served table), 5x7, 12x8 and 32x4 (the limits).
+SELECT_TABLES = ((1, 0, 1), (0, 4, 4), (3, 2, 7), (8, 4, 8), (28, 4, 4))
+
+
 def compare(got, want, what: str) -> float:
-    """Picks/feasibility/relax exact, predictions bitwise or within
-    rtol 1e-12; returns the largest absolute prediction difference."""
+    """Every output of the kernel bitwise equal to the plain version's
+    (dtype, shape and bits; NaN equal to NaN); returns 0.0, the largest
+    absolute prediction difference."""
     import torch
 
-    names = ("model_index", "power_index", "predicted_latency",
-             "predicted_accuracy", "predicted_energy", "feasible",
-             "relaxed_code")
-    for n in (0, 1, 5, 6):
-        if not torch.equal(got[n], want[n]):
-            bad = int((got[n] != want[n]).sum())
-            raise SmokeFailure(f"{what}: {names[n]} differs on {bad} lanes")
-    err = 0.0
-    for n in (2, 3, 4):
-        g, w = got[n], want[n]
-        if torch.equal(g, w):
-            continue
-        both_nan = torch.isnan(g) & torch.isnan(w)
-        d = torch.where(both_nan, 0.0, (g - w).abs())
-        rel = torch.where(both_nan, 0.0, d / w.abs().clamp_min(1e-300))
-        if float(rel.max()) > PRED_RTOL:
-            raise SmokeFailure(f"{what}: {names[n]} off by rel "
-                               f"{float(rel.max()):.3e}")
-        err = max(err, float(d.max()))
-        say(f"  {what}: {names[n]} not bitwise, within rtol 1e-12 "
-            f"(max abs {float(d.max()):.3e}): the two paths rounded "
-            f"differently in the last place")
-    return err
+    for name, g, w in zip(SELECT_NAMES, got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise SmokeFailure(f"{what}: {name} is {g.dtype} "
+                               f"{tuple(g.shape)}, the plain version's "
+                               f"{w.dtype} {tuple(w.shape)}")
+        if g.dtype == torch.float64:
+            same = (g.view(torch.int64) == w.view(torch.int64)) | (
+                torch.isnan(g) & torch.isnan(w))
+        else:
+            same = g == w
+        if not bool(same.all()):
+            bad = torch.nonzero(~same).flatten()[:8].tolist()
+            raise SmokeFailure(f"{what}: {name} differs on "
+                               f"{int((~same).sum())} lanes (first {bad})")
+    return 0.0
 
 
-def kernel_vs_plain(device, sizes=(1, 4097, 65536), time_s=65536):
-    """Phase 3; returns (max_abs_err, timing dict at ``time_s``)."""
+def kernel_vs_plain(device, sizes=(1, 4097, 65536), time_s=65536,
+                    counts=None):
+    """Phase 3; returns (max_abs_err, timing dict at ``time_s``, with the
+    second bound from ``counts``)."""
     import torch
 
     from repro_torch.core.batched import BatchedAlertEngine
@@ -473,15 +496,235 @@ def kernel_vs_plain(device, sizes=(1, 4097, 65536), time_s=65536):
                 want = ks.alert_select_plain(*args, **kw)
                 what = f"S={s} paper_faithful={paper} predictions={pred}"
                 err = max(err, compare(got, want, what))
-                say(f"  ok {what}")
+                say(f"  ok {what}: bitwise")
         if s == time_s:
             kw = dict(consts, paper_faithful_energy=True, predictions=True)
-            timing = time_select(ks, args, kw, s, k, l, device)
+            timing = time_select(ks, args, kw, s, k, l, device, counts)
     return err, timing
 
 
-def time_select(ks, args, kw, s, k, l, device) -> dict:
-    """Kernel and plain-version medians (CUDA events) and the bound."""
+def edge_tables(eng):
+    """Variants of an engine's tables that force the argmin's edge cases:
+    ``ties``, power columns 0 and 1 equal (equal scores in one row, the
+    lower cell must win); ``zeros``, weights of mixed sign and q_fail =
+    -0.0, so a lane whose every Eq. 7 CDF is 0 scores +0.0 and -0.0
+    (equal); ``nan``, one latency cell NaN (some scores NaN: the pick is
+    K*L)."""
+    import numpy as np
+    import torch
+
+    k, l = eng._latency.shape
+    base = dict(latency=eng._latency, run_power=eng._run_power,
+                weights=eng._weights, q_fail=eng._q_fail,
+                overhead=eng.overhead)
+    out = {}
+    if l > 1:
+        lat, pw = eng._latency.clone(), eng._run_power.clone()
+        lat[:, 1], pw[:, 1] = lat[:, 0], pw[:, 0]
+        out["ties"] = dict(base, latency=lat, run_power=pw)
+    sign = np.where(np.random.default_rng(k * l).random((k, k)) < 0.5, -1.0,
+                    1.0)
+    sign[0] = -1.0                       # one row whose sum is -0.0
+    out["zeros"] = dict(base, weights=eng._weights.abs() * torch.as_tensor(
+        sign, device=eng._weights.device) + 0.01 * torch.as_tensor(
+        sign, device=eng._weights.device), q_fail=-0.0)
+    lat = eng._latency.clone()
+    lat[k // 2, l // 2] = float("nan")
+    out["nan"] = dict(base, latency=lat)
+    return out
+
+
+def edge_lanes(table, s: int, seed: int, device):
+    """``fleet_inputs`` lanes (mixed goals, 10% dead lanes holding
+    garbage) with every fifth live lane's deadline at 1e-9 s and sigma at
+    0.01 (every Eq. 7 CDF is 0, so Eq. 4 lanes relax on accuracy) and
+    every seventh live lane's mu NaN."""
+    import torch
+
+    args = fleet_inputs(table, s, seed, device)
+    idx = torch.arange(s, device=device)
+    live = args[7] != 0
+    late = live & (idx % 5 == 1)
+    args[3] = torch.where(late, 1e-9, args[3])
+    args[1] = torch.where(late, 0.01, args[1])
+    args[0] = torch.where(live & (idx % 7 == 3), float("nan"), args[0])
+    return args
+
+
+def select_cases(device, sizes=(1, 7, 257, 4097),
+                 tables=SELECT_TABLES) -> int:
+    """Phase 3, beyond the 12 x 8 sizes of :func:`kernel_vs_plain`: every
+    table of ``tables`` at every S of ``sizes`` (none a multiple of
+    the lanes a block takes, but 1), both energy modes, predictions on and
+    off, with :func:`edge_lanes`, on the engine's tables and on each of
+    :func:`edge_tables`; the kernel bitwise equal to the plain version.
+    Returns the number of cases."""
+    import torch
+
+    from repro_torch.core.batched import BatchedAlertEngine
+    from repro_torch.core.profiles import synthetic_table
+    from repro_torch.kernels import alert_select as ks
+
+    n = 0
+    for single, levels, power in tables:
+        i = SELECT_TABLES.index((single, levels, power))
+        table = synthetic_table(i, n_single=single, n_levels=levels,
+                                n_power=power)
+        k, l = table.latency.shape
+        eng = BatchedAlertEngine(table, None,
+                                 overhead=0.05 * float(table.latency.min()),
+                                 device=device)
+        variants = {"engine": dict(
+            latency=eng._latency, run_power=eng._run_power,
+            weights=eng._weights, q_fail=eng._q_fail,
+            overhead=eng.overhead)}
+        variants.update(edge_tables(eng))
+        for s in sizes:
+            args = edge_lanes(table, s, seed=1000 * i + s, device=device)
+            for name, consts in variants.items():
+                for paper in (True, False):
+                    for pred in (True, False):
+                        kw = dict(consts, paper_faithful_energy=paper,
+                                  predictions=pred)
+                        got = ks.alert_select(*args, **kw)
+                        if device.type == "cuda":
+                            torch.cuda.synchronize(device)
+                        compare(got, ks.alert_select_plain(*args, **kw),
+                                f"K={k} L={l} S={s} {name} "
+                                f"paper_faithful={paper} predictions={pred}")
+                        n += 1
+        say(f"  ok K={k} L={l}: S in {list(sizes)}, tables "
+            f"{list(variants)}, both energy modes, predictions on and off: "
+            f"bitwise")
+    return n
+
+
+# One call of each FP64 function alert_select runs per cell, compiled
+# alone so its instructions can be counted in the SASS.
+FP64_PROBES = r"""
+#include <math.h>
+extern "C" __global__ void probe_erf(const double* x, double* y) {
+  y[threadIdx.x] = erf(x[threadIdx.x]);
+}
+extern "C" __global__ void probe_exp(const double* x, double* y) {
+  y[threadIdx.x] = exp(x[threadIdx.x]);
+}
+extern "C" __global__ void probe_div(const double* x, double* y) {
+  y[threadIdx.x] = __ddiv_rn(x[threadIdx.x], x[threadIdx.x + 32]);
+}
+"""
+# SASS opcodes that run on the FP64 pipe (MUFU.RCP64H and MUFU.RSQ64H
+# seed a division or a root on the MUFU unit, not on this pipe).
+FP64_OPCODES = ("DFMA", "DADD", "DMUL", "DSETP", "DMNMX")
+# H100 SXM FP64 instructions per second: 34 TFLOP/s counts a DFMA as 2.
+H100_FP64_INSTR_S = H100_FP64_FLOPS / 2
+
+
+def sass_fp64_paths(body: str) -> tuple[int, int]:
+    """(fewest, most) FP64 instructions on a path from the first
+    instruction of one function's SASS (``cuobjdump -sass``) to an
+    ``EXIT``.  A branch (``BRA``, predicated or not) leads to its target
+    and, when predicated, to the next instruction; a ``CALL`` (a
+    division's out-of-line slow path) is passed over; a predicated
+    instruction other than a branch counts, since it still takes its
+    slot.  One evaluation runs one path, so the fewest is what any input
+    needs at least."""
+    import functools
+    import re
+
+    ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                     r"([A-Z0-9.]+)([^;]*);", body)
+    if not ins:
+        raise SmokeFailure("no instructions in the SASS")
+    at = {int(addr, 16): i for i, (addr, *_rest) in enumerate(ins)}
+
+    def successors(i: int) -> list[int]:
+        _, pred, op, rest = ins[i]
+        nxt = [i + 1] if i + 1 < len(ins) else []
+        if op == "EXIT":
+            return [-1] + (nxt if pred else [])
+        if op.startswith(("BRA", "JMP")):
+            target = re.search(r"0x([0-9a-f]+)", rest)
+            if target is None or int(target.group(1), 16) not in at:
+                raise SmokeFailure(f"SASS branch without a target: "
+                                   f"{op}{rest}")
+            return [at[int(target.group(1), 16)]] + (nxt if pred else [])
+        if op.startswith(("RET", "BRX", "JMX")):
+            raise SmokeFailure(f"SASS path reaches {op}{rest}")
+        return nxt
+
+    on_path: set[int] = set()
+
+    @functools.lru_cache(maxsize=None)
+    def walk(i: int) -> tuple[int, int]:
+        if i == -1:
+            return 0, 0
+        if i in on_path:
+            raise SmokeFailure("a loop in the SASS of one call")
+        on_path.add(i)
+        ends = [walk(j) for j in successors(i)]
+        on_path.discard(i)
+        if not ends:
+            raise SmokeFailure("a SASS path that ends without EXIT")
+        own = int(ins[i][2].startswith(FP64_OPCODES))
+        return (own + min(e[0] for e in ends),
+                own + max(e[1] for e in ends))
+
+    return walk(0)
+
+
+def fp64_instruction_counts() -> dict:
+    """FP64 instructions of ``erf``, ``exp`` and ``__ddiv_rn`` on sm_90a,
+    read from the SASS of one call of each (``nvcc -cubin``,
+    ``cuobjdump -sass``): for each, the fewest and the most on a path of
+    the inline code to ``EXIT`` (:func:`sass_fp64_paths`; the
+    out-of-line slow path of the division does not count)."""
+    import re
+    import tempfile
+
+    from repro_torch.kernels.build import nvcc_path
+
+    nvcc = Path(nvcc_path())
+    with tempfile.TemporaryDirectory(dir=SRC / "repro_torch" / "kernels"
+                                     / "_build") as tmp:
+        src, cubin = Path(tmp) / "probe.cu", Path(tmp) / "probe.cubin"
+        src.write_text(FP64_PROBES)
+        subprocess.run([str(nvcc), "-cubin", "-gencode",
+                        "arch=compute_90a,code=sm_90a", "-O3", "-o",
+                        str(cubin), str(src)], check=True,
+                       capture_output=True, timeout=300)
+        sass = subprocess.run([str(nvcc.parent / "cuobjdump"), "-sass",
+                               str(cubin)], check=True, capture_output=True,
+                              text=True, timeout=300).stdout
+    counts = {}
+    for name, body in re.findall(
+            r"Function : probe_(\w+)(.*?)(?=Function :|$)", sass, re.S):
+        fewest, most = sass_fp64_paths(body)
+        counts[name] = {"fewest": fewest, "most": most}
+    if sorted(counts) != ["div", "erf", "exp"]:
+        raise SmokeFailure(f"probes found in the SASS: {sorted(counts)}")
+    return counts
+
+
+def select_instructions(k: int, counts: dict, paper_faithful=True,
+                        path: str = "fewest") -> int:
+    """FP64 instructions of one ``[K, L]`` cell in ``alert_select.cu``:
+    Eq. 7 (2 multiplies, a max, a subtraction, 2 divisions, ``erf``, an add
+    and a multiply), the Eq. 10 sum (``2 K``), Eq. 9 energy (8, or 15 and
+    ``exp`` with E[min(t, T)]), feasibility and score (4); ``erf``, ``exp``
+    and a division at their ``path`` count (:func:`sass_fp64_paths`)."""
+    div, erf, exp = (counts[f][path] for f in ("div", "erf", "exp"))
+    eq7 = 6 + 2 * div + erf
+    energy = 8 if paper_faithful else 15 + div + exp
+    return eq7 + 2 * k + energy + 4
+
+
+def time_select(ks, args, kw, s, k, l, device, counts=None) -> dict:
+    """Kernel and plain-version medians (CUDA events) and the bound; with
+    ``counts`` (:func:`fp64_instruction_counts`) a second bound that
+    counts every FP64 instruction of a cell, ``erf`` and the divisions on
+    their cheapest path through the SASS, at the FP64 instruction rate
+    (and, beside it, the same at their dearest path)."""
     if device.type != "cuda":
         return {}
     ms = cuda_ms(lambda: ks.alert_select(*args, **kw), launches=100)
@@ -500,6 +743,23 @@ def time_select(ks, args, kw, s, k, l, device) -> dict:
         f"{t_ops:.6f} ms; {cost['bytes_accessed']:.4g} B at 3.35 TB/s = "
         f"{t_bytes:.6f} ms; the {cost['transcendentals']:.4g} erf calls "
         f"are counted as 0 FP64 ops, so the bound is low)")
+    if counts:
+        per_cell, most = (select_instructions(
+            k, counts, kw["paper_faithful_energy"], path)
+            for path in ("fewest", "most"))
+        out.update(fp64_instructions_per_cell=per_cell,
+                   fp64_instructions_per_cell_most=most,
+                   fp64_sass_counts=counts,
+                   instruction_bound_ms=s * k * l * per_cell
+                   / H100_FP64_INSTR_S * 1e3)
+        say(f"  second bound, every FP64 instruction on the cheapest "
+            f"path: {per_cell} a cell (erf {counts['erf']['fewest']}, a "
+            f"division {counts['div']['fewest']}, from the SASS) x "
+            f"{s * k * l} cells at 17e12 FP64 instructions/s = "
+            f"{out['instruction_bound_ms']:.6f} ms; the kernel is "
+            f"{out['instruction_bound_ms'] / ms:.3f} of it (on the dearest "
+            f"path, {most} a cell: "
+            f"{s * k * l * most / H100_FP64_INSTR_S * 1e3:.6f} ms)")
     return out
 
 
@@ -1358,36 +1618,100 @@ def rwkv_bound(b, s, h, hd, itemsize) -> tuple[float, str, dict]:
                                  else "bytes"), cost
 
 
+@contextlib.contextmanager
+def forced_segments(segments: int | None):
+    """``rwkv_scan``'s plan replaced by ``segments`` for every call inside
+    (``None``: the plan itself)."""
+    from repro_torch.kernels import rwkv_scan as rs
+
+    plan = rs.rwkv_scan_plan
+    if segments is not None:
+        rs.rwkv_scan_plan = lambda *shape: segments
+    try:
+        yield
+    finally:
+        rs.rwkv_scan_plan = plan
+
+
+# The kernels of one rwkv_scan call: the states pass and the fold only
+# when the call runs more than one segment; a one-token call of one
+# segment runs the decode kernel alone.
+RS_NODES = ("rwkv_scan_states", "rwkv_scan_fold", "rwkv_scan_kernel",
+            "rwkv_scan_decode")
+
+
+def rwkv_launched(what, b, s, h, segments: int, call) -> dict:
+    """The kernels one ``rwkv_scan`` call on ``[b, s, h, hd]`` launched,
+    read from a CUDA graph of the call; raises unless they are
+    ``segments``' (one ``rwkv_scan_kernel`` of grid (H, B, 1) for one
+    segment, ``rwkv_scan_decode`` (H, B, 1) for one token; else the states
+    pass (H, B, P-1), the fold (H, B, 1) and the y pass (H, B, P)) and
+    nothing else launched.  ``segments`` in the result is the y pass's
+    grid depth as read from the graph."""
+    launched = captured_kernels(call)
+    got = sorted((next((n for n in RS_NODES if n in name), name), grid)
+                 for name, grid in launched)
+    last = "rwkv_scan_decode" if s == 1 and segments == 1 else \
+        "rwkv_scan_kernel"
+    want = [(last, (h, b, segments))]
+    if segments > 1:
+        want += [("rwkv_scan_fold", (h, b, 1)),
+                 ("rwkv_scan_states", (h, b, segments - 1))]
+    if got != sorted(want):
+        raise SmokeFailure(f"rwkv_scan {what} launched {got}, not the "
+                           f"{segments}-segment plan's {sorted(want)}")
+    return {"segments": next(g[2] for n, g in got if n == last),
+            "cuda_launches": len(launched)}
+
+
 def rwkv_case(device, what, b, s, h, hd, *, strided=False, timed=False,
-              seed=0) -> dict:
+              seed=0, segments=None) -> dict:
     """Phase 11: ``rwkv_scan`` against its plain version on the same
     inputs, in bf16 and float32, y and the final state within ``RS_TOL``;
-    the float32 plain run is timed once with CUDA events.  With ``timed``,
-    the kernel in float32 with CUDA events (the inputs of (b) and (c) are
+    the float32 plain run is timed once with CUDA events.  ``segments``
+    forces the kernel's plan (``None``: ``rwkv_scan_plan``'s).  On the
+    card every call is made twice (bitwise equal) and the float32 call's
+    kernels are read from a graph of it (the plan's).  With ``timed``, the
+    kernel in float32 with CUDA events (the inputs of (b) and (c) are
     over 400 MB, beyond the 50 MB L2), beside the bound."""
     import torch
 
     from repro_torch.kernels import rwkv_scan as rs
+    from repro_torch.kernels.checks import sm_count
 
     gen = torch.Generator(device=device).manual_seed(seed)
     x = rwkv_inputs(gen, b, s, h, hd, device, strided=strided)
     absx = [t.abs() for t in x]
     scale_y, scale_s = rs.rwkv_scan_plain(*absx)
     del absx
+    on_card = device.type == "cuda"
+    plan = segments if segments is not None else (
+        rs.rwkv_scan_plan(b, s, h, sm_count(device)) if on_card else 1)
     out = {"shape": f"B={b},S={s},H={h},hd={hd},strided={strided}",
-           "err": 0.0, "ratio": 0.0}
+           "segments": plan, "err": 0.0, "ratio": 0.0}
     for dt in ("bfloat16", "float32"):
         xd = [t.to(getattr(torch, dt)) for t in x[:4]] + x[4:]
-        if device.type == "cuda":
+        if on_card:
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
         want_y, want_s = rs.rwkv_scan_plain(*xd)
-        if device.type == "cuda":
+        if on_card:
             torch.cuda.synchronize(device)
         if dt == "float32":
             out["plain_ms"] = (time.perf_counter() - t0) * 1e3
-        got_y, got_s = rs.rwkv_scan(*xd)
-        if device.type == "cuda":
+        with forced_segments(segments):
+            got_y, got_s = rs.rwkv_scan(*xd)
+            if on_card:
+                again_y, again_s = rs.rwkv_scan(*xd)
+                if not (torch.equal(got_y, again_y)
+                        and torch.equal(got_s, again_s)):
+                    raise SmokeFailure(f"rwkv_scan {what} {dt}: two "
+                                       f"identical calls differ")
+                del again_y, again_s
+                if dt == "float32":
+                    out.update(rwkv_launched(what, b, s, h, plan,
+                                             lambda: rs.rwkv_scan(*xd)))
+        if on_card:
             torch.cuda.synchronize(device)
         label = f"rwkv_scan {what} {dt}"
         ey, ry = rwkv_close(got_y, want_y, scale_y, dt, f"{label} y")
@@ -1395,31 +1719,60 @@ def rwkv_case(device, what, b, s, h, hd, *, strided=False, timed=False,
                              f"{label} state")
         out["err"] = max(out["err"], ey, es)
         out["ratio"] = max(out["ratio"], ry, r_s)
-        say(f"  ok {label} {out['shape']}: max abs err y {ey:.3e} "
-            f"({ry:.3f} of the tolerance), state {es:.3e} ({r_s:.3f})")
+        say(f"  ok {label} {out['shape']}, {plan} segment(s): max abs err "
+            f"y {ey:.3e} ({ry:.3f} of the tolerance), state {es:.3e} "
+            f"({r_s:.3f}){'; bitwise equal twice' if on_card else ''}")
         del xd, want_y, want_s, got_y, got_s
-    if not timed or device.type != "cuda":
+    if not timed or not on_card:
         return out
-    out["ms"] = cuda_ms(lambda: rs.rwkv_scan(*x),
-                        launches=20 if s <= 4096 else 3, rounds=3, warmup=1)
+    out["ms"] = rwkv_ms(x, what, segments)[1]
     out["library_ms"] = None
     out["bound_ms"], out["bound_by"], cost = rwkv_bound(b, s, h, hd, 4)
     out.update(flops=cost["flops"], bytes=cost["bytes_accessed"])
-    say(f"  time rwkv_scan {what} float32 {out['shape']} (CUDA events): "
-        f"kernel {out['ms']:.6f} ms, plain (one run) "
-        f"{out['plain_ms']:.3f} ms; bound {out['bound_ms']:.6f} ms by "
+    say(f"  time rwkv_scan {what} float32 {out['shape']}, {plan} "
+        f"segment(s) (CUDA events): kernel {out['ms']:.6f} ms, plain (one "
+        f"run) {out['plain_ms']:.3f} ms; bound {out['bound_ms']:.6f} ms by "
         f"{out['bound_by']} ({cost['flops']:.4g} flop at 67 TFLOP/s, "
         f"{cost['bytes_accessed']:.4g} B at 3.35 TB/s); no single PyTorch "
         f"call computes it")
+    if segments is None:
+        out["segment_sweep"] = {
+            str(read): ms for read, ms in (
+                rwkv_ms(x, what, p)
+                for p in sorted({1, max(1, plan // 2), plan * 2} - {plan}))}
+        say(f"  time rwkv_scan {what} float32 at other segment counts "
+            f"(ms): {out['segment_sweep']} (the plan's {plan}: "
+            f"{out['ms']:.6f})")
     return out
+
+
+def rwkv_ms(x, what, segments: int | None) -> tuple[int, float]:
+    """One float32 ``rwkv_scan`` call on ``x`` with the plan forced to
+    ``segments`` (``None``: the plan's): the segments its kernels ran, read
+    from a CUDA graph of the call (:func:`rwkv_launched`, which raises
+    unless they are the forced plan's), and its device time (CUDA events
+    around back-to-back calls)."""
+    from repro_torch.kernels import rwkv_scan as rs
+    from repro_torch.kernels.checks import sm_count
+
+    b, s, h, _ = x[0].shape
+    with forced_segments(segments):
+        plan = segments if segments is not None else rs.rwkv_scan_plan(
+            b, s, h, sm_count(x[0].device))
+        read = rwkv_launched(f"{what} timed", b, s, h, plan,
+                             lambda: rs.rwkv_scan(*x))["segments"]
+        return read, cuda_ms(lambda: rs.rwkv_scan(*x),
+                             launches=20 if s <= 4096 else 3, rounds=3,
+                             warmup=1)
 
 
 def time_main_path_rwkv(device, cfg) -> dict:
     """The served shapes (B=4, ``rwkv_n_heads`` heads of
     ``rwkv_head_dim``; an 8-token prefill and a 1-token decode step) in
-    float32, as the model calls the scan: the kernel as device time (CUDA
-    graph) and back to back, the plain version as device time, and
-    the bound."""
+    float32, as the model calls the scan: the kernel as device time (a
+    CUDA graph of 480 calls, 11 replays: the steps are a few microseconds,
+    so fewer calls leave a spread of several percent) and back to back,
+    the plain version as device time, and the bound."""
     import torch
 
     from repro_torch.kernels import rwkv_scan as rs
@@ -1430,7 +1783,7 @@ def time_main_path_rwkv(device, cfg) -> dict:
     for name, s in (("prefill", 8), ("decode", 1)):
         x = rwkv_inputs(gen, b, s, h, hd, device)
         r = {"shape": f"B={b},S={s},H={h},hd={hd},float32"}
-        r["ms"] = graph_ms(lambda: rs.rwkv_scan(*x))
+        r["ms"] = graph_ms(lambda: rs.rwkv_scan(*x), calls=480, rounds=11)
         r["eager_ms"] = cuda_ms(lambda: rs.rwkv_scan(*x), launches=200)
         r["plain_ms"] = graph_ms(lambda: rs.rwkv_scan_plain(*x), calls=8)
         r["library_ms"] = None
@@ -1444,18 +1797,31 @@ def time_main_path_rwkv(device, cfg) -> dict:
     return res
 
 
+# Phase 11's forced plans: (segments, B, S, H, hd, strided): ragged
+# segments at every head dim, and S < P.
+RS_FORCED = ((1, 2, 77, 3, 64, True), (2, 2, 77, 3, 16, False),
+             (3, 2, 77, 3, 32, False), (7, 2, 77, 3, 64, True),
+             (7, 1, 5, 2, 32, False), (3, 2, 2, 3, 16, False),
+             (2, 4, 300, 40, 64, False))
+
+
 def rwkv_vs_plain(device, cfg, full: bool = True) -> dict:
     """Phase 11: ``rwkv_scan`` against its plain version at (a) the served
     shapes of ``cfg`` (B=4, an 8-token prefill and a 1-token decode step),
     a ragged length no chunk divides, strided views and head dims 16 and
-    32, and with ``full`` (b) a 2048-token prompt (B=4) and (c) a
-    32768-token sequence (B=1), timed."""
+    32, the plans of ``RS_FORCED``, and with ``full`` (b) a 2048-token
+    prompt (B=4) and (c) a 32768-token sequence (B=1), timed with the
+    plan and at other segment counts."""
     h, hd = cfg.rwkv_n_heads, cfg.rwkv_head_dim
     res = {"a_prefill": rwkv_case(device, "(a)", 4, 8, h, hd),
            "a_decode": rwkv_case(device, "(a)", 4, 1, h, hd)}
     for i, dim in enumerate((16, 32, 64)):
         res[f"ragged_hd{dim}"] = rwkv_case(device, "ragged", 2, 77, 3, dim,
                                            strided=dim == 64, seed=i + 1)
+    for i, (p, b, s, nh, dim, strided) in enumerate(RS_FORCED):
+        res[f"forced_{p}_{b}x{s}x{nh}x{dim}"] = rwkv_case(
+            device, f"forced P={p}", b, s, nh, dim, strided=strided,
+            seed=10 + i, segments=p)
     if full:
         res["b"] = rwkv_case(device, "(b)", 4, 2048, h, hd, timed=True)
         res["c"] = rwkv_case(device, "(c)", 1, RWKV_LONG, h, hd,
@@ -1785,12 +2151,13 @@ def harness_latencies(engines, params) -> dict:
 
 
 # The kernel wrappers the engine counts (serving.engine.COUNTED, in its
-# order) and the kernel-node name each launch of them adds to a graph
-# (decode_attention's combine node comes only with a split call).
-WRAPPER_NODES = (("nested_matmul", "nested_matmul"),
-                 ("flash_attention", "flash_attention"),
-                 ("decode_attention", "decode_attention_kernel"),
-                 ("rwkv_scan", "rwkv_scan_kernel"))
+# order) and the kernel-node names one launch of them adds to a graph,
+# one of each tuple (decode_attention's combine node comes only with a
+# split call; a one-token rwkv_scan call runs rwkv_scan_decode).
+WRAPPER_NODES = (("nested_matmul", ("nested_matmul",)),
+                 ("flash_attention", ("flash_attention",)),
+                 ("decode_attention", ("decode_attention_kernel",)),
+                 ("rwkv_scan", ("rwkv_scan_kernel", "rwkv_scan_decode")))
 
 
 def engine_graphs_vs_eager(engine, params, prompt_len: int,
@@ -1819,8 +2186,8 @@ def engine_graphs_vs_eager(engine, params, prompt_len: int,
         if step.graph is None:
             raise SmokeFailure(f"step {key} was not captured")
         names = [name for name, _ in graph_kernels(step.graph)]
-        counted = tuple(sum(pat in n for n in names)
-                        for _, pat in WRAPPER_NODES)
+        counted = tuple(sum(any(p in n for p in pats) for n in names)
+                        for _, pats in WRAPPER_NODES)
         if counted != step.launches:
             raise SmokeFailure(f"step {key}: its graph holds {counted} "
                                f"kernel nodes of {[w for w, _ in WRAPPER_NODES]}"
@@ -2036,8 +2403,13 @@ def main() -> int:
             if "registers" in line or "spill" in line or "stack" in line:
                 say(f"    ptxas: {line.strip()}")
 
+    fp64_counts = fp64_instruction_counts()
+    say(f"  FP64 instructions in the SASS of one call, the fewest and the "
+        f"most on a path of the inline code to EXIT: {fp64_counts}")
+
     phase.start("phase 3: alert_select kernel vs plain version on the card")
-    err, timing = kernel_vs_plain(device)
+    err, timing = kernel_vs_plain(device, counts=fp64_counts)
+    n_select_cases = select_cases(device)
 
     phase.start("phase 4: serve (blocks nest backend)")
     err_model = model_cpu_vs_card(device)
@@ -2054,6 +2426,7 @@ def main() -> int:
                            % ((args[0].shape[0],) + tuple(kw["latency"]
                                                           .shape))))
     mp_ms = cuda_ms(lambda: ks.alert_select(*args, **kw), launches=200)
+    mp_graph_ms = graph_ms(lambda: ks.alert_select(*args, **kw))
     mp_plain = cuda_ms(lambda: ks.alert_select_plain(*args, **kw),
                        launches=50)
     srv = run["server"]
@@ -2065,7 +2438,8 @@ def main() -> int:
     mp_bound = max(cost["flops"] / H100_FP64_FLOPS,
                    cost["bytes_accessed"] / H100_HBM_BYTES_S) * 1e3
     say(f"  main-path shape S={s_mp} K={k_mp} L={l_mp}: kernel "
-        f"{mp_ms:.6f} ms, plain {mp_plain:.6f} ms, bound {mp_bound:.9f} ms; "
+        f"{mp_ms:.6f} ms back to back, {mp_graph_ms:.6f} ms device time "
+        f"(CUDA graph), plain {mp_plain:.6f} ms, bound {mp_bound:.9f} ms; "
         f"one BatchedAlertEngine.select call (host wall, results on the "
         f"host) {select_ms:.6f} ms")
     say(f"  reduced-model max abs logit diff {err_model:.3e}")
@@ -2176,8 +2550,14 @@ def main() -> int:
         "bound_by": timing["bound_by"], "library_ms": None,
         "shape": timing["shape"], "main_path_shape":
             f"S={s_mp},K={k_mp},L={l_mp}",
-        "main_path_ms": mp_ms, "main_path_plain_ms": mp_plain,
-        "main_path_bound_ms": mp_bound, "main_path_select_ms": select_ms}]
+        "main_path_ms": mp_ms, "main_path_graph_ms": mp_graph_ms,
+        "main_path_plain_ms": mp_plain,
+        "main_path_bound_ms": mp_bound, "main_path_select_ms": select_ms,
+        "version": SELECT_VERSION, "bitwise_cases": n_select_cases,
+        **{f: timing[f] for f in ("instruction_bound_ms",
+                                  "fp64_instructions_per_cell",
+                                  "fp64_instructions_per_cell_most",
+                                  "fp64_sass_counts") if f in timing}}]
     t32 = nm_time[32]
     kernels.append({
         "name": "nested_matmul", "route": "cuda", "source": NM_SOURCE,
@@ -2223,9 +2603,14 @@ def main() -> int:
         "ms": b_case["ms"], "plain_ms": b_case["plain_ms"],
         "bound_ms": b_case["bound_ms"], "bound_by": b_case["bound_by"],
         "library_ms": None, "shape": b_case["shape"] + ",float32",
+        "version": RS_VERSION, "segments": b_case["segments"],
+        "segment_sweep": b_case["segment_sweep"],
         "max_tolerance_ratio": max(c["ratio"] for c in rwkv.values()),
+        "c_tolerance_ratio": rwkv["c"]["ratio"],
+        "cases": {k: {f: c[f] for f in ("shape", "segments", "ratio")}
+                  for k, c in rwkv.items()},
         "other_shapes": {"c": {k: v for k, v in rwkv["c"].items()
-                               if k not in ("err", "ratio")}},
+                               if k not in ("err",)}},
         "main_path": rwkv_mp,
         "reduced_model_max_abs_diff": err_model_r,
         "serve": {"model": RWKV_CONFIG.name,

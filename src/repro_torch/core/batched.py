@@ -16,9 +16,12 @@ models x L power buckets in one call:
   lanes (``active``); dead lanes may hold garbage and come back with a
   null decision.
 
-Selection goes through :func:`repro_torch.kernels.alert_select.alert_select`:
-the CUDA kernel for an engine on the card (``backend="cuda"``), its plain
-PyTorch version for an engine on the CPU (``backend="torch"``).  A CUDA
+Selection goes through
+:func:`repro_torch.kernels.alert_select.alert_select_packed`: the CUDA
+kernel for an engine on the card (``backend="cuda"``), its plain PyTorch
+version for an engine on the CPU (``backend="torch"``).  A call moves the
+host's lane inputs to the device in one copy per dtype and its results
+back in one copy per dtype.  A CUDA
 engine never runs the plain version and a CPU engine never runs the
 kernel.  Scoring is float64 on the engine's device; torch's global
 default dtype is never touched.
@@ -135,6 +138,9 @@ class BatchedAlertEngine:
         self._run_power = dev(table.run_power)
         self._weights = dev(self._staircase_weight_matrix(table))
         self._q_fail = float(table.q_fail)
+        if self.backend == "cuda":   # once here, not on every select
+            kernel.check_tables(self._latency, self._run_power,
+                                self._weights)
 
     @staticmethod
     def _staircase_weight_matrix(table: ProfileTable) -> np.ndarray:
@@ -171,6 +177,38 @@ class BatchedAlertEngine:
         if isinstance(x, torch.Tensor):
             return x.to(device=self.device, dtype=torch.int32).contiguous()
         return torch.from_numpy(np.array(x, np.int32)).to(self.device)
+
+    def _lane_vectors(self, s: int, floats, ints):
+        """The kernel's eight ``[S]`` lane vectors on the device: float64
+        ``mu, sigma (floored at 1e-6), phi, deadline, accuracy_goal,
+        energy_goal`` from ``floats`` and int32 ``goal_kind, active`` from
+        ``ints``.  Tensors move on their own (one already on the device is
+        not copied through the host); the host values of each dtype go
+        over in one copy."""
+        floors = (None, 1e-6, None, None, None, None)
+        out = [None] * 8
+        host = [n for n, x in enumerate(floats)
+                if not isinstance(x, torch.Tensor)]
+        if host:
+            buf = np.empty((len(host), s), np.float64)
+            for row, n in enumerate(host):
+                buf[row] = floats[n]
+                if floors[n] is not None:
+                    np.maximum(buf[row], floors[n], out=buf[row])
+            moved = torch.from_numpy(buf).to(self.device)
+            for row, n in enumerate(host):
+                out[n] = moved[row]
+        for n, x in enumerate(floats):
+            if out[n] is None:
+                out[n] = self._vec(x, s, floor=floors[n])
+        if any(isinstance(x, torch.Tensor) for x in ints):
+            out[6:] = [self._lane_ints(x) for x in ints]
+        else:
+            buf = np.empty((2, s), np.int32)
+            buf[0], buf[1] = ints
+            moved = torch.from_numpy(buf).to(self.device)
+            out[6:] = moved[0], moved[1]
+        return out
 
     @staticmethod
     def _n_lanes(deadline) -> int:
@@ -272,22 +310,22 @@ class BatchedAlertEngine:
                     np.any(act & (gk == GOAL_MAX_ACCURACY)):
                 raise ValueError("active maximize-accuracy lanes need "
                                  "energy_goal")
-        out = self._kernel.alert_select(
-            self._vec(mu, s), self._vec(sigma, s, floor=1e-6),
-            self._vec(phi, s), self._vec(deadline, s),
-            self._vec(0.0 if accuracy_goal is None else accuracy_goal, s),
-            self._vec(0.0 if energy_goal is None else energy_goal, s),
-            self._lane_ints(gk), self._lane_ints(act),
-            latency=self._latency, run_power=self._run_power,
+        lanes = self._lane_vectors(
+            s, (mu, sigma, phi, deadline,
+                0.0 if accuracy_goal is None else accuracy_goal,
+                0.0 if energy_goal is None else energy_goal), (gk, act))
+        ints, f64 = self._kernel.alert_select_packed(
+            *lanes, latency=self._latency, run_power=self._run_power,
             weights=self._weights, q_fail=self._q_fail,
             overhead=self.overhead,
             paper_faithful_energy=self.paper_faithful_energy,
             predictions=predictions)
-        i, j, lat, acc, en, feas, relaxed = (o.cpu().numpy() for o in out)
-        return DecisionBatch(model_index=i, power_index=j,
-                             predicted_latency=lat, predicted_accuracy=acc,
-                             predicted_energy=en, feasible=feas,
-                             relaxed_code=relaxed)
+        ints, f64 = ints.cpu().numpy(), f64.cpu().numpy()
+        return DecisionBatch(model_index=ints[0], power_index=ints[1],
+                             predicted_latency=f64[0],
+                             predicted_accuracy=f64[1],
+                             predicted_energy=f64[2], feasible=ints[2] != 0,
+                             relaxed_code=ints[3])
 
 
 # --------------------------------------------------------------------- #

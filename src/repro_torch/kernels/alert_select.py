@@ -7,9 +7,10 @@ staircase contraction, Eq. 9 energy, the Eq. 4/5 feasibility masks with
 the Section 3.3 relaxation, the merged score and the first-occurrence
 argmin over the K*L cells, and optionally gathers the pick's predictions.
 
-* On a CUDA tensor the wrapper launches ``csrc/alert_select.cu`` (one
-  thread per lane, tables in shared memory, no ``[S, K, L]`` tensor in
-  device memory) and adds one to ``alert_select.launches``.
+* On a CUDA tensor the wrapper launches ``csrc/alert_select.cu`` v2 (a
+  warp per lane, or several lanes a warp for small tables; tables and
+  each lane's F grid in shared memory, no ``[S, K, L]`` tensor in device
+  memory) and adds one to ``alert_select.launches``.
 * On a CPU tensor it runs :func:`alert_select_plain`, a float64 twin of
   the reference's ``_select_hetero_impl`` + ``_estimate_impl``.  The plain
   version performs the kernel's arithmetic one elementwise op at a time
@@ -18,7 +19,11 @@ argmin over the K*L cells, and optionally gathers the pick's predictions.
   turns a division into a reciprocal multiply), so on the card the two
   round at the same places.
 
-There is no fallback: a CUDA tensor launches the kernel or raises.
+The kernel writes one int32 ``[4, S]`` and one float64 ``[3, S]`` buffer
+(:func:`alert_select_packed`); :func:`alert_select` returns views of them
+as the 7-tuple, so a caller that wants the results on the host copies two
+buffers, not seven tensors.  There is no fallback: a CUDA tensor launches
+the kernel or raises.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from repro_torch.core.batched import (GOAL_MIN_ENERGY, RELAXED_ACCURACY,
 
 F64 = torch.float64
 I32 = torch.int32
+MAX_K = 32        # the kernel's limits (alert_select_max_k / _max_kl)
+MAX_KL = 128
 _SQRT2 = math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
@@ -151,7 +158,7 @@ def _library():
     if not getattr(lib, "_alert_select_typed", False):
         lib.alert_select_launch.argtypes = (
             [_P] * 11 + [ctypes.c_int] * 3 + [ctypes.c_double] * 2
-            + [ctypes.c_int] * 2 + [ctypes.c_double] * 2 + [_P] * 7
+            + [ctypes.c_int] * 2 + [ctypes.c_double] * 2 + [_P] * 2
             + [ctypes.c_int, _P])
         lib.alert_select_launch.restype = ctypes.c_int
         lib.alert_select_error_string.argtypes = [ctypes.c_int]
@@ -171,51 +178,86 @@ def _check(name, x, dtype, shape, device):
             f"{x.device} (contiguous={x.is_contiguous()})")
 
 
-def _launch(mu, sigma, phi, deadline, accuracy_goal, energy_goal, goal_kind,
-            active, latency, run_power, weights, q_fail, overhead,
-            paper_faithful_energy, predictions):
-    dev = mu.device
-    s = mu.shape[0]
+def check_tables(latency, run_power, weights) -> None:
+    """The ``[K, L]`` latency and power tables and the ``[K, K]`` weights:
+    contiguous float64 on one device, within the kernel's limits.  The
+    scoring engine checks its tables once, when it is built; a direct
+    call of :func:`alert_select` checks them every time."""
     k, l = latency.shape
-    for name, x in (("mu", mu), ("sigma", sigma), ("phi", phi),
-                    ("deadline", deadline),
-                    ("accuracy_goal", accuracy_goal),
-                    ("energy_goal", energy_goal)):
-        _check(name, x, F64, (s,), dev)
-    _check("goal_kind", goal_kind, I32, (s,), dev)
-    _check("active", active, I32, (s,), dev)
+    dev = latency.device
     _check("latency", latency, F64, (k, l), dev)
     _check("run_power", run_power, F64, (k, l), dev)
     _check("weights", weights, F64, (k, k), dev)
-    lib = _library()
-    if k > lib.alert_select_max_k() or k * l > lib.alert_select_max_kl():
+    if k > MAX_K or k * l > MAX_KL:
         raise ValueError(
             f"alert_select: a {k}x{l} table exceeds the kernel's limits "
-            f"(K <= {lib.alert_select_max_k()}, "
-            f"K*L <= {lib.alert_select_max_kl()})")
-    i = torch.empty(s, dtype=I32, device=dev)
-    j = torch.empty(s, dtype=I32, device=dev)
-    lat_p = torch.empty(s, dtype=F64, device=dev)
-    acc_p = torch.empty(s, dtype=F64, device=dev)
-    en_p = torch.empty(s, dtype=F64, device=dev)
-    feas = torch.empty(s, dtype=I32, device=dev)
-    rel = torch.empty(s, dtype=I32, device=dev)
+            f"(K <= {MAX_K}, K*L <= {MAX_KL})")
+
+
+_LANE_NAMES = ("mu", "sigma", "phi", "deadline", "accuracy_goal",
+               "energy_goal", "goal_kind", "active")
+
+
+def _launch(lanes, latency, run_power, weights, q_fail, overhead,
+            paper_faithful_energy, predictions):
+    dev = latency.device
+    s = lanes[0].shape[0]
+    k, l = latency.shape
+    for n, (name, x) in enumerate(zip(_LANE_NAMES, lanes)):
+        _check(name, x, F64 if n < 6 else I32, (s,), dev)
+    ints = torch.empty((4, s), dtype=I32, device=dev)
+    f64 = torch.empty((3, s), dtype=F64, device=dev)
     if s:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        ptrs = [x.data_ptr() for x in (
-            mu, sigma, phi, deadline, accuracy_goal, energy_goal, goal_kind,
-            active, latency, run_power, weights)]
-        outs = [x.data_ptr() for x in (i, j, lat_p, acc_p, en_p, feas, rel)]
+        lib = _library()
         rc = lib.alert_select_launch(
-            *ptrs, s, k, l, float(q_fail), float(overhead),
-            int(bool(paper_faithful_energy)), int(bool(predictions)),
-            _SQRT2, _INV_SQRT_2PI, *outs, dev.index or 0, stream)
+            *(x.data_ptr() for x in lanes), latency.data_ptr(),
+            run_power.data_ptr(), weights.data_ptr(), s, k, l,
+            float(q_fail), float(overhead), int(bool(paper_faithful_energy)),
+            int(bool(predictions)), _SQRT2, _INV_SQRT_2PI, ints.data_ptr(),
+            f64.data_ptr(), dev.index or 0,
+            torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             msg = lib.alert_select_error_string(rc).decode()
             raise RuntimeError(f"alert_select launch failed: CUDA error "
                                f"{rc} ({msg})")
         alert_select.launches += 1
-    return i, j, lat_p, acc_p, en_p, feas.bool(), rel
+    return ints, f64
+
+
+def alert_select_packed(mu, sigma, phi, deadline, accuracy_goal,
+                        energy_goal, goal_kind, active, *, latency,
+                        run_power, weights, q_fail, overhead=0.0,
+                        paper_faithful_energy=True, predictions=True):
+    """:func:`alert_select`'s results in two buffers: int32 ``[4, S]``
+    (model index, power index, feasible as 0/1, relaxed code) and float64
+    ``[3, S]`` (predicted latency, accuracy, energy).  The tables must
+    have passed :func:`check_tables` (the scoring engine checks its own
+    once, when it is built); the lane vectors are checked on every call.
+    CPU tensors run :func:`alert_select_plain`; CUDA tensors launch the
+    kernel (and count the launch) or raise."""
+    lanes = (mu, sigma, phi, deadline, accuracy_goal, energy_goal,
+             goal_kind, active)
+    if mu.device.type == "cpu":
+        i, j, lat_p, acc_p, en_p, feas, rel = alert_select_plain(
+            *lanes, latency=latency, run_power=run_power, weights=weights,
+            q_fail=q_fail, overhead=overhead,
+            paper_faithful_energy=paper_faithful_energy,
+            predictions=predictions)
+        return (torch.stack([i, j, feas.to(I32), rel]),
+                torch.stack([lat_p, acc_p, en_p]))
+    if mu.device.type != "cuda":
+        raise ValueError(f"alert_select runs on CUDA or CPU tensors, "
+                         f"not {mu.device}")
+    return _launch(lanes, latency, run_power, weights, q_fail, overhead,
+                   paper_faithful_energy, predictions)
+
+
+def unpack(ints, f64):
+    """The 7-tuple of :func:`alert_select` as views of the two buffers:
+    ``feasible`` is a bool view of the low byte of each int32 0/1 (every
+    host and device the port runs on is little-endian)."""
+    feas = ints[2:3].view(torch.bool)[0, ::4]
+    return ints[0], ints[1], f64[0], f64[1], f64[2], feas, ints[3]
 
 
 def alert_select(mu, sigma, phi, deadline, accuracy_goal, energy_goal,
@@ -233,21 +275,20 @@ def alert_select(mu, sigma, phi, deadline, accuracy_goal, energy_goal,
     ``predictions=False`` the three predictions come back zero.
 
     CPU tensors run :func:`alert_select_plain`; CUDA tensors launch the
-    kernel (and count the launch) or raise.
+    kernel (and count the launch) or raise.  On the card the seven are
+    views of :func:`alert_select_packed`'s two buffers.
     """
     args = (mu, sigma, phi, deadline, accuracy_goal, energy_goal, goal_kind,
             active)
+    kw = dict(latency=latency, run_power=run_power, weights=weights,
+              q_fail=q_fail, overhead=overhead,
+              paper_faithful_energy=paper_faithful_energy,
+              predictions=predictions)
     if mu.device.type == "cpu":
-        return alert_select_plain(
-            *args, latency=latency, run_power=run_power, weights=weights,
-            q_fail=q_fail, overhead=overhead,
-            paper_faithful_energy=paper_faithful_energy,
-            predictions=predictions)
-    if mu.device.type != "cuda":
-        raise ValueError(f"alert_select runs on CUDA or CPU tensors, "
-                         f"not {mu.device}")
-    return _launch(*args, latency, run_power, weights, q_fail, overhead,
-                   paper_faithful_energy, predictions)
+        return alert_select_plain(*args, **kw)
+    if mu.device.type == "cuda":
+        check_tables(latency, run_power, weights)
+    return unpack(*alert_select_packed(*args, **kw))
 
 
 alert_select.launches = 0

@@ -1,4 +1,4 @@
-// alert_select: the fused ALERT decision pass, one thread per lane (sm_90a).
+// alert_select v2: the fused ALERT decision pass, a warp per lane (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/alert_select.py::alert_select
 // (body _select_kernel, tie-break _block_argmin).  Per lane it computes
@@ -12,33 +12,44 @@
 //   optional gathers of the pick's latency / accuracy / energy.
 //
 // What bounds it on an H100: per lane it reads 6 f64 + 2 i32 and writes
-// 3 f64 + 4 i32 (104 B), while it does O(K*L) erf evaluations and an
-// O(K*K*L) contraction in FP64; it is bound by FP64 operations and erf,
-// not by device memory (alert_select_cost in the Python module).
+// 3 f64 + 4 i32 (104 B), while it does O(K*L) erf evaluations, two
+// divisions a cell and an O(K*K*L) contraction in FP64; it is bound by FP64
+// instructions (erf, exp and the divisions are dozens each), not by device
+// memory (alert_select_cost in the Python module).
 //
-// Design, correctness first: one thread per lane, lanes padded to the
-// block inside the launch (threads past S return); the [K, L] latency and
-// power tables and the [K, K] weights are staged in shared memory; the
-// lane's F grid and its per-cell accuracy / energy live in thread-local
-// arrays, so no [S, K, L] tensor ever reaches device memory.  The cells
-// are scored in passes: feasibility, then the Eq. 5 best accuracy, then
-// the score with the `best - acc <= 1e-12` tie and a strict-< running
-// argmin in ascending k*L + l order (= _block_argmin's first occurrence).
+// Design: a group of TPL threads takes one lane, TPL = the power of two at
+// or above K*L, at most 32: a warp per lane at the 12 x 8 table, several
+// lanes a warp where K*L <= 16.  Cell c of the lane belongs to thread
+// c mod TPL (c = thread + TPL * m, at most 4 cells a thread).  Each thread
+// writes its cells' Eq. 7 CDF to the lane's F grid in shared memory, then
+// keeps its cells' accuracy and energy in registers, so nothing is
+// indexed at run time in local memory.  The group reduces with shuffles:
+// feasibility with a ballot, the Eq. 5 best accuracy with a NaN-
+// propagating max, the argmin over (score, cell) pairs keeping the lower
+// cell on equal scores (-0.0 and +0.0 are equal) and giving K*L when any
+// score is NaN, as the first-occurrence scan of v1 and row_argmin do;
+// the pick's accuracy and energy ride along in the reduction, so the
+// group's first thread writes every output of the lane.
+// The [K, L] tables and the [K, K] weights are staged in shared memory
+// by each block (ALERT_THREADS / TPL lanes).  Outputs
+// go to one int32 [4, S] buffer (i, j, feasible, relaxed code) and one
+// float64 [3, S] buffer (latency, accuracy, energy), so the host copies
+// each back once.
 //
 // Rounding: every add / sub / mul / div of this file goes through
 // __dadd_rn / __dsub_rn / __dmul_rn / __ddiv_rn, which are never merged
-// into a fused multiply-add, and erf / exp are CUDA's double functions.
-// The plain PyTorch version performs the same operations one elementwise
-// op at a time, so the two round at the same places.
-//
-// Speed (warp-per-lane, cp.async, tables in constant memory) is later work.
+// into a fused multiply-add, erf / exp are CUDA's double functions, and
+// the Eq. 10 sum runs over u in ascending order.  The plain PyTorch
+// version performs the same operations one elementwise op at a time, so
+// the two round at the same places and agree bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #define ALERT_MAX_K 32
 #define ALERT_MAX_KL 128
-#define ALERT_THREADS 128
+#define ALERT_THREADS 256
+#define ALERT_CELLS 4      // cells per thread at most: ALERT_MAX_KL / 32
 
 #define GOAL_MIN_ENERGY 0
 #define RELAXED_NONE 0
@@ -58,20 +69,20 @@ __device__ __forceinline__ double min_nan(double a, double b) {
   return a < b ? a : b;
 }
 
-__global__ void alert_select_kernel(
-    const double* __restrict__ mu_in, const double* __restrict__ sd_in,
-    const double* __restrict__ phi_in, const double* __restrict__ t_in,
-    const double* __restrict__ ag_in, const double* __restrict__ eg_in,
-    const int* __restrict__ gk_in, const int* __restrict__ act_in,
-    const double* __restrict__ lat_tab, const double* __restrict__ pw_tab,
-    const double* __restrict__ w_tab, int s, int k, int l, double q_fail,
-    double overhead, int paper_faithful, int predictions, double sqrt2,
-    double inv_sqrt_2pi, int* __restrict__ i_out, int* __restrict__ j_out,
-    double* __restrict__ lat_out, double* __restrict__ acc_out,
-    double* __restrict__ en_out, int* __restrict__ feas_out,
-    int* __restrict__ rel_out) {
+struct Lanes {
+  const double *mu, *sd, *phi, *t, *ag, *eg;
+  const int *gk, *act;
+};
+
+__global__ void __launch_bounds__(ALERT_THREADS) alert_select_kernel(
+    const Lanes in, const double* __restrict__ lat_tab,
+    const double* __restrict__ pw_tab, const double* __restrict__ w_tab,
+    int s, int k, int l, int tpl, double q_fail, double overhead,
+    int paper_faithful, int predictions, double sqrt2, double inv_sqrt_2pi,
+    int* __restrict__ ints_out, double* __restrict__ f64_out) {
   extern __shared__ double smem[];
   const int kl = k * l;
+  const int lanes_per_block = ALERT_THREADS / tpl;
   double* s_lat = smem;
   double* s_pw = smem + kl;
   double* s_w = smem + 2 * kl;
@@ -80,94 +91,139 @@ __global__ void alert_select_kernel(
     s_pw[x] = pw_tab[x];
   }
   for (int x = threadIdx.x; x < k * k; x += blockDim.x) s_w[x] = w_tab[x];
+
+  const int sub = threadIdx.x & (tpl - 1);
+  const int slot = threadIdx.x / tpl;
+  const unsigned full = 0xffffffffu;
+  const unsigned group =
+      tpl == 32 ? full
+                : ((1u << tpl) - 1u) << ((threadIdx.x & 31) & ~(tpl - 1));
+  double* F = smem + 2 * kl + k * k + slot * kl;  // this lane's F grid
   __syncthreads();
 
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= s) return;
+  // Threads of lanes past S compute lane S-1 (every thread of a warp
+  // takes part in its shuffles) and store nothing.
+  const int lane = blockIdx.x * lanes_per_block + slot;
+  const bool valid = lane < s;
+  const int li = valid ? lane : s - 1;
 
   // Dead-lane sanitisation comes before any arithmetic.
-  const bool act = act_in[lane] != 0;
-  const double mu = act ? mu_in[lane] : 1.0;
-  const double sd = act ? sd_in[lane] : 0.1;
-  const double phi = act ? phi_in[lane] : 0.25;
-  const double t = act ? t_in[lane] : 1.0;
-  const double ag = act ? ag_in[lane] : 0.0;
-  const double eg = act ? eg_in[lane] : 0.0;
-  const bool is_min = gk_in[lane] == GOAL_MIN_ENERGY;
+  const bool act = in.act[li] != 0;
+  const double mu = act ? in.mu[li] : 1.0;
+  const double sd = act ? in.sd[li] : 0.1;
+  const double phi = act ? in.phi[li] : 0.25;
+  const double t = act ? in.t[li] : 1.0;
+  const double ag = act ? in.ag[li] : 0.0;
+  const double eg = act ? in.eg[li] : 0.0;
+  const bool is_min = in.gk[li] == GOAL_MIN_ENERGY;
   const double te = max_nan(__dsub_rn(t, overhead), 1e-9);
 
-  // Eq. 7: finish CDF of every candidate row u at every power bucket.
-  double F[ALERT_MAX_KL];
-  for (int c = 0; c < kl; ++c) {
-    const double lm = __dmul_rn(mu, s_lat[c]);
-    const double ls = max_nan(__dmul_rn(sd, s_lat[c]), 1e-12);
-    const double z = __ddiv_rn(__dsub_rn(te, lm), ls);
-    F[c] = __dmul_rn(0.5, __dadd_rn(1.0, erf(__ddiv_rn(z, sqrt2))));
+  // Eq. 7: finish CDF of this thread's cells.
+#pragma unroll
+  for (int m = 0; m < ALERT_CELLS; ++m) {
+    const int c = sub + tpl * m;
+    if (c < kl) {
+      const double lm = __dmul_rn(mu, s_lat[c]);
+      const double ls = max_nan(__dmul_rn(sd, s_lat[c]), 1e-12);
+      const double z = __ddiv_rn(__dsub_rn(te, lm), ls);
+      F[c] = __dmul_rn(0.5, __dadd_rn(1.0, erf(__ddiv_rn(z, sqrt2))));
+    }
   }
+  __syncwarp();
 
-  // Eq. 10 staircase accuracy + Eq. 9 energy per cell; Eq. 4/5 feasibility.
-  double ACC[ALERT_MAX_KL];
-  double EN[ALERT_MAX_KL];
-  bool any_f = false;
-  for (int kk = 0; kk < k; ++kk) {
-    for (int c = 0; c < l; ++c) {
-      const int idx = kk * l + c;
-      double sum = __dmul_rn(s_w[kk * k], F[c]);
+  // Eq. 10 staircase accuracy + Eq. 9 energy per cell; Eq. 4/5
+  // feasibility.
+  double ACC[ALERT_CELLS], EN[ALERT_CELLS];
+  bool mine = false;
+#pragma unroll
+  for (int m = 0; m < ALERT_CELLS; ++m) {
+    const int c = sub + tpl * m;
+    ACC[m] = 0.0;
+    EN[m] = 0.0;
+    if (c < kl) {
+      const int kk = c / l, col = c - kk * l;
+      double sum = __dmul_rn(s_w[kk * k], F[col]);
       for (int u = 1; u < k; ++u)
-        sum = __dadd_rn(sum, __dmul_rn(s_w[kk * k + u], F[u * l + c]));
+        sum = __dadd_rn(sum, __dmul_rn(s_w[kk * k + u], F[u * l + col]));
       const double acc = __dadd_rn(q_fail, sum);
-      const double lm = __dmul_rn(mu, s_lat[idx]);
+      const double lm = __dmul_rn(mu, s_lat[c]);
       double t_run;
       if (paper_faithful) {
         t_run = min_nan(lm, te);
       } else {
-        const double ls = max_nan(__dmul_rn(sd, s_lat[idx]), 1e-12);
+        const double ls = max_nan(__dmul_rn(sd, s_lat[c]), 1e-12);
         const double z = __ddiv_rn(__dsub_rn(te, lm), ls);
-        const double pdf =
-            __dmul_rn(exp(__dmul_rn(-0.5, __dmul_rn(z, z))), inv_sqrt_2pi);
-        const double f = F[idx];
+        const double pdf = __dmul_rn(
+            exp(__dmul_rn(-0.5, __dmul_rn(z, z))), inv_sqrt_2pi);
+        const double f = F[c];
         t_run = __dsub_rn(
             __dadd_rn(__dmul_rn(lm, f), __dmul_rn(te, __dsub_rn(1.0, f))),
             __dmul_rn(ls, pdf));
         t_run = min_nan(max_nan(t_run, 0.0), te);
       }
-      const double caps = s_pw[idx];
+      const double caps = s_pw[c];
       const double idle = __dmul_rn(__dmul_rn(phi, caps),
                                     max_nan(__dsub_rn(te, t_run), 0.0));
-      const double en = __dadd_rn(__dmul_rn(caps, t_run), idle);
-      ACC[idx] = acc;
-      EN[idx] = en;
-      any_f |= is_min ? (acc >= ag) : (en <= eg);
+      ACC[m] = acc;
+      EN[m] = __dadd_rn(__dmul_rn(caps, t_run), idle);
+      mine |= is_min ? (acc >= ag) : (EN[m] <= eg);
     }
   }
+  bool any_f = (__ballot_sync(full, mine) & group) != 0;
 
   // Eq. 5 lexicographic stage: best accuracy among the usable cells.
   double best = -INFINITY;
-  for (int c = 0; c < kl; ++c) {
-    const bool feas = is_min ? (ACC[c] >= ag) : (EN[c] <= eg);
-    best = max_nan(best, (feas || !any_f) ? ACC[c] : -INFINITY);
+#pragma unroll
+  for (int m = 0; m < ALERT_CELLS; ++m) {
+    if (sub + tpl * m < kl) {
+      const bool feas = is_min ? (ACC[m] >= ag) : (EN[m] <= eg);
+      best = max_nan(best, (feas || !any_f) ? ACC[m] : -INFINITY);
+    }
   }
+  for (int off = tpl >> 1; off > 0; off >>= 1)
+    best = max_nan(best, __shfl_xor_sync(full, best, off));
 
-  // Merged score + first-occurrence argmin (NaN anywhere -> K*L).
-  int pick = 0;
-  double best_sc = 0.0;
-  bool nan_seen = false;
-  for (int c = 0; c < kl; ++c) {
-    const bool feas = is_min ? (ACC[c] >= ag) : (EN[c] <= eg);
-    double sc;
-    if (is_min) {
-      sc = any_f ? (feas ? EN[c] : INFINITY) : -ACC[c];
-    } else {
-      const double use = (feas || !any_f) ? ACC[c] : -INFINITY;
-      sc = (__dsub_rn(best, use) <= 1e-12) ? EN[c] : INFINITY;
-    }
-    if (sc != sc) nan_seen = true;
-    if (c == 0 || sc < best_sc) {
-      best_sc = sc;
-      pick = c;
+  // Merged score; argmin over (score, cell), the lower cell on equal
+  // scores, carrying the cell's accuracy and energy for the gathers
+  // (so no register array is indexed at run time); a NaN score anywhere
+  // gives K*L.
+  double b_sc = INFINITY, b_acc = 0.0, b_en = 0.0;
+  int b_c = ALERT_MAX_KL;
+  bool nan_here = false;
+#pragma unroll
+  for (int m = 0; m < ALERT_CELLS; ++m) {
+    const int c = sub + tpl * m;
+    if (c < kl) {
+      const bool feas = is_min ? (ACC[m] >= ag) : (EN[m] <= eg);
+      double sc;
+      if (is_min) {
+        sc = any_f ? (feas ? EN[m] : INFINITY) : -ACC[m];
+      } else {
+        const double use = (feas || !any_f) ? ACC[m] : -INFINITY;
+        sc = (__dsub_rn(best, use) <= 1e-12) ? EN[m] : INFINITY;
+      }
+      nan_here |= sc != sc;
+      if (sc < b_sc || (sc == b_sc && c < b_c)) {
+        b_sc = sc;
+        b_c = c;
+        b_acc = ACC[m];
+        b_en = EN[m];
+      }
     }
   }
-  if (nan_seen) pick = kl;
+  for (int off = tpl >> 1; off > 0; off >>= 1) {
+    const double o_sc = __shfl_xor_sync(full, b_sc, off);
+    const int o_c = __shfl_xor_sync(full, b_c, off);
+    const double o_acc = __shfl_xor_sync(full, b_acc, off);
+    const double o_en = __shfl_xor_sync(full, b_en, off);
+    if (o_sc < b_sc || (o_sc == b_sc && o_c < b_c)) {
+      b_sc = o_sc;
+      b_c = o_c;
+      b_acc = o_acc;
+      b_en = o_en;
+    }
+  }
+  int pick = (__ballot_sync(full, nan_here) & group) ? kl : b_c;
   int relaxed = any_f ? RELAXED_NONE
                       : (is_min ? RELAXED_ACCURACY : RELAXED_POWER);
   if (!act) {
@@ -175,22 +231,21 @@ __global__ void alert_select_kernel(
     any_f = false;
     relaxed = RELAXED_NONE;
   }
-  i_out[lane] = pick / l;
-  j_out[lane] = pick % l;
-  feas_out[lane] = any_f ? 1 : 0;
-  rel_out[lane] = relaxed;
+  if (!valid || sub != 0) return;
+  ints_out[lane] = pick / l;
+  ints_out[s + lane] = pick % l;
+  ints_out[2 * s + lane] = any_f ? 1 : 0;
+  ints_out[3 * s + lane] = relaxed;
 
-  // Gathers: the picked cell's values; 0.0 for the K*L "no cell" pick of
-  // a NaN row and for dead lanes.
-  double g_lat = 0.0, g_acc = 0.0, g_en = 0.0;
-  if (predictions && act && pick < kl) {
-    g_lat = __dmul_rn(mu, s_lat[pick]);
-    g_acc = ACC[pick];
-    g_en = EN[pick];
-  }
-  lat_out[lane] = g_lat;
-  acc_out[lane] = g_acc;
-  en_out[lane] = g_en;
+  // Gathers: the picked cell's values, each plus 0.0 as the plain
+  // version's one-hot sum adds the other cells' +0.0 (a -0.0 comes back
+  // +0.0); 0.0 for the K*L "no cell" pick of a NaN row and for dead
+  // lanes.
+  const bool gather = predictions && act && pick < kl;
+  f64_out[lane] =
+      gather ? __dadd_rn(__dmul_rn(mu, s_lat[pick]), 0.0) : 0.0;
+  f64_out[s + lane] = gather ? __dadd_rn(b_acc, 0.0) : 0.0;
+  f64_out[2 * s + lane] = gather ? __dadd_rn(b_en, 0.0) : 0.0;
 }
 
 extern "C" {
@@ -202,29 +257,37 @@ const char* alert_select_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launch on `stream` of `device`; returns cudaGetLastError() after launch.
+// One decision per lane for lanes mu .. active ([S] each; float64, then
+// int32 goal codes and lane mask), into ints_out [4, S] int32 (model
+// index, power index, feasible, relaxed code) and f64_out [3, S] float64
+// (predicted latency, accuracy, energy), on `stream` of `device`.
+// Returns cudaGetLastError() after the launch.
 int alert_select_launch(const double* mu, const double* sd, const double* phi,
                         const double* t, const double* ag, const double* eg,
                         const int* gk, const int* act, const double* lat_tab,
                         const double* pw_tab, const double* w_tab, int s,
                         int k, int l, double q_fail, double overhead,
                         int paper_faithful, int predictions, double sqrt2,
-                        double inv_sqrt_2pi, int* i_out, int* j_out,
-                        double* lat_out, double* acc_out, double* en_out,
-                        int* feas_out, int* rel_out, int device,
-                        void* stream) {
+                        double inv_sqrt_2pi, int* ints_out, double* f64_out,
+                        int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (k < 1 || k > ALERT_MAX_K || k * l > ALERT_MAX_KL || l < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (s <= 0) return 0;
-  const int blocks = (s + ALERT_THREADS - 1) / ALERT_THREADS;
-  const size_t shmem = sizeof(double) * (2 * k * l + k * k);
-  alert_select_kernel<<<blocks, ALERT_THREADS, shmem,
+  const int kl = k * l;
+  int tpl = 1;
+  while (tpl < kl && tpl < 32) tpl <<= 1;
+  const int lanes_per_block = ALERT_THREADS / tpl;
+  const long long blocks = (static_cast<long long>(s) + lanes_per_block - 1) /
+                           lanes_per_block;
+  const size_t shmem =
+      sizeof(double) * (2 * kl + k * k + lanes_per_block * kl);
+  const Lanes in = {mu, sd, phi, t, ag, eg, gk, act};
+  alert_select_kernel<<<static_cast<unsigned>(blocks), ALERT_THREADS, shmem,
                         static_cast<cudaStream_t>(stream)>>>(
-      mu, sd, phi, t, ag, eg, gk, act, lat_tab, pw_tab, w_tab, s, k, l,
-      q_fail, overhead, paper_faithful, predictions, sqrt2, inv_sqrt_2pi,
-      i_out, j_out, lat_out, acc_out, en_out, feas_out, rel_out);
+      in, lat_tab, pw_tab, w_tab, s, k, l, tpl, q_fail, overhead,
+      paper_faithful, predictions, sqrt2, inv_sqrt_2pi, ints_out, f64_out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -228,3 +228,57 @@ def test_cost_model_counts_like_reference(predictions):
     assert got["flops"] == ref["flops"]
     assert got["transcendentals"] == ref["transcendentals"]
     assert got["bytes_accessed"] == 65536 * 96
+
+
+@pytest.mark.parametrize("s", [1, 8, 257])
+def test_select_through_packed_outputs_matches_reference(s):
+    """``select`` moves the host's lane inputs in one copy per dtype and
+    reads the kernel's two packed buffers back: still the reference's
+    picks (mixed goals, dead lanes holding garbage), whatever mix of host
+    arrays and tensors the lanes come as."""
+    table = tpr.synthetic_table(3)
+    overhead = 0.05 * float(np.median(table.latency))
+    st = fleet_state(table, s, seed=40 + s, dead_frac=0.25)
+    t_eng = tb.BatchedAlertEngine(table, None, overhead=overhead,
+                                  device="cpu")
+    j_eng = jb.BatchedAlertEngine(jax_table(table), None, overhead=overhead)
+    got, ref = select(t_eng, st), select(j_eng, st)
+    diff = assert_pick_contract(got, ref, st["active"])
+    within_2ulp_accuracy(j_eng, st, diff, got, ref)
+    assert got.model_index.dtype == np.int32 and got.feasible.dtype == bool
+    mixed = dict(st, mu=torch.from_numpy(st["mu"]),
+                 accuracy_goal=torch.from_numpy(st["accuracy_goal"]),
+                 goal_kind=torch.from_numpy(st["goal_kind"]))
+    again = select(t_eng, mixed)
+    for name in ("model_index", "power_index", "predicted_latency",
+                 "predicted_accuracy", "predicted_energy", "feasible",
+                 "relaxed_code"):
+        np.testing.assert_array_equal(getattr(again, name),
+                                      getattr(got, name))
+
+
+def test_packed_buffers_hold_the_seven_outputs():
+    """``alert_select_packed`` on CPU tensors: int32 [4, S] (i, j,
+    feasible as 0/1, relaxed code) and float64 [3, S] (the predictions),
+    the plain version's outputs row by row; ``unpack`` gives them back as
+    views with the 7-tuple's dtypes."""
+    table = tpr.synthetic_table(0)
+    eng = tb.BatchedAlertEngine(table, None, device="cpu")
+    st = fleet_state(table, 65, seed=2)
+    f = lambda k: torch.from_numpy(np.ascontiguousarray(st[k], np.float64))
+    args = [f(k) for k in ("mu", "sigma", "phi", "deadline",
+                           "accuracy_goal", "energy_goal")] + [
+        torch.from_numpy(st["goal_kind"].astype(np.int32)),
+        torch.from_numpy(st["active"].astype(np.int32))]
+    kw = dict(latency=eng._latency, run_power=eng._run_power,
+              weights=eng._weights, q_fail=eng._q_fail)
+    ints, f64 = ks.alert_select_packed(*args, **kw)
+    assert ints.shape == (4, 65) and ints.dtype == torch.int32
+    assert f64.shape == (3, 65) and f64.dtype == torch.float64
+    plain = ks.alert_select_plain(*args, **kw)
+    views = ks.unpack(ints, f64)
+    for a, b in zip(views, plain):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert all(v.untyped_storage().data_ptr() in
+               (ints.untyped_storage().data_ptr(),
+                f64.untyped_storage().data_ptr()) for v in views)

@@ -88,9 +88,13 @@ def test_wrapper_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         ks.alert_select(*bad, **kw)
     big = synthetic_table(0, n_single=30, n_levels=4, n_power=8)
-    big_eng = BatchedAlertEngine(big, None, device=cuda_device)
     with pytest.raises(ValueError, match="exceeds the kernel's limits"):
-        ks.alert_select(*args, **_consts(big_eng))
+        BatchedAlertEngine(big, None, device=cuda_device)
+    big_cpu = BatchedAlertEngine(big, None, device="cpu")
+    with pytest.raises(ValueError, match="exceeds the kernel's limits"):
+        ks.alert_select(*args, **{
+            k: (v.to(cuda_device) if torch.is_tensor(v) else v)
+            for k, v in _consts(big_cpu).items()})
 
 
 def test_model_on_card_matches_cpu(cuda_device):
@@ -719,3 +723,173 @@ def test_alert_select_erf_sweep_is_bitwise(cuda_device, paper_faithful):
             pytest.fail(f"{name} differs on {int((a != b).sum())} lanes "
                         f"(first {bad}{ulp})")
 
+
+
+# --------------------------------------------------------------------- #
+# alert_select v2: table sizes, ties, signed zeros, NaN and dead lanes    #
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("table", list(range(5)))
+def test_alert_select_v2_edge_cases_bitwise(cuda_device, table):
+    """chip_smoke.select_cases at one of its K x L tables (1x1, 4x4, 5x7,
+    12x8, 32x4): S of 1, 7, 257 and 4097 lanes, tied scores, +0.0 and
+    -0.0 scores, NaN lanes and cells, dead lanes, both energy modes,
+    predictions on and off; every output bitwise equal to the plain
+    version's."""
+    from chip_smoke import SELECT_TABLES, select_cases
+
+    before = ks.alert_select.launches
+    n = select_cases(cuda_device, tables=(SELECT_TABLES[table],))
+    assert ks.alert_select.launches == before + n
+
+
+def test_alert_select_v2_packed_views_keep_their_dtypes(cuda_device):
+    """The 7-tuple is views of the two packed buffers, in the dtypes it
+    always had; the engine's select reads the same values back; the
+    library's limits are the module's."""
+    eng = _engine(cuda_device)
+    args = fleet_inputs(eng.table, 1000, seed=3, device=cuda_device)
+    kw = _consts(eng)
+    ints, f64 = ks.alert_select_packed(*args, **kw)
+    out = ks.alert_select(*args, **kw)
+    torch.cuda.synchronize()
+    assert [o.dtype for o in out] == [torch.int32, torch.int32] + \
+        [torch.float64] * 3 + [torch.bool, torch.int32]
+    for o in out:
+        assert o.shape == (1000,) and o.device == cuda_device
+    ptrs = {o.untyped_storage().data_ptr() for o in out}
+    assert len(ptrs) == 2
+    assert torch.equal(out[5], ints[2] != 0)
+    for a, b in zip(ks.unpack(ints, f64), out):
+        assert torch.equal(a, b)
+    batch = eng.select(*[a.cpu().numpy() for a in args[:4]],
+                       accuracy_goal=args[4].cpu().numpy(),
+                       energy_goal=args[5].cpu().numpy(),
+                       goal_kind=args[6].cpu().numpy(),
+                       active=args[7].cpu().numpy() != 0)
+    np.testing.assert_array_equal(batch.model_index, out[0].cpu().numpy())
+    np.testing.assert_array_equal(batch.feasible, out[5].cpu().numpy())
+    np.testing.assert_array_equal(batch.predicted_energy,
+                                  out[4].cpu().numpy())
+    lib = ks._library()
+    assert (lib.alert_select_max_k(), lib.alert_select_max_kl()) == \
+        (ks.MAX_K, ks.MAX_KL)
+
+
+# --------------------------------------------------------------------- #
+# rwkv_scan v3: the sequence split                                       #
+# --------------------------------------------------------------------- #
+RWKV_SPLIT = {  # (b, s, h, hd, strided)
+    "ragged-hd64-strided": (2, 77, 3, 64, True),
+    "ragged-hd16": (2, 77, 3, 16, False),
+    "ragged-hd32": (3, 45, 2, 32, False),
+    "shorter-than-segments": (1, 5, 2, 32, False),
+}
+
+
+@pytest.mark.parametrize("segments", [1, 2, 3, 7])
+@pytest.mark.parametrize("case", list(RWKV_SPLIT))
+def test_rwkv_scan_v3_forced_plans_match_both_plain_versions(
+        cuda_device, monkeypatch, case, segments):
+    """The kernel under a monkeypatched plan against rwkv_scan_plain
+    (RS_TOL, as chip_smoke.rwkv_case checks it) and against
+    rwkv_scan_segments_plain at the same segments (the same tolerance), in
+    float32 and bf16."""
+    from chip_smoke import RS_TOL, rwkv_close, rwkv_inputs
+    from repro_torch.kernels import rwkv_scan as rs
+
+    b, s, h, hd, strided = RWKV_SPLIT[case]
+    monkeypatch.setattr(rs, "rwkv_scan_plan", lambda *shape: segments)
+    gen = torch.Generator(device=cuda_device).manual_seed(segments)
+    x = rwkv_inputs(gen, b, s, h, hd, cuda_device, strided=strided)
+    scale_y, scale_s = rs.rwkv_scan_plain(*[t.abs() for t in x])
+    for dt in RS_TOL:
+        xd = [t.to(getattr(torch, dt)) for t in x[:4]] + x[4:]
+        got_y, got_s = rs.rwkv_scan(*xd)
+        torch.cuda.synchronize()
+        for want_y, want_s in (rs.rwkv_scan_plain(*xd),
+                               rs.rwkv_scan_segments_plain(*xd, segments)):
+            rwkv_close(got_y, want_y, scale_y, dt, f"{case} {dt} y")
+            rwkv_close(got_s, want_s, scale_s, "float32",
+                       f"{case} {dt} state")
+
+
+@pytest.mark.parametrize("segments", [None, 1, 2, 5])
+def test_rwkv_scan_v3_is_deterministic_and_launches_the_plan(
+        cuda_device, monkeypatch, segments):
+    """Two identical calls give the same bits; a CUDA graph of one call
+    holds the plan's kernels (chip_smoke.rwkv_launched); the counter goes
+    up by one a call, whatever the segments.  ``None``: the plan's own
+    split at a 600-token prompt of B=4 and 40 heads."""
+    from chip_smoke import rwkv_inputs, rwkv_launched
+    from repro_torch.kernels import rwkv_scan as rs
+    from repro_torch.kernels.checks import sm_count
+
+    b, s, h, hd = 4, 600, 40, 64
+    plan = rs.rwkv_scan_plan(b, s, h, sm_count(cuda_device))
+    if segments is not None:
+        monkeypatch.setattr(rs, "rwkv_scan_plan", lambda *shape: segments)
+        plan = segments
+    else:
+        assert plan > 1
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = rwkv_inputs(gen, b, s, h, hd, cuda_device)
+    before = rs.rwkv_scan.launches
+    first = rs.rwkv_scan(*x)
+    second = rs.rwkv_scan(*x)
+    torch.cuda.synchronize()
+    assert rs.rwkv_scan.launches == before + 2
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+    got = rwkv_launched("test", b, s, h, plan, lambda: rs.rwkv_scan(*x))
+    assert got["cuda_launches"] == (1 if plan == 1 else 3)
+    assert got["segments"] == plan
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64])
+def test_rwkv_scan_decode_step_runs_its_own_kernel(cuda_device, hd):
+    """A one-token call (the served decode step, B=4, 40 heads) launches
+    rwkv_scan_decode alone, within RS_TOL of rwkv_scan_plain in float32
+    and bf16, and bitwise equal across two calls."""
+    from chip_smoke import RS_TOL, rwkv_close, rwkv_inputs, rwkv_launched
+    from repro_torch.kernels import rwkv_scan as rs
+
+    b, h = 4, 40
+    gen = torch.Generator(device=cuda_device).manual_seed(hd)
+    x = rwkv_inputs(gen, b, 1, h, hd, cuda_device)
+    scale_y, scale_s = rs.rwkv_scan_plain(*[t.abs() for t in x])
+    for dt in RS_TOL:
+        xd = [t.to(getattr(torch, dt)) for t in x[:4]] + x[4:]
+        got_y, got_s = rs.rwkv_scan(*xd)
+        again = rs.rwkv_scan(*xd)
+        torch.cuda.synchronize()
+        assert torch.equal(got_y, again[0]) and torch.equal(got_s, again[1])
+        want_y, want_s = rs.rwkv_scan_plain(*xd)
+        rwkv_close(got_y, want_y, scale_y, dt, f"decode {dt} y")
+        rwkv_close(got_s, want_s, scale_s, "float32", f"decode {dt} state")
+        got = rwkv_launched("decode", b, 1, h, 1, lambda: rs.rwkv_scan(*xd))
+        assert got == {"segments": 1, "cuda_launches": 1}
+
+
+@pytest.mark.parametrize("segments", [1, 3])
+@pytest.mark.parametrize("s", [1, 77])
+def test_rwkv_scan_takes_unaligned_u_and_s0_views(cuda_device, monkeypatch,
+                                                  s, segments):
+    """u and s0 as contiguous views 4 bytes past a 16-byte boundary: the
+    wrapper copies s0 to an aligned buffer for the tile's 16-byte loads,
+    so the result equals that of aligned copies of the same values."""
+    from chip_smoke import rwkv_inputs
+    from repro_torch.kernels import rwkv_scan as rs
+
+    monkeypatch.setattr(rs, "rwkv_scan_plan", lambda *shape: segments)
+    b, h, hd = 2, 3, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(s)
+    r, k, v, w, u, s0 = rwkv_inputs(gen, b, s, h, hd, cuda_device)
+    u_off = torch.empty(u.numel() + 1, device=cuda_device)[1:].view_as(u)
+    s0_off = torch.empty(s0.numel() + 1, device=cuda_device)[1:].view_as(s0)
+    u_off.copy_(u)
+    s0_off.copy_(s0)
+    assert u_off.data_ptr() % 16 and s0_off.data_ptr() % 16
+    assert u_off.is_contiguous() and s0_off.is_contiguous()
+    got = rs.rwkv_scan(r, k, v, w, u_off, s0_off)
+    want = rs.rwkv_scan(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, want))
