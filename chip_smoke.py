@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--breakdown]
 
 Phases (each prints its own lines; any mismatch exits nonzero):
 
@@ -89,7 +89,16 @@ Phases (each prints its own lines; any mismatch exits nonzero):
    port never calls), both also back to back (host work between calls),
    the plain version back to back, the bound, and the TFLOP/s or GB/s
    reached with its share of the bound; and the served shapes as device
-   time.
+   time.  Then the dense family's served geometries, timed the same way
+   beside the bound and ``scaled_dot_product_attention``
+   (``DENSE_FLASH``, ``DENSE_DECODE``): qwen2.5-14b's prefill B=4, S=8,
+   h=40, kv=8, hd=128 and decode over the 12-slot cache at per-row
+   lengths (g=5: the second block of a KV head has one live head);
+   stablelm-12b's h=32, kv=8, hd=160; gemma3-1b's served prefill B=4,
+   S=8, h=4, kv=1, hd=256 and decode over the 12-slot cache at per-row
+   lengths, both with window 512, and its 1024-token prompt and
+   1024-position cache with window 512 (scalar and per-row lengths); g=5
+   decode with window 512 over per-row lengths.
 9. the reduced float32 model with the ``kernel`` nest backend and
    ``attn_backend="kernel"`` on the card against the same model with
    ``blocks``/``ref`` on the CPU, within 1e-4 (head_dim 8).
@@ -131,8 +140,38 @@ Phases (each prints its own lines; any mismatch exits nonzero):
     ``alert_select`` once per tick, the other three kernels never;
     graphed against eager as in phase 4, and one graphed forward's device
     time beside the time to read the model's weights.
-14. the last lines: one JSON object per kernel, the ``nvidia-smi`` line,
-    and ``{"ok": true, "device": {...}}``.
+14. the reduced float32 ``qwen2.5-14b`` and ``gemma3-1b`` (q/k/v biases
+    non-zero, a 12-token prompt past gemma3's window of 8) with
+    ``attn_backend="kernel"`` on the card (the attention kernels) against
+    the same model on the CPU (their plain versions): prefill logits and
+    KV caches, then 3 decode steps, within 1e-4.
+15. serve ``qwen2.5-14b`` at full width and depth (48 layers, d=5120,
+    40 query heads over 8 KV heads of 128, q/k/v biases) in bf16, weights
+    from a seed-0 generator on the card, with ``attn_backend="kernel"``,
+    behind the fleet server as in phase 13: ``flash_attention`` 48 times
+    per prefill forward, ``decode_attention`` 48 times per decode forward,
+    ``alert_select`` once per tick, ``nested_matmul`` and ``rwkv_scan``
+    never; graphed against eager as in phase 4; one graphed forward's
+    device time beside its launch floor and beside the time to read the
+    weights a decode step reads, and ``torch.cuda.max_memory_allocated``;
+    with ``--breakdown``, also its device time by kind of kernel
+    (``torch.profiler`` over three graph replays: a diagnostic that no
+    check reads).
+    The model is freed before the next phase.
+16. serve ``gemma3-1b`` the same way (26 layers, 22 of them local with
+    window 512); then, in float32 on the card, a 1024-token prompt (B=2)
+    and 4 decode steps with ``attn_backend="kernel"`` against ``"ref"``,
+    within 1e-4 (set from readings; the reason is in
+    ``gemma_window_kernel_vs_ref``), and the same prefill with a window
+    of 511, which must move the logits by more than that (a fault at the
+    window's edge would show), and with the window off, by more than 10x
+    that (the window bites).
+17. serve ``stablelm-12b`` at full width (d=5120, hd 160) and
+    ``STABLELM_DEPTH`` = 8 of its 40 layers, as phase 15.
+18. the last lines: one JSON object per kernel (``launches``: the sum
+    over every ``serve`` run, graphed and eager, of phases 4, 7, 10, 13
+    and 15-17; ``launches_by_run`` by phase), the ``nvidia-smi`` line, and
+    ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds.
 """
@@ -140,6 +179,7 @@ Each phase prints its seconds.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import statistics
@@ -228,6 +268,10 @@ N_TICKS = 4
 # Layers of the earlier serve phases 4 and 7, cut from 12 to keep the run
 # short; phase 10 serves the model at its full depth.
 SERVE_DEPTH = 4
+# Layers of stablelm-12b that phase 17 serves (of 40, at full width), to
+# keep the run short; qwen2.5-14b (phase 15) and gemma3-1b (phase 16) are
+# served at full depth.
+STABLELM_DEPTH = 8
 # Tokens of rwkv_scan's long-context case (c), the length this family's
 # O(1) state is for.
 RWKV_LONG = 32768
@@ -1503,6 +1547,36 @@ def time_main_path_attention(device, cfg) -> dict:
     return {"flash_attention": pre, "decode_attention": dec}
 
 
+# The dense family's attention geometries (phase 8, timed): the served
+# prefill (B=4, an 8-token prompt) and decode (B=4 over the 12-slot cache)
+# of qwen2.5-14b (40 query heads over 8 KV heads of 128: g=5, so the
+# decode kernel's second block of a KV head carries one live head of its
+# four slots; per-row lengths) and stablelm-12b (hd 160: the prefill
+# kernel's hd-192 instance with zeroed padding, 20 decode lanes a row);
+# gemma3-1b's served prefill and decode (h=4, kv=1, hd 256, window 512:
+# an 8-token prompt shorter than one tile, decode over the 12-slot cache at
+# per-row lengths), its one 1024-token prompt (B=1) and a 1024-position
+# cache (B=4), both with window 512 (per-row lengths put the window's start
+# inside a 32-position tile); and g=5 decode with window 512 over per-row
+# lengths, one of them shorter than a tile.
+DENSE_FLASH = (
+    ("qwen2.5-14b", (4, 8, 40, 8, 128), {}),
+    ("stablelm-12b", (4, 8, 32, 8, 160), {}),
+    ("gemma3-1b", (4, 8, 4, 1, 256), {"window": 512}),
+    ("gemma3-1b_1024_window", (1, 1024, 4, 1, 256), {"window": 512}))
+DENSE_DECODE = (
+    ("qwen2.5-14b_rows", (4, 12, 40, 8, 128, [9, 10, 11, 12]), {}),
+    ("stablelm-12b", (4, 12, 32, 8, 160, 11), {}),
+    ("gemma3-1b_rows", (4, 12, 4, 1, 256, [9, 10, 11, 12]),
+     {"window": 512}),
+    ("gemma3-1b_1024_window", (4, 1024, 4, 1, 256, 1024), {"window": 512}),
+    ("gemma3-1b_1024_window_rows", (4, 1024, 4, 1, 256,
+                                    [1024, 1001, 600, 515]),
+     {"window": 512}),
+    ("g5_window_rows", (4, 2048, 40, 8, 128, [2048, 1500, 700, 3]),
+     {"window": 512}))
+
+
 def attention_vs_plain(device, cfg, full: bool = True) -> dict:
     """Phase 8: both attention kernels against their plain versions at
     (a) the served shapes of ``cfg`` (prefill B=4, S=T=8, h=kv in {1, 2, 4,
@@ -1557,6 +1631,10 @@ def attention_vs_plain(device, cfg, full: bool = True) -> dict:
                            ("bidirectional_s200", (2, 200, 4, 2, hd),
                             {"causal": False})):
         res["fa"][name] = flash_case(device, name, *args, **kw)
+    for name, args, kw in DENSE_FLASH:
+        res["fa"][name] = flash_case(device, name, *args, timed=True, **kw)
+    for name, args, kw in DENSE_DECODE:
+        res["da"][name] = decode_case(device, name, *args, timed=True, **kw)
     return res
 
 
@@ -1829,6 +1907,22 @@ def rwkv_vs_plain(device, cfg, full: bool = True) -> dict:
     return res
 
 
+def param_tensors(params) -> list:
+    """Every tensor of the port's parameter dict."""
+    return [params[k] for k in ("embed", "unembed", "final_norm")] + [
+        w for layer in params["layers"] for part in layer.values()
+        for w in part.values()]
+
+
+def copy_params(params, device) -> dict:
+    """The port's parameter dict with every tensor copied to ``device``."""
+    out = {k: v.to(device) for k, v in params.items() if k != "layers"}
+    out["layers"] = [{p: {n: w.to(device) for n, w in part.items()}
+                      for p, part in layer.items()}
+                     for layer in params["layers"]]
+    return out
+
+
 def rwkv_model_cpu_vs_card(device) -> float:
     """The reduced float32 RWKV-6 model with the same weights on the CPU
     (plain scan) and on the card (the kernel): prefill logits and every
@@ -1843,10 +1937,7 @@ def rwkv_model_cpu_vs_card(device) -> float:
     cfg = reduced().replace(dtype="float32")
     cpu = torch.device("cpu")
     params = tfm.init_lm(cfg, torch.Generator().manual_seed(0), device=cpu)
-    on_card = {k: v.to(device) for k, v in params.items() if k != "layers"}
-    on_card["layers"] = [{p: {n: w.to(device) for n, w in part.items()}
-                          for p, part in layer.items()}
-                         for layer in params["layers"]]
+    on_card = copy_params(params, device)
     toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 11))
     worst = 0.0
     with torch.inference_mode():
@@ -1902,10 +1993,7 @@ def model_cpu_vs_card(device, backend: str = "blocks",
     card_cfg = cfg.replace(nest_backend=backend, attn_backend=attn_backend)
     cpu = torch.device("cpu")
     params = tfm.init_lm(cfg, torch.Generator().manual_seed(0), device=cpu)
-    on_card = {k: v.to(device) for k, v in params.items() if k != "layers"}
-    on_card["layers"] = [{p: {n: w.to(device) for n, w in part.items()}
-                          for p, part in layer.items()}
-                         for layer in params["layers"]]
+    on_card = copy_params(params, device)
     toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 9))
     worst = 0.0
     with torch.inference_mode():
@@ -1938,6 +2026,311 @@ def model_cpu_vs_card(device, backend: str = "blocks",
     return worst
 
 
+# --------------------------------------------------------------------- #
+# phases 14-17: the dense family without nesting                         #
+# --------------------------------------------------------------------- #
+def dense_model_cpu_vs_card(device, arch: str) -> float:
+    """Phase 14: ``arch``'s reduced float32 model with
+    ``attn_backend="kernel"`` and the same weights (non-zero q/k/v biases
+    where it has them) on the card, where the attention kernels run, and
+    on the CPU, where their plain versions run: prefill logits and every
+    KV cache, then 3 decode steps, within 1e-4 (float32, TF32 off; the
+    card sums in another order), as phase 12.  The 12-token prompt is
+    longer than gemma3's reduced window of 8, so the window masks in
+    prefill and in decode.  The card must launch ``flash_attention`` once
+    per layer in prefill and ``decode_attention`` once per layer a decode
+    step.  Returns the largest difference."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = get_reduced(arch).replace(dtype="float32", attn_backend="kernel")
+    cpu = torch.device("cpu")
+    params = tfm.init_lm(cfg, torch.Generator().manual_seed(0), device=cpu)
+    gen = torch.Generator().manual_seed(1)
+    for layer in params["layers"]:
+        for name in ("bq", "bk", "bv"):
+            if name in layer["mixer"]:
+                layer["mixer"][name].normal_(0.0, 0.5, generator=gen)
+    sides = ((params, cpu), (copy_params(params, device), device))
+    engines = [ServeEngine(build_model(cfg), max_len=15, batch_size=2,
+                           device=dev, graphs=False) for _, dev in sides]
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 15))
+    n0 = (fa.flash_attention.launches, da.decode_attention.launches)
+    worst = 0.0
+    with torch.inference_mode():
+        outs = [tfm.lm_apply(p, cfg, torch.as_tensor(toks[:, :12],
+                                                     device=dev))
+                for p, dev in sides]
+        caches = [eng._merge(eng.init_caches(None), o.caches)
+                  for eng, o in zip(engines, outs)]
+        for i in range(4):
+            pairs = [(outs[0].logits, outs[1].logits)] + [
+                (x, y) for ca, cb in zip(*caches) for x, y in zip(ca, cb)]
+            for x, y in pairs:
+                y = y.cpu()
+                worst = max(worst, float((x - y).abs().max()))
+                if not torch.allclose(x, y, rtol=1e-4, atol=1e-4):
+                    raise SmokeFailure(
+                        f"reduced {arch}, step {i}: card differs from CPU "
+                        f"by {float((x - y).abs().max())}")
+            if i == 3:
+                break
+            outs = [tfm.lm_apply(p, cfg, torch.as_tensor(
+                toks[:, 12 + i:13 + i], device=dev), mode="decode",
+                caches=c, cache_len=12 + i)
+                for (p, dev), c in zip(sides, caches)]
+            caches = [o.caches for o in outs]
+    counts = (fa.flash_attention.launches - n0[0],
+              da.decode_attention.launches - n0[1])
+    want = (cfg.n_layers, 3 * cfg.n_layers) if device.type == "cuda" \
+        else (0, 0)
+    if counts != want:
+        raise SmokeFailure(f"reduced {arch} on the card launched "
+                           f"flash_attention {counts[0]} and decode_attention "
+                           f"{counts[1]} times, expected {want}")
+    say(f"  reduced {arch} (hd {cfg.head_dim}, window "
+        f"{cfg.sliding_window}), card (kernels) vs CPU (plain versions), "
+        f"prefill and 3 decode steps, logits and KV caches: ok (max abs "
+        f"diff {worst:.3e}; launches {counts})")
+    return worst
+
+
+# Kinds of kernel in a dense model's graphs, by name fragments: cuBLAS's
+# products (nvjet, gemm and split-k reduce kernels) and the two attention
+# kernels.
+KERNEL_KINDS = (("matmul (cuBLAS)", ("nvjet", "gemm", "cublas", "cutlass",
+                                     "xmma")),
+                ("flash_attention", ("flash_attention",)),
+                ("decode_attention", ("decode_attention",)))
+
+
+def device_breakdown(engine, kind: str, prompt_len: int,
+                     reps: int = 3) -> dict:
+    """Device time of one replay of the engine's ``kind`` ("prefill" or
+    "decode") graph at its one level, by kind of kernel: the self device
+    time of every kernel that ``torch.profiler`` (CUDA activity) records
+    over ``reps`` replays, over ``reps``, in ms; kernels not named in
+    ``KERNEL_KINDS`` (elementwise, reductions, copies, concatenations)
+    are "other".  ``busy_ms`` is their sum: the replay's time less it is
+    time the card spent between kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step = engine.steps[(kind, None, prompt_len) if kind == "prefill"
+                        else (kind, None)]
+    with torch.inference_mode():
+        engine._buffers[None].cache_len.fill_(prompt_len)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step.graph.replay()
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name, _ in KERNEL_KINDS}
+    out["other"] = 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if not us or ev.key.startswith(("aten::", "cuda")):
+            continue
+        kind_name = next((name for name, pats in KERNEL_KINDS
+                          if any(p in ev.key for p in pats)), "other")
+        out[kind_name] += us / reps / 1e3
+    out = {k: v for k, v in out.items() if v}
+    out["busy_ms"] = sum(out.values())
+    return out
+
+
+def serve_dense(device, cfg, floor_ms: float,
+                breakdown: bool = False) -> dict:
+    """Phases 15-17: ``cfg`` (a dense model without nesting,
+    ``attn_backend="kernel"``, bf16, weights from a seed-0 generator on the
+    card) behind the fleet server as phase 13 serves ``rwkv6-3b``, graphed
+    and then eagerly; ``serve`` checks every tick's launches (
+    ``flash_attention`` n_layers times per prefill forward,
+    ``decode_attention`` n_layers times per decode forward,
+    ``alert_select`` once per tick, ``nested_matmul`` and ``rwkv_scan``
+    never).  Then the graphed engine against the eager one (tokens bitwise
+    equal, each graph's kernel nodes equal to its counted launches), one
+    graphed forward's device time beside the time to read the weights a
+    decode step reads (all but the embedding table, of which it gathers B
+    rows) at 3.35 TB/s and beside its launch floor (kernel nodes x
+    ``floor_ms``), with ``breakdown`` its device time by kind of kernel
+    (:func:`device_breakdown`), and the peak
+    ``torch.cuda.max_memory_allocated`` of the phase.  Frees the model
+    before it returns."""
+    import gc
+
+    import torch
+
+    say(f"  nvidia-smi: {nvidia_smi_line()}")
+    torch.cuda.reset_peak_memory_stats(device)
+    run = serve(device, cfg)
+    run_e = serve(device, cfg, params=run["params"], graphs=False)
+    graphs = engine_graphs_vs_eager(run["engine"], run["params"], 8, 4)
+    fwd = forward_device_ms(run["engine"], run["params"], None, 8)
+    if breakdown:
+        fwd["breakdown"] = {kind: device_breakdown(run["engine"], kind, 8)
+                            for kind in ("decode", "prefill")}
+    params = run["params"]
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in param_tensors(params))
+    read = weight_bytes - params["embed"].numel() * \
+        params["embed"].element_size()
+    fwd.update(decode_read_bytes=read,
+               weight_read_ms=read / H100_HBM_BYTES_S * 1e3,
+               decode_launch_floor_ms=fwd["decode_kernel_nodes"] * floor_ms,
+               prefill_launch_floor_ms=fwd["prefill_kernel_nodes"]
+               * floor_ms)
+    peak = torch.cuda.max_memory_allocated(device)
+    say(f"  {cfg.name} ({cfg.n_layers} layers, d={cfg.d_model}) forward, "
+        f"device time (one graph replay): decode {fwd['decode_ms']:.6f} ms "
+        f"({fwd['decode_kernel_nodes']} kernel nodes, launch floor "
+        f"{fwd['decode_launch_floor_ms']:.6f} ms), prefill "
+        f"{fwd['prefill_ms']:.6f} ms ({fwd['prefill_kernel_nodes']} nodes); "
+        f"a decode step reads {read / 1e9:.3f} GB of weights: "
+        f"{fwd['weight_read_ms']:.6f} ms at 3.35 TB/s; "
+        f"max_memory_allocated {peak / 1e9:.3f} GB")
+    for kind, parts in fwd.get("breakdown", {}).items():
+        say(f"  {cfg.name} {kind} replay by kind of kernel (torch.profiler, "
+            f"self device time, ms): "
+            + ", ".join(f"{k} {v:.6f}" for k, v in parts.items()))
+    say(f"  tick times (s), graphs / eager: "
+        f"{[round(t, 4) for t in run['tick_s']]} / "
+        f"{[round(t, 4) for t in run_e['tick_s']]}; profiled generate "
+        f"latency at full power {run['server'].table.latency[0, -1]:.6f} / "
+        f"{run_e['server'].table.latency[0, -1]:.6f} s")
+    out = {"model": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "counts": [run_counts(run),
+                                               run_counts(run_e)],
+           "tick_s": run["tick_s"], "eager_tick_s": run_e["tick_s"],
+           "profiled_latency_s": float(run["server"].table.latency[0, -1]),
+           "eager_profiled_latency_s": float(
+               run_e["server"].table.latency[0, -1]),
+           "forward_device_ms": fwd, "engine_graphs": graphs,
+           "weight_bytes": weight_bytes, "max_memory_allocated_bytes": peak}
+    del run, run_e, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def gemma_window_kernel_vs_ref(device, cfg=None, prompt_len: int = 1024,
+                               steps: int = 4, batch: int = 2) -> dict:
+    """Phase 16: ``gemma3-1b`` (``cfg``, default its full config) at full
+    width and depth in float32 (weights from a seed-1 generator on the
+    card): a ``prompt_len``-token prefill,
+    then ``steps`` decode steps, with ``attn_backend="kernel"`` against
+    ``attn_backend="ref"`` on the card, logits of every step and every
+    layer's KV cache.  The 22 local layers' window of 512 masks half of
+    the prompt's keys for its last rows and in every decode step.
+
+    Tolerance rtol = atol = 1e-4, set from readings: the two runs share
+    weights, tokens and every other operation (the same float32
+    ``torch.matmul``, TF32 off); only the attention differs, the kernels
+    against the ref backend's chunked softmax, and the worst difference
+    read on an H100 over the logits and caches was 1.9e-5, which 1e-4
+    holds with a margin of 5.  The tolerance must stay below what a
+    fault at the window's edge moves: the same prefill with a window of
+    ``sliding_window - 1`` (one key fewer in each row past the window)
+    must move the logits by more than the tolerance, and with the window
+    off by more than 10x it, or the check fails.
+    """
+    import gc
+
+    import torch
+
+    from repro_torch.configs.gemma3_1b import CONFIG
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import ServeEngine
+
+    tol = 1e-4
+    cfg = (cfg or CONFIG).replace(dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(1)
+    params = tfm.init_lm(cfg, gen, device=device)
+    toks = torch.randint(0, cfg.vocab, (batch, prompt_len + steps),
+                         generator=gen, device=device)
+
+    def run(c):
+        eng = ServeEngine(build_model(c), max_len=prompt_len + steps,
+                          batch_size=batch, device=device, graphs=False)
+        out = tfm.lm_apply(params, c, toks[:, :prompt_len])
+        logits = [out.logits]
+        caches = eng._merge(eng.init_caches(None), out.caches)
+        for i in range(steps):
+            out = tfm.lm_apply(params, c, toks[:, prompt_len + i:][:, :1],
+                               mode="decode", caches=caches,
+                               cache_len=prompt_len + i)
+            logits.append(out.logits)
+        return logits, caches
+
+    worst = {"prefill": 0.0, "decode": 0.0, "caches": 0.0}
+    with torch.inference_mode():
+        got, got_c = run(cfg.replace(attn_backend="kernel"))
+        want, want_c = run(cfg.replace(attn_backend="ref"))
+        pairs = [("prefill", got[0], want[0])] + [
+            ("decode", a, b) for a, b in zip(got[1:], want[1:])] + [
+            ("caches", x, y) for ca, cb in zip(got_c, want_c)
+            for x, y in zip(ca, cb)]
+        for what, a, b in pairs:
+            diff = (a - b).abs()
+            worst[what] = max(worst[what], float(diff.max()))
+            if bool((diff > tol + tol * b.abs()).any()):
+                raise SmokeFailure(f"{cfg.name} float32, kernel vs ref "
+                                   f"{what}: max abs diff "
+                                   f"{float(diff.max()):.3e} past rtol = atol"
+                                   f" = {tol}")
+        moved = {}
+        for what, window in (("edge", cfg.sliding_window - 1),
+                             ("off", None)):
+            other = tfm.lm_apply(params, cfg.replace(
+                attn_backend="kernel", sliding_window=window),
+                toks[:, :prompt_len]).logits
+            moved[what] = float((other - got[0]).abs().max())
+        del other
+    edge, bite = moved["edge"], moved["off"]
+    if bite <= 10 * tol:
+        raise SmokeFailure(f"{cfg.name}: the window off moved the prefill "
+                           f"logits by {bite:.3e} only; the window did not "
+                           f"bite")
+    if edge <= tol:
+        raise SmokeFailure(f"{cfg.name}: a window of "
+                           f"{cfg.sliding_window - 1} moved the prefill "
+                           f"logits by {edge:.3e}, within the tolerance "
+                           f"{tol}: the check cannot see a fault at the "
+                           f"window's edge")
+    say(f"  {cfg.name} float32, {batch} x {prompt_len}-token prompt + {steps} "
+        f"decode steps, attn_backend kernel vs ref on the card: max abs "
+        f"diff prefill logits {worst['prefill']:.3e}, decode logits "
+        f"{worst['decode']:.3e}, KV caches {worst['caches']:.3e} (rtol = "
+        f"atol = {tol}); with a window of {cfg.sliding_window - 1} the "
+        f"prefill logits move by {edge:.3e}, with the window off by "
+        f"{bite:.3e}")
+    del params, got, want, got_c, want_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**worst, "window_edge_diff": edge, "window_off_diff": bite,
+            "tolerance": tol,
+            "shape": f"B={batch},prompt={prompt_len},decode={steps},float32"}
+
+
+def run_counts(run: dict) -> dict:
+    """The launches one ``serve`` run counted, by kernel."""
+    return {"alert_select": run["launches"],
+            "nested_matmul": run["nm_launches"],
+            "flash_attention": run["fa_launches"],
+            "decode_attention": run["da_launches"],
+            "rwkv_scan": run["rs_launches"]}
+
+
 def tenants(table):
     """Eight tenants, Eq. 4 and Eq. 5 mixed, with deadlines and goals
     placed against the profiled latencies so picks vary."""
@@ -1960,7 +2353,7 @@ def tenants(table):
 def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
           gen_tokens=4, expect_kernel=True, params=None,
           graphs=True) -> dict:
-    """Phases 4, 7, 10 and 13: the fleet server over ``cfg`` on
+    """Phases 4, 7, 10, 13 and 15-17: the fleet server over ``cfg`` on
     ``device``, its engine replaying one CUDA graph per level and prompt
     length (``graphs``; False runs the same steps eagerly, the yardstick),
     with ``params`` or weights drawn from a seed-0 generator.  Every
@@ -1990,10 +2383,7 @@ def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
     if params is None:
         params = init_lm(cfg, torch.Generator(device=device).manual_seed(0),
                          device=device)
-    n_params = sum(p.numel() for p in [params["embed"], params["unembed"],
-                                       params["final_norm"]]
-                   + [w for layer in params["layers"]
-                      for part in layer.values() for w in part.values()])
+    n_params = sum(p.numel() for p in param_tensors(params))
     say(f"  model {cfg.name}: {n_params} parameters, {cfg.dtype}, "
         f"{cfg.n_layers} layers, d={cfg.d_model}, init "
         f"{time.perf_counter() - t0:.3f} s")
@@ -2110,9 +2500,9 @@ def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
     if expect_kernel and counts != list(range(1, N_TICKS + 1)):
         raise SmokeFailure(f"alert_select launch counts per tick {counts}, "
                            f"expected one launch per tick")
-    backends = "RWKV-6" if cfg.rwkv else (f"{cfg.nest_backend} nest "
-                                          f"backend, {cfg.attn_backend} "
-                                          f"attention")
+    backends = "RWKV-6" if cfg.rwkv else (
+        f"{cfg.nest_backend} nest backend" if cfg.nest_levels > 1
+        else "no nesting") + f", {cfg.attn_backend} attention"
     say(f"  served {N_TICKS} ticks of {cfg.name} ({backends}); "
         f"alert_select launches {launches}, "
         f"nested_matmul {nm_launches}, flash_attention {fa_launches}, "
@@ -2365,8 +2755,16 @@ def attention_entry(name, version, source, replaces, launches, cases,
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Drive the port on one GPU "
+                                 "and check it.")
+    ap.add_argument("--breakdown", action="store_true",
+                    help="also break each dense model's graphed forwards "
+                    "down by kind of kernel with torch.profiler")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         say("FAIL: no CUDA device (torch.cuda.is_available() is false)")
         return 1
@@ -2375,7 +2773,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     from repro_torch.configs.alert_anytime import CONFIG
+    from repro_torch.configs.gemma3_1b import CONFIG as GEMMA_CONFIG
+    from repro_torch.configs.qwen2_5_14b import CONFIG as QWEN_CONFIG
     from repro_torch.configs.rwkv6_3b import CONFIG as RWKV_CONFIG
+    from repro_torch.configs.stablelm_12b import CONFIG as STABLELM_CONFIG
     from repro_torch.kernels import alert_select as ks
     from repro_torch.kernels.build import build
     from repro_torch.serving.alert_server import serve_level_latencies
@@ -2524,10 +2925,7 @@ def main() -> int:
                                                 run_r["params"], 8, 4)
     rwkv_fwd = forward_device_ms(run_r["engine"], run_r["params"], None, 8)
     weight_bytes = sum(t.numel() * t.element_size()
-                       for t in [run_r["params"][k] for k in (
-                           "embed", "unembed", "final_norm")]
-                       + [w for layer in run_r["params"]["layers"]
-                          for part in layer.values() for w in part.values()])
+                       for t in param_tensors(run_r["params"]))
     rwkv_fwd["weight_read_ms"] = weight_bytes / H100_HBM_BYTES_S * 1e3
     say(f"  rwkv6-3b forward, device time (one graph replay): decode "
         f"{rwkv_fwd['decode_ms']:.6f} ms ({rwkv_fwd['decode_kernel_nodes']} "
@@ -2539,12 +2937,54 @@ def main() -> int:
         f"{[round(t, 4) for t in run_re['tick_s']]}; profiled generate "
         f"latency at full power {run_r['server'].table.latency[0, -1]:.6f} "
         f"/ {run_re['server'].table.latency[0, -1]:.6f} s")
+    rwkv_serve = {"model": RWKV_CONFIG.name,
+                  "alert_select_launches": run_r["launches"],
+                  "tick_s": run_r["tick_s"], "eager_tick_s": run_re["tick_s"],
+                  "profiled_latency_s": float(
+                      run_r["server"].table.latency[0, -1]),
+                  "eager_profiled_latency_s": float(
+                      run_re["server"].table.latency[0, -1]),
+                  "forward_device_ms": rwkv_fwd}
+    counted = {"phase 4": [run_counts(run), run_counts(run_e)],
+               "phase 7": [run_counts(run_k), run_counts(run_ke)],
+               "phase 10": [run_counts(run_a), run_counts(run_ae)],
+               "phase 13": [run_counts(run_r), run_counts(run_re)]}
+    del run_r, run_re                 # free rwkv6-3b's 6 GB of weights
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase.start("phase 14: reduced dense models on the card")
+    err_dense = {arch: dense_model_cpu_vs_card(device, arch)
+                 for arch in ("qwen2.5-14b", "gemma3-1b")}
+
+    dense = {}
+    phase.start("phase 15: serve qwen2.5-14b")
+    dense["qwen2.5-14b"] = serve_dense(device, QWEN_CONFIG.replace(
+        attn_backend="kernel"), floor_ms, opts.breakdown)
+
+    phase.start("phase 16: serve gemma3-1b")
+    dense["gemma3-1b"] = serve_dense(device, GEMMA_CONFIG.replace(
+        attn_backend="kernel"), floor_ms, opts.breakdown)
+    dense["gemma3-1b"]["window_kernel_vs_ref"] = gemma_window_kernel_vs_ref(
+        device)
+
+    phase.start("phase 17: serve stablelm-12b")
+    dense["stablelm-12b"] = serve_dense(device, STABLELM_CONFIG.replace(
+        attn_backend="kernel", n_layers=STABLELM_DEPTH), floor_ms,
+        opts.breakdown)
+    for name, d in dense.items():
+        counted[f"{name} ({d['n_layers']} layers)"] = d.pop("counts")
     phase.start(None)
     say(f"== done in {time.perf_counter() - t_start:.1f} s")
 
+    launches = {name: sum(c[name] for runs in counted.values() for c in runs)
+                for name in counted["phase 4"][0]}
+    by_run = {name: {path: [c[name] for c in runs]
+                     for path, runs in counted.items()}
+              for name in launches}
     kernels = [{
         "name": "alert_select", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": run_a["launches"],
+        "replaces": KERNEL_REPLACES, "launches": launches["alert_select"],
         "max_abs_err": err, "ms": timing["ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": None,
@@ -2561,7 +3001,7 @@ def main() -> int:
     t32 = nm_time[32]
     kernels.append({
         "name": "nested_matmul", "route": "cuda", "source": NM_SOURCE,
-        "replaces": NM_REPLACES, "launches": run_a["nm_launches"],
+        "replaces": NM_REPLACES, "launches": launches["nested_matmul"],
         "max_abs_err": nm_err, "ms": t32["ms"], "plain_ms": t32["plain_ms"],
         "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
         "library_ms": t32["library_ms"], "shape": t32["shape"],
@@ -2590,15 +3030,19 @@ def main() -> int:
         "node_floor_ms": floor_ms, "engine_graphs": graphs})
     kernels.append(attention_entry(
         "flash_attention", FA_VERSION, FA_SOURCE, FA_REPLACES,
-        run_a["fa_launches"], att["fa"], "b", att_mp["flash_attention"]))
+        launches["flash_attention"], att["fa"], "b",
+        att_mp["flash_attention"]))
     kernels.append(attention_entry(
         "decode_attention", DA_VERSION, DA_SOURCE, DA_REPLACES,
-        run_a["da_launches"], att["da"], "b", att_mp["decode_attention"]))
+        launches["decode_attention"], att["da"], "b",
+        att_mp["decode_attention"]))
     kernels[-1]["reduced_model_max_abs_diff"] = err_model_a
+    kernels[-1]["reduced_dense_max_abs_diff"] = err_dense
+    kernels[-1]["served_dense"] = dense
     b_case = rwkv["b"]
     kernels.append({
         "name": "rwkv_scan", "route": "cuda", "source": RS_SOURCE,
-        "replaces": RS_REPLACES, "launches": run_r["rs_launches"],
+        "replaces": RS_REPLACES, "launches": launches["rwkv_scan"],
         "max_abs_err": max(c["err"] for c in rwkv.values()),
         "ms": b_case["ms"], "plain_ms": b_case["plain_ms"],
         "bound_ms": b_case["bound_ms"], "bound_by": b_case["bound_by"],
@@ -2613,14 +3057,9 @@ def main() -> int:
                                if k not in ("err",)}},
         "main_path": rwkv_mp,
         "reduced_model_max_abs_diff": err_model_r,
-        "serve": {"model": RWKV_CONFIG.name,
-                  "alert_select_launches": run_r["launches"],
-                  "tick_s": run_r["tick_s"], "eager_tick_s": run_re["tick_s"],
-                  "profiled_latency_s": float(
-                      run_r["server"].table.latency[0, -1]),
-                  "eager_profiled_latency_s": float(
-                      run_re["server"].table.latency[0, -1]),
-                  "forward_device_ms": rwkv_fwd}})
+        "serve": rwkv_serve})
+    for k in kernels:
+        k["launches_by_run"] = by_run[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,36 @@
-"""Model configurations of the port."""
+"""Model configurations of the port: ``get_config(arch_id)`` /
+``get_reduced(arch_id)`` over the architectures the port runs (the
+counterpart of ``repro.configs``).  Any other arch of the reference's zoo
+raises a ``KeyError`` that says it is not ported yet."""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig
+
+_MODULES = {
+    "qwen2.5-32b": "qwen2_5_32b",
+    "gemma3-1b": "gemma3_1b",
+    "qwen2.5-14b": "qwen2_5_14b",
+    "stablelm-12b": "stablelm_12b",
+    "rwkv6-3b": "rwkv6_3b",
+    "alert-anytime-120m": "alert_anytime",
+}
+
+ALL_IDS = list(_MODULES)
+
+
+def _mod(arch_id: str):
+    if arch_id not in _MODULES:
+        raise KeyError(f"arch {arch_id!r} is unknown or not ported yet "
+                       f"(ROADMAP queue A3); ported: {ALL_IDS}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    return _mod(arch_id).CONFIG
+
+
+def get_reduced(arch_id: str) -> ModelConfig:
+    return _mod(arch_id).reduced()

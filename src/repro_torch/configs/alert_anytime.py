@@ -7,6 +7,7 @@ from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
     name="alert-anytime-120m",
+    family="dense",
     n_layers=12,
     d_model=768,
     n_heads=8,

@@ -13,6 +13,7 @@ from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
     name="rwkv6-3b",
+    family="ssm",
     n_layers=32,
     d_model=2560,
     n_heads=40,

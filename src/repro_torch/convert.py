@@ -7,8 +7,11 @@ stacks layers per period position for ``lax.scan``
 (``params["group"]["pos<p>"]``, leading axis = repeat) and keeps
 remainder layers as ``params["rem<i>"]``; layer ``rep * period + pos``
 of the stack is unstacked into ``layers[rep * period + pos]`` and the
-remainders follow.  An RWKV layer keeps its whole block in ``"mixer"``
-and has an empty ``"ffn"``.  Matrices keep the reference's ``[in, out]``
+remainders follow (gemma3-1b: ``pos0..pos5`` x 4 repeats, then ``rem0``
+and ``rem1``), so layer ``i`` lands where ``cfg.mixer_kind(i)`` expects
+it.  Every leaf is carried, the q/k/v biases of a ``qkv_bias`` model
+included.  An RWKV layer keeps its whole block in ``"mixer"`` and has an
+empty ``"ffn"``.  Matrices keep the reference's ``[in, out]``
 layout (used as ``x @ W``), so nothing is transposed.
 """
 

@@ -1,5 +1,6 @@
-"""Width-nested SwiGLU feed-forward block (port of the nested path of
-``repro.models.mlp``)."""
+"""SwiGLU feed-forward blocks (port of ``repro.models.mlp``): the dense
+block of a model without nesting (plain ``torch.matmul`` products, as the
+reference leaves them to XLA) and the width-nested anytime block."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.nesting import (StripeSpec, nested_linear,
                                       nested_norm_linear)
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, rms_norm
 
 
 def mlp_init(cfg: ModelConfig, generator: torch.Generator,
@@ -22,6 +23,13 @@ def mlp_init(cfg: ModelConfig, generator: torch.Generator,
         "w_up": dense_init((d, f), dtype, generator, device),
         "w_down": dense_init((f, d), dtype, generator, device),
     }
+
+
+def mlp(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Pre-norm SwiGLU: ``(silu(xn W_gate) * xn W_up) W_down``."""
+    xn = rms_norm(x, params["norm"], cfg.norm_eps)
+    return (F.silu(xn @ params["w_gate"]) * (xn @ params["w_up"])) \
+        @ params["w_down"]
 
 
 def mlp_stripe_specs(cfg: ModelConfig) -> tuple[StripeSpec, StripeSpec]:

@@ -1,6 +1,6 @@
 """Uniform model API (port of ``repro.models.registry`` for the LM
-families ported so far: ``dense`` width-nested anytime LMs and the ``ssm``
-family's RWKV-6): ``build_model(cfg)`` ->
+families ported so far: ``dense``, width-nested anytime LMs and LMs without
+nesting, and the ``ssm`` family's RWKV-6): ``build_model(cfg)`` ->
 
     model.init(generator=None, device=None)   -> params
     model.prefill(params, batch)              -> (logits, caches)
@@ -29,7 +29,9 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    """The model API of a dense width-nested LM or an RWKV-6 config."""
+    """The model API of ``cfg``, on the decoder-only LM chassis of
+    models/transformer.py (``ModelConfig`` refuses what the port does not
+    run yet)."""
 
     def prefill(params, batch):
         out = tfm.lm_apply(params, cfg, batch["tokens"], mode="prefill")

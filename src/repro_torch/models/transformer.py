@@ -1,16 +1,20 @@
-"""Decoder-only LM (port of ``repro.models.transformer`` for the
-width-nested anytime LM and the RWKV-6 family).
+"""Decoder-only LM (port of ``repro.models.transformer`` for the families
+the port runs: the width-nested anytime LM, the dense LMs without nesting
+and the RWKV-6 family).
 
 Parameters are a plain dict: ``embed [V, d]``, ``unembed [d, V]``,
 ``final_norm [d]`` and ``layers``, a list with one ``{"mixer": ...,
-"ffn": ...}`` dict per layer (the reference stacks layers for
-``lax.scan``; here they are a Python loop).  ``cfg.mixer_kind(i)`` picks a
-layer's kind, as in the reference: ``"attn"`` layers hold nested
-attention and nested SwiGLU params and a KV cache; ``"rwkv"`` layers hold
-the time and channel mix in ``"mixer"``, an empty ``"ffn"``, and an
-``RwkvState`` cache.  For a nested model ``level`` selects the level-k
-prefix subnetwork: the whole pipeline runs on the ``d_k`` prefix of the
-residual stream.
+"ffn": ...}`` dict per layer (the reference stacks layers per period
+position for ``lax.scan``; here they are a Python loop).
+``cfg.mixer_kind(i)`` picks a layer's kind, as in the reference:
+``"attn"`` and ``"attn_local"`` layers hold attention and SwiGLU params
+and a KV cache (``"attn_local"`` attends over ``cfg.sliding_window``
+positions); ``"rwkv"`` layers hold the time and channel mix in
+``"mixer"``, an empty ``"ffn"``, and an ``RwkvState`` cache.  A model with
+``nest_levels > 1`` runs the nested attention and SwiGLU, and ``level``
+selects the level-k prefix subnetwork: the whole pipeline runs on the
+``d_k`` prefix of the residual stream.  A model without nesting runs the
+dense blocks.
 """
 
 from __future__ import annotations
@@ -83,7 +87,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
 def apply_layer(lp: dict, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ModelConfig, mixer: str, *, cache=None,
                 cache_len=None, level: int | None = None):
-    """One pre-norm block: nested attention + nested SwiGLU, or the RWKV
+    """One pre-norm block: attention + SwiGLU (nested when ``nest_levels >
+    1``; an ``"attn_local"`` layer with its sliding window), or the RWKV
     time mix + channel mix.  Returns ``(x, new_cache)``."""
     if mixer == "rwkv":
         t, wkv, tail_t = rwkv_mod.rwkv_time_mix(lp["mixer"], x, cfg,
@@ -92,12 +97,19 @@ def apply_layer(lp: dict, x: torch.Tensor, positions: torch.Tensor,
         c, tail_c = rwkv_mod.rwkv_channel_mix(lp["mixer"], x, cfg,
                                               state=cache)
         return x + c, rwkv_mod.RwkvState(wkv, tail_t, tail_c)
-    a, new_cache = attn_mod.nested_attention(
-        lp["mixer"], x, positions, cfg, level=level, cache=cache,
-        cache_len=cache_len)
+    window = cfg.sliding_window if mixer == "attn_local" else None
+    if cfg.nest_levels > 1:
+        a, new_cache = attn_mod.nested_attention(
+            lp["mixer"], x, positions, cfg, level=level, window=window,
+            cache=cache, cache_len=cache_len)
+        x = x + a
+        return x + mlp_mod.nested_mlp(lp["ffn"], x, cfg, level=level), \
+            new_cache
+    a, new_cache = attn_mod.attention(lp["mixer"], x, positions, cfg,
+                                      window=window, cache=cache,
+                                      cache_len=cache_len)
     x = x + a
-    x = x + mlp_mod.nested_mlp(lp["ffn"], x, cfg, level=level)
-    return x, new_cache
+    return x + mlp_mod.mlp(lp["ffn"], x, cfg), new_cache
 
 
 def lm_apply(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -111,10 +123,11 @@ def lm_apply(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
       k/v of the prompt (or the RWKV states after it) come back (the
       serving engine merges them into its decode buffers).
     * ``mode='decode'``: ``tokens [B, 1]`` with ``caches`` and
-      ``cache_len``, an int or a 0-d integer tensor on the device (the
-      serving engine's, which its CUDA graphs read at replay); an
-      attention step's k/v are written into the caches in place, an RWKV
-      layer returns a new state.
+      ``cache_len``, an int, a 0-d integer tensor on the device (the
+      serving engine's, which its CUDA graphs read at replay) or a ``[B]``
+      integer tensor, one length per row; an attention step's k/v are
+      written into the caches in place, an RWKV layer returns a new
+      state.
 
     Returns ``[B, S, V]`` logits of the chosen level.
     """

@@ -428,6 +428,154 @@ def test_all_kernel_model_on_card_matches_cpu(cuda_device):
 
 
 # --------------------------------------------------------------------- #
+# the dense family's attention geometries and models                      #
+# --------------------------------------------------------------------- #
+FLASH_DENSE = {
+    "g5-hd128-served": (4, 8, 40, 8, 128, {}),      # qwen2.5-14b
+    "g5-hd128-ragged": (2, 300, 10, 2, 128, {}),
+    "g3-hd128": (2, 100, 6, 2, 128, {}),
+    "g4-hd160-served": (4, 8, 32, 8, 160, {}),      # stablelm-12b
+    "g4-hd160": (2, 200, 8, 2, 160, {}),            # padded to 192
+    "g3-hd160-window": (1, 300, 6, 2, 160, {"window": 100}),
+    "g4-hd256-window512-served": (4, 8, 4, 1, 256,
+                                  {"window": 512}),           # gemma3-1b
+    "g4-hd256-window512-s1000": (1, 1000, 4, 1, 256, {"window": 512}),
+    "g5-hd256-window512": (1, 1024, 5, 1, 256, {"window": 512}),
+}
+DECODE_DENSE = {
+    "g5-hd128-rows": (4, 12, 40, 8, 128, [9, 10, 11, 12], {}),
+    "g5-hd128-scalar": (4, 12, 40, 8, 128, 12, {}),
+    "g3-hd128-rows": (3, 77, 6, 2, 128, [77, 5, 40], {}),
+    "g4-hd160-rows": (4, 12, 32, 8, 160, [12, 3, 7, 12], {}),
+    "g5-hd160-window-rows": (3, 2048, 10, 2, 160, [2048, 600, 1],
+                             {"window": 512}),
+    "g4-hd256-window512-served": (4, 12, 4, 1, 256, [9, 10, 11, 12],
+                                  {"window": 512}),           # gemma3-1b
+    "g4-hd256-window512": (4, 1028, 4, 1, 256, [1028, 1025, 700, 513],
+                           {"window": 512}),
+    "g3-hd256-window512-rows": (2, 1100, 6, 2, 256, [1100, 530],
+                                {"window": 512}),
+    "g5-hd128-window512-rows": (4, 2048, 40, 8, 128, [2048, 1500, 700, 3],
+                                {"window": 512}),
+}
+
+
+@pytest.mark.parametrize("case", list(FLASH_DENSE))
+def test_flash_attention_dense_geometries(cuda_device, case):
+    """g = 3 and 5, hd 128, 160 (the hd-192 instance, zero padding) and
+    256, windows that start inside a key tile, bf16 and float32 within
+    ``chip_smoke.ATT_TOL``."""
+    from chip_smoke import flash_case
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s, h, kv, hd, kw = FLASH_DENSE[case]
+    assert flash_case(cuda_device, case, b, s, h, kv, hd,
+                      **kw)["ratio"] <= 1.0
+
+
+@pytest.mark.parametrize("case", list(DECODE_DENSE))
+def test_decode_attention_dense_geometries(cuda_device, case):
+    """g = 3 and 5 (a last block of a KV head with 1 or 3 of its 4 head
+    slots live), hd 128, 160 (20 lanes a row) and 256, per-row lengths
+    with and without window 512; the launched kernels are the split
+    plan's (``chip_smoke.decode_case`` reads them from a graph)."""
+    from chip_smoke import decode_case
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s, h, kv, hd, lens, kw = DECODE_DENSE[case]
+    assert decode_case(cuda_device, case, b, s, h, kv, hd, lens,
+                       **kw)["ratio"] <= 1.0
+
+
+def test_decode_attention_g5_leaves_no_slot_written(cuda_device):
+    """g=5 on 4-head blocks: the output is exactly ``[B, 40, hd]`` and a
+    view into a larger buffer is left untouched past it (the three dead
+    slots of each KV head's second block write nothing)."""
+    from repro_torch.kernels import decode_attention as da
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q = torch.randn((4, 40, 128), generator=gen, device=cuda_device)
+    k, v = (torch.randn((4, 12, 8, 128), generator=gen, device=cuda_device)
+            for _ in range(2))
+    out = da.decode_attention(q, k, v, 12)
+    assert out.shape == (4, 40, 128)
+    torch.testing.assert_close(out, da.decode_attention_plain(q, k, v, 12),
+                               rtol=1e-5, atol=1e-5)
+    assert da.heads_per_block(5) == 4
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "gemma3-1b"])
+def test_dense_model_on_card_matches_cpu(cuda_device, arch):
+    """Reduced float32 model, ``attn_backend="kernel"``: the kernels on
+    the card within 1e-4 of their plain versions on the CPU, prefill and
+    3 decode steps (``chip_smoke.dense_model_cpu_vs_card``)."""
+    from chip_smoke import dense_model_cpu_vs_card
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert dense_model_cpu_vs_card(cuda_device, arch) < 1e-4
+
+
+@pytest.mark.parametrize("backend", ["ref", "kernel"])
+def test_per_row_cache_len_decode_replays_in_a_graph(cuda_device, backend):
+    """A decode step of reduced gemma3 (window 8) with a ``[B]`` int32
+    ``cache_len`` on the card, captured once in a CUDA graph and replayed
+    at two length vectors: each replay equals the eager step on the CPU
+    at the same lengths (the per-row cache write and mask are read on the
+    device, not the host)."""
+    import numpy as np
+
+    from chip_smoke import copy_params
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as tfm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced("gemma3-1b").replace(dtype="float32",
+                                           attn_backend=backend)
+    cpu = torch.device("cpu")
+    params = tfm.init_lm(cfg, torch.Generator().manual_seed(0), device=cpu)
+    card = copy_params(params, cuda_device)
+    rng = np.random.default_rng(3)
+    caches0 = [tuple(torch.from_numpy(rng.standard_normal(
+        (3, 20, cfg.n_kv_heads, cfg.head_dim)).astype(np.float32))
+        for _ in range(2)) for _ in range(cfg.n_layers)]
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (3, 1)))
+    lens = torch.zeros(3, dtype=torch.int32, device=cuda_device)
+    tok_c = tok.to(cuda_device)
+    caches_c = [tfm.attn_mod.KVCache(*(x.to(cuda_device) for x in c))
+                for c in caches0]
+
+    def step():
+        return tfm.lm_apply(card, cfg, tok_c, mode="decode",
+                            caches=caches_c, cache_len=lens).logits
+
+    with torch.inference_mode():
+        lens.copy_(torch.tensor([1, 2, 3]))
+        step()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = step()
+        for want_lens in ([0, 19, 9], [12, 4, 17]):
+            for c, c0 in zip(caches_c, caches0):
+                for x, x0 in zip(c, c0):
+                    x.copy_(x0)
+            lens.copy_(torch.tensor(want_lens))
+            graph.replay()
+            torch.cuda.synchronize()
+            ref_caches = [tfm.attn_mod.KVCache(*(x.clone() for x in c))
+                          for c in caches0]
+            want = tfm.lm_apply(params, cfg, tok, mode="decode",
+                                caches=ref_caches, cache_len=torch.tensor(
+                                    want_lens, dtype=torch.int32)).logits
+            torch.testing.assert_close(out.cpu(), want, rtol=1e-4,
+                                       atol=1e-4)
+            for c, r in zip(caches_c, ref_caches):
+                for x, y in zip(c, r):
+                    torch.testing.assert_close(x.cpu(), y, rtol=1e-4,
+                                               atol=1e-4)
+
+
+# --------------------------------------------------------------------- #
 # rwkv_scan                                                              #
 # --------------------------------------------------------------------- #
 RWKV_CARD = {  # (b, s, h, hd, strided)
@@ -603,7 +751,7 @@ def test_nested_matmul_v3_deterministic_at_served_shapes(cuda_device,
 # the serving engine's CUDA graphs                                        #
 # --------------------------------------------------------------------- #
 ENGINE_CASES = ["blocks-ref", "kernel-ref", "blocks-kernel", "kernel-kernel",
-                "rwkv"]
+                "rwkv", "qwen2.5-14b", "gemma3-1b"]
 
 
 def _serve_engine(cuda_device, case, max_len=12):
@@ -615,6 +763,10 @@ def _serve_engine(cuda_device, case, max_len=12):
         from repro_torch.configs.rwkv6_3b import reduced
 
         cfg = reduced()
+    elif case in ("qwen2.5-14b", "gemma3-1b"):
+        from repro_torch.configs import get_reduced
+
+        cfg = get_reduced(case).replace(attn_backend="kernel")
     else:
         from repro_torch.configs.alert_anytime import reduced
 

@@ -201,8 +201,11 @@ def test_config_matches_reference(which):
 
 
 def test_config_rules():
+    """An anytime config without nesting is a dense model the port runs
+    (``tests/test_torch_dense.py``); fewer than one level is no config."""
+    assert t_anytime.CONFIG.replace(nest_levels=1).mixer_kind(0) == "attn"
     with pytest.raises(ValueError, match="nest_levels"):
-        t_anytime.CONFIG.replace(nest_levels=1)
+        t_anytime.CONFIG.replace(nest_levels=0)
     with pytest.raises(ValueError, match="without width nesting"):
         t_cfgs.CONFIG.replace(nest_levels=2)
     with pytest.raises(ValueError, match="rwkv heads"):
