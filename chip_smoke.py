@@ -98,7 +98,10 @@ Phases (each prints its own lines; any mismatch exits nonzero):
    S=8, h=4, kv=1, hd=256 and decode over the 12-slot cache at per-row
    lengths, both with window 512, and its 1024-token prompt and
    1024-position cache with window 512 (scalar and per-row lengths); g=5
-   decode with window 512 over per-row lengths.
+   decode with window 512 over per-row lengths; the MoE family's served
+   prefill B=4, S=8 and decode over the 12-slot cache at per-row lengths:
+   olmoe-1b-7b's h=kv=16, hd=128 (g=1) and qwen3-moe-30b-a3b's h=32,
+   kv=4, hd=128 (g=8: two 4-head decode blocks a KV head).
 9. the reduced float32 model with the ``kernel`` nest backend and
    ``attn_backend="kernel"`` on the card against the same model with
    ``blocks``/``ref`` on the CPU, within 1e-4 (head_dim 8).
@@ -168,10 +171,25 @@ Phases (each prints its own lines; any mismatch exits nonzero):
     that (the window bites).
 17. serve ``stablelm-12b`` at full width (d=5120, hd 160) and
     ``STABLELM_DEPTH`` = 8 of its 40 layers, as phase 15.
-18. the last lines: one JSON object per kernel (``launches``: the sum
-    over every ``serve`` run, graphed and eager, of phases 4, 7, 10, 13
-    and 15-17; ``launches_by_run`` by phase), the ``nvidia-smi`` line, and
-    ``{"ok": true, "device": {...}}``.
+18. the reduced float32 ``olmoe-1b-7b`` and ``qwen3-moe-30b-a3b`` with
+    ``attn_backend="kernel"`` on the card against the same model on the
+    CPU, as phase 14, and every MoE layer's routed expert ids of every
+    step equal; then reduced ``olmoe-1b-7b`` at capacity factor
+    ``MOE_DROP_FACTOR``, whose prefill must drop assignments (the number
+    is printed), so the drop path runs on the card.
+19. serve ``olmoe-1b-7b`` at full width and depth (16 layers, d=2048, 16
+    query heads over 16 KV heads of 128, 64 experts of d_ff 1024, top-8)
+    as phase 15; beside the weight read of a decode step (every expert:
+    the one-hot dispatch reads them all), the read of only the experts the
+    step's tokens were routed to (ids read in an eager step after the
+    timed replays), and the assignments the prefill dropped.
+20. serve ``qwen3-moe-30b-a3b`` the same way, at full width and depth
+    (48 layers, 32 query heads over 4 KV heads of 128, 128 experts of
+    d_ff 768, top-8; 61 GB of weights).
+21. the last lines: one JSON object per kernel (``launches``: the sum
+    over every ``serve`` run, graphed and eager, of phases 4, 7, 10, 13,
+    15-17, 19 and 20; ``launches_by_run`` by phase), the ``nvidia-smi``
+    line, and ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds.
 """
@@ -275,6 +293,10 @@ STABLELM_DEPTH = 8
 # Tokens of rwkv_scan's long-context case (c), the length this family's
 # O(1) state is for.
 RWKV_LONG = 32768
+# Capacity factor of phase 18's drop case: low enough that the reduced
+# olmoe-1b-7b's prefill (24 tokens, 8 experts, top-2: capacity 2) drops
+# assignments, so the drop path runs on the card.
+MOE_DROP_FACTOR = 0.25
 
 
 class SmokeFailure(RuntimeError):
@@ -1557,15 +1579,22 @@ def time_main_path_attention(device, cfg) -> dict:
 # an 8-token prompt shorter than one tile, decode over the 12-slot cache at
 # per-row lengths), its one 1024-token prompt (B=1) and a 1024-position
 # cache (B=4), both with window 512 (per-row lengths put the window's start
-# inside a 32-position tile); and g=5 decode with window 512 over per-row
-# lengths, one of them shorter than a tile.
+# inside a 32-position tile); g=5 decode with window 512 over per-row
+# lengths, one of them shorter than a tile; and the MoE family's served
+# prefill and decode at per-row lengths: olmoe-1b-7b's MHA (g=1, 16 KV
+# heads of 128) and qwen3-moe-30b-a3b's g=8 (32 query heads over 4 KV heads
+# of 128: two 4-head decode blocks a KV head).
 DENSE_FLASH = (
     ("qwen2.5-14b", (4, 8, 40, 8, 128), {}),
     ("stablelm-12b", (4, 8, 32, 8, 160), {}),
     ("gemma3-1b", (4, 8, 4, 1, 256), {"window": 512}),
-    ("gemma3-1b_1024_window", (1, 1024, 4, 1, 256), {"window": 512}))
+    ("gemma3-1b_1024_window", (1, 1024, 4, 1, 256), {"window": 512}),
+    ("olmoe-1b-7b", (4, 8, 16, 16, 128), {}),
+    ("qwen3-moe-30b-a3b", (4, 8, 32, 4, 128), {}))
 DENSE_DECODE = (
     ("qwen2.5-14b_rows", (4, 12, 40, 8, 128, [9, 10, 11, 12]), {}),
+    ("olmoe-1b-7b_rows", (4, 12, 16, 16, 128, [9, 10, 11, 12]), {}),
+    ("qwen3-moe-30b-a3b_rows", (4, 12, 32, 4, 128, [9, 10, 11, 12]), {}),
     ("stablelm-12b", (4, 12, 32, 8, 160, 11), {}),
     ("gemma3-1b_rows", (4, 12, 4, 1, 256, [9, 10, 11, 12]),
      {"window": 512}),
@@ -2027,30 +2056,68 @@ def model_cpu_vs_card(device, backend: str = "blocks",
 
 
 # --------------------------------------------------------------------- #
-# phases 14-17: the dense family without nesting                         #
+# phases 14-20: the dense and MoE families without nesting               #
 # --------------------------------------------------------------------- #
-def dense_model_cpu_vs_card(device, arch: str) -> float:
-    """Phase 14: ``arch``'s reduced float32 model with
-    ``attn_backend="kernel"`` and the same weights (non-zero q/k/v biases
+@contextlib.contextmanager
+def recording_routes():
+    """Records the expert ids of every ``route_topk`` call the MoE blocks
+    make while it is open (eager calls only: a graph replay runs no
+    Python), one ``[T, top_k]`` tensor per call in call order."""
+    from repro_torch.models import moe as moe_mod
+
+    seen = []
+    plain = moe_mod.route_topk
+
+    def rec(logits, top_k):
+        out = plain(logits, top_k)
+        seen.append(out[1])
+        return out
+    moe_mod.route_topk = rec
+    try:
+        yield seen
+    finally:
+        moe_mod.route_topk = plain
+
+
+def dropped_assignments(ids, cfg) -> int:
+    """Assignments ``moe`` drops for the routed ids ``[T, top_k]`` of one
+    call: per group (``MOE_GROUP_SIZE`` tokens, or all of them), each
+    expert's assignments past the group's capacity."""
+    import torch
+
+    from repro_torch.models.moe import MOE_GROUP_SIZE, capacity
+
+    t = ids.shape[0]
+    sg = min(MOE_GROUP_SIZE, t)
+    c = capacity(sg, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+    per_group = ids.reshape(t // sg, -1).cpu()
+    loads = torch.stack([torch.bincount(g, minlength=cfg.n_experts)
+                         for g in per_group])
+    return int((loads - c).clamp(min=0).sum())
+
+
+def reduced_cpu_vs_card(device, cfg) -> dict:
+    """Phases 14 and 18: ``cfg`` (a reduced float32 model without nesting,
+    ``attn_backend="kernel"``) with the same weights (non-zero q/k/v biases
     where it has them) on the card, where the attention kernels run, and
     on the CPU, where their plain versions run: prefill logits and every
     KV cache, then 3 decode steps, within 1e-4 (float32, TF32 off; the
-    card sums in another order), as phase 12.  The 12-token prompt is
+    card sums in another order), as phase 12; in a MoE model every layer's
+    routed expert ids of every step must be equal.  The 12-token prompt is
     longer than gemma3's reduced window of 8, so the window masks in
     prefill and in decode.  The card must launch ``flash_attention`` once
     per layer in prefill and ``decode_attention`` once per layer a decode
-    step.  Returns the largest difference."""
+    step.  Returns the largest difference, the launches and the
+    assignments the prefill dropped (summed over its MoE layers)."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_reduced
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import transformer as tfm
     from repro_torch.models.registry import build_model
     from repro_torch.serving.engine import ServeEngine
 
-    cfg = get_reduced(arch).replace(dtype="float32", attn_backend="kernel")
     cpu = torch.device("cpu")
     params = tfm.init_lm(cfg, torch.Generator().manual_seed(0), device=cpu)
     gen = torch.Generator().manual_seed(1)
@@ -2064,10 +2131,31 @@ def dense_model_cpu_vs_card(device, arch: str) -> float:
     toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 15))
     n0 = (fa.flash_attention.launches, da.decode_attention.launches)
     worst = 0.0
+
+    def forward(i, **kw):
+        """Both sides' outputs of step ``i`` (-1: the prefill), with the
+        routes each side took."""
+        outs, routes = [], []
+        for (p, dev), c in zip(sides, caches):
+            tok = toks[:, :12] if i < 0 else toks[:, 12 + i:13 + i]
+            with recording_routes() as seen:
+                outs.append(tfm.lm_apply(
+                    p, cfg, torch.as_tensor(tok, device=dev),
+                    **({} if i < 0 else dict(mode="decode", caches=c,
+                                             cache_len=12 + i))))
+            routes.append(seen)
+        if len(routes[0]) != len(routes[1]) or not all(
+                torch.equal(a, b.cpu()) for a, b in zip(*routes)):
+            raise SmokeFailure(f"reduced {cfg.name}, step {i}: the card "
+                               f"routed tokens to other experts than the "
+                               f"CPU")
+        return outs, routes[0]
+
     with torch.inference_mode():
-        outs = [tfm.lm_apply(p, cfg, torch.as_tensor(toks[:, :12],
-                                                     device=dev))
-                for p, dev in sides]
+        caches = [None, None]
+        outs, routes = forward(-1)
+        dropped = sum(dropped_assignments(ids, cfg) for ids in routes)
+        n_routes = len(routes)
         caches = [eng._merge(eng.init_caches(None), o.caches)
                   for eng, o in zip(engines, outs)]
         for i in range(4):
@@ -2078,28 +2166,62 @@ def dense_model_cpu_vs_card(device, arch: str) -> float:
                 worst = max(worst, float((x - y).abs().max()))
                 if not torch.allclose(x, y, rtol=1e-4, atol=1e-4):
                     raise SmokeFailure(
-                        f"reduced {arch}, step {i}: card differs from CPU "
-                        f"by {float((x - y).abs().max())}")
+                        f"reduced {cfg.name}, step {i}: card differs from "
+                        f"CPU by {float((x - y).abs().max())}")
             if i == 3:
                 break
-            outs = [tfm.lm_apply(p, cfg, torch.as_tensor(
-                toks[:, 12 + i:13 + i], device=dev), mode="decode",
-                caches=c, cache_len=12 + i)
-                for (p, dev), c in zip(sides, caches)]
+            outs, routes = forward(i)
+            n_routes += len(routes)
             caches = [o.caches for o in outs]
     counts = (fa.flash_attention.launches - n0[0],
               da.decode_attention.launches - n0[1])
     want = (cfg.n_layers, 3 * cfg.n_layers) if device.type == "cuda" \
         else (0, 0)
     if counts != want:
-        raise SmokeFailure(f"reduced {arch} on the card launched "
+        raise SmokeFailure(f"reduced {cfg.name} on the card launched "
                            f"flash_attention {counts[0]} and decode_attention "
                            f"{counts[1]} times, expected {want}")
-    say(f"  reduced {arch} (hd {cfg.head_dim}, window "
+    n_moe = sum(f == "moe" for _, f in cfg.layer_plan())
+    if n_routes != 4 * n_moe:
+        raise SmokeFailure(f"reduced {cfg.name}: {n_routes} routings in 4 "
+                           f"forwards of {n_moe} MoE layers")
+    moe_note = (f"; routed expert ids equal in all {n_routes} MoE calls, "
+                f"capacity factor {cfg.capacity_factor}, prefill dropped "
+                f"{dropped} assignments" if n_moe else "")
+    say(f"  reduced {cfg.name} (hd {cfg.head_dim}, window "
         f"{cfg.sliding_window}), card (kernels) vs CPU (plain versions), "
         f"prefill and 3 decode steps, logits and KV caches: ok (max abs "
-        f"diff {worst:.3e}; launches {counts})")
-    return worst
+        f"diff {worst:.3e}; launches {counts}{moe_note})")
+    return {"max_abs_diff": worst, "launches": list(counts),
+            "moe_calls": n_routes, "prefill_dropped": dropped}
+
+
+def dense_model_cpu_vs_card(device, arch: str) -> float:
+    """Phase 14: ``arch``'s reduced float32 model on the card against the
+    CPU (:func:`reduced_cpu_vs_card`).  Returns the largest difference."""
+    from repro_torch.configs import get_reduced
+
+    return reduced_cpu_vs_card(device, get_reduced(arch).replace(
+        dtype="float32", attn_backend="kernel"))["max_abs_diff"]
+
+
+def moe_model_cpu_vs_card(device, arch: str,
+                          capacity_factor: float | None = None) -> dict:
+    """Phase 18: ``arch``'s reduced float32 MoE model on the card against
+    the CPU (:func:`reduced_cpu_vs_card`), routed ids equal in every layer
+    and step; with ``capacity_factor`` the prefill must drop assignments,
+    so the drop path runs on the card."""
+    from repro_torch.configs import get_reduced
+
+    cfg = get_reduced(arch).replace(dtype="float32", attn_backend="kernel")
+    if capacity_factor is not None:
+        cfg = cfg.replace(capacity_factor=capacity_factor)
+    out = reduced_cpu_vs_card(device, cfg)
+    if capacity_factor is not None and not out["prefill_dropped"]:
+        raise SmokeFailure(f"reduced {arch} at capacity factor "
+                           f"{capacity_factor} dropped nothing: the drop "
+                           f"path did not run")
+    return out
 
 
 # Kinds of kernel in a dense model's graphs, by name fragments: cuBLAS's
@@ -2148,22 +2270,63 @@ def device_breakdown(engine, kind: str, prompt_len: int,
     return out
 
 
+def moe_routing(engine, params, prompt_len: int) -> dict:
+    """Where the served MoE model's tokens went, off the timed path: one
+    eager prefill of the engine's last prompt and one eager decode step
+    at the state the timed decode replays start from (``cache_len`` at
+    ``prompt_len``, the engine's next tokens, copies of its caches),
+    recording every layer's routed ids.  Returns the distinct experts each
+    layer's decode tokens were routed to, the bytes a decode step reads
+    when it reads only those experts (every other weight but the embedding
+    table, as the one-hot dispatch reads them all), and the assignments
+    the prefill dropped."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    cfg = engine.model.cfg
+    buf = engine._buffers[None]
+    with torch.inference_mode():
+        with recording_routes() as pre:
+            tfm.lm_apply(params, cfg, buf.prompts[prompt_len])
+        caches = [type(c)(*(x.clone() for x in c)) for c in buf.caches]
+        with recording_routes() as dec:
+            tfm.lm_apply(params, cfg, buf.next_tok, mode="decode",
+                         caches=caches, cache_len=prompt_len)
+    experts = [int(ids.unique().numel()) for ids in dec]
+    per_expert = sum(params["layers"][0]["ffn"][n][0].numel()
+                     for n in ("w_gate", "w_up", "w_down")) * \
+        params["layers"][0]["ffn"]["w_gate"].element_size()
+    read = sum(t.numel() * t.element_size() for t in param_tensors(params)) \
+        - params["embed"].numel() * params["embed"].element_size()
+    unread = sum(cfg.n_experts - n for n in experts) * per_expert
+    return {"decode_routed_experts": experts,
+            "decode_tokens": int(dec[0].shape[0]),
+            "routed_read_bytes": read - unread,
+            "routed_read_ms": (read - unread) / H100_HBM_BYTES_S * 1e3,
+            "prefill_dropped": sum(dropped_assignments(ids, cfg)
+                                   for ids in pre),
+            "prefill_assignments": sum(ids.numel() for ids in pre)}
+
+
 def serve_dense(device, cfg, floor_ms: float,
                 breakdown: bool = False) -> dict:
-    """Phases 15-17: ``cfg`` (a dense model without nesting,
-    ``attn_backend="kernel"``, bf16, weights from a seed-0 generator on the
-    card) behind the fleet server as phase 13 serves ``rwkv6-3b``, graphed
-    and then eagerly; ``serve`` checks every tick's launches (
-    ``flash_attention`` n_layers times per prefill forward,
+    """Phases 15-17, 19 and 20: ``cfg`` (a dense or MoE model without
+    nesting, ``attn_backend="kernel"``, bf16, weights from a seed-0
+    generator on the card) behind the fleet server as phase 13 serves
+    ``rwkv6-3b``, graphed and then eagerly; ``serve`` checks every tick's
+    launches (``flash_attention`` n_layers times per prefill forward,
     ``decode_attention`` n_layers times per decode forward,
     ``alert_select`` once per tick, ``nested_matmul`` and ``rwkv_scan``
     never).  Then the graphed engine against the eager one (tokens bitwise
     equal, each graph's kernel nodes equal to its counted launches), one
     graphed forward's device time beside the time to read the weights a
     decode step reads (all but the embedding table, of which it gathers B
-    rows) at 3.35 TB/s and beside its launch floor (kernel nodes x
-    ``floor_ms``), with ``breakdown`` its device time by kind of kernel
-    (:func:`device_breakdown`), and the peak
+    rows; for a MoE model that is every expert, as the one-hot dispatch
+    reads them, and beside it the read of only the experts the step's
+    tokens were routed to, :func:`moe_routing`) at 3.35 TB/s and beside
+    its launch floor (kernel nodes x ``floor_ms``), with ``breakdown`` its
+    device time by kind of kernel (:func:`device_breakdown`), and the peak
     ``torch.cuda.max_memory_allocated`` of the phase.  Frees the model
     before it returns."""
     import gc
@@ -2189,6 +2352,8 @@ def serve_dense(device, cfg, floor_ms: float,
                decode_launch_floor_ms=fwd["decode_kernel_nodes"] * floor_ms,
                prefill_launch_floor_ms=fwd["prefill_kernel_nodes"]
                * floor_ms)
+    if cfg.n_experts:
+        fwd["moe"] = moe_routing(run["engine"], params, 8)
     peak = torch.cuda.max_memory_allocated(device)
     say(f"  {cfg.name} ({cfg.n_layers} layers, d={cfg.d_model}) forward, "
         f"device time (one graph replay): decode {fwd['decode_ms']:.6f} ms "
@@ -2198,6 +2363,18 @@ def serve_dense(device, cfg, floor_ms: float,
         f"a decode step reads {read / 1e9:.3f} GB of weights: "
         f"{fwd['weight_read_ms']:.6f} ms at 3.35 TB/s; "
         f"max_memory_allocated {peak / 1e9:.3f} GB")
+    if cfg.n_experts:
+        m = fwd["moe"]
+        say(f"  {cfg.name} routing (eager, off the timed path): a decode "
+            f"step's {m['decode_tokens']} tokens went to "
+            f"{min(m['decode_routed_experts'])}-"
+            f"{max(m['decode_routed_experts'])} of {cfg.n_experts} experts "
+            f"a layer; reading only those: "
+            f"{m['routed_read_bytes'] / 1e9:.3f} GB, "
+            f"{m['routed_read_ms']:.6f} ms at 3.35 TB/s (the one-hot "
+            f"dispatch reads all: {read / 1e9:.3f} GB); the prefill dropped "
+            f"{m['prefill_dropped']} of {m['prefill_assignments']} "
+            f"assignments at capacity factor {cfg.capacity_factor}")
     for kind, parts in fwd.get("breakdown", {}).items():
         say(f"  {cfg.name} {kind} replay by kind of kernel (torch.profiler, "
             f"self device time, ms): "
@@ -2353,9 +2530,10 @@ def tenants(table):
 def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
           gen_tokens=4, expect_kernel=True, params=None,
           graphs=True) -> dict:
-    """Phases 4, 7, 10, 13 and 15-17: the fleet server over ``cfg`` on
-    ``device``, its engine replaying one CUDA graph per level and prompt
-    length (``graphs``; False runs the same steps eagerly, the yardstick),
+    """Phases 4, 7, 10, 13, 15-17, 19 and 20: the fleet server over
+    ``cfg`` on ``device``, its engine replaying one CUDA graph per level
+    and prompt length (``graphs``; False runs the same steps eagerly, the
+    yardstick),
     with ``params`` or weights drawn from a seed-0 generator.  Every
     launch counter starts at 0 here and is read after the last tick.  With ``expect_kernel`` the scoring kernel must launch
     once per tick.  On the card, with ``cfg.nest_backend == "kernel"``,
@@ -2774,6 +2952,9 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.configs.alert_anytime import CONFIG
     from repro_torch.configs.gemma3_1b import CONFIG as GEMMA_CONFIG
+    from repro_torch.configs.olmoe_1b_7b import CONFIG as OLMOE_CONFIG
+    from repro_torch.configs.qwen3_moe_30b_a3b import \
+        CONFIG as QWEN3_MOE_CONFIG
     from repro_torch.configs.qwen2_5_14b import CONFIG as QWEN_CONFIG
     from repro_torch.configs.rwkv6_3b import CONFIG as RWKV_CONFIG
     from repro_torch.configs.stablelm_12b import CONFIG as STABLELM_CONFIG
@@ -2972,7 +3153,22 @@ def main() -> int:
     dense["stablelm-12b"] = serve_dense(device, STABLELM_CONFIG.replace(
         attn_backend="kernel", n_layers=STABLELM_DEPTH), floor_ms,
         opts.breakdown)
-    for name, d in dense.items():
+
+    phase.start("phase 18: reduced MoE models on the card")
+    err_moe = {arch: moe_model_cpu_vs_card(device, arch)
+               for arch in ("olmoe-1b-7b", "qwen3-moe-30b-a3b")}
+    err_moe["olmoe-1b-7b_drops"] = moe_model_cpu_vs_card(
+        device, "olmoe-1b-7b", capacity_factor=MOE_DROP_FACTOR)
+
+    moe = {}
+    phase.start("phase 19: serve olmoe-1b-7b")
+    moe["olmoe-1b-7b"] = serve_dense(device, OLMOE_CONFIG.replace(
+        attn_backend="kernel"), floor_ms, opts.breakdown)
+
+    phase.start("phase 20: serve qwen3-moe-30b-a3b")
+    moe["qwen3-moe-30b-a3b"] = serve_dense(device, QWEN3_MOE_CONFIG.replace(
+        attn_backend="kernel"), floor_ms, opts.breakdown)
+    for name, d in (dense | moe).items():
         counted[f"{name} ({d['n_layers']} layers)"] = d.pop("counts")
     phase.start(None)
     say(f"== done in {time.perf_counter() - t_start:.1f} s")
@@ -3039,6 +3235,8 @@ def main() -> int:
     kernels[-1]["reduced_model_max_abs_diff"] = err_model_a
     kernels[-1]["reduced_dense_max_abs_diff"] = err_dense
     kernels[-1]["served_dense"] = dense
+    kernels[-1]["reduced_moe"] = err_moe
+    kernels[-1]["served_moe"] = moe
     b_case = rwkv["b"]
     kernels.append({
         "name": "rwkv_scan", "route": "cuda", "source": RS_SOURCE,

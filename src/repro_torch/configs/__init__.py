@@ -14,6 +14,8 @@ _MODULES = {
     "gemma3-1b": "gemma3_1b",
     "qwen2.5-14b": "qwen2_5_14b",
     "stablelm-12b": "stablelm_12b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "rwkv6-3b": "rwkv6_3b",
     "alert-anytime-120m": "alert_anytime",
 }

@@ -2,13 +2,15 @@
 that the port's families read, and those it refuses, with the same names
 and defaults.
 
-The port runs three kinds of model: the width-nested anytime LM
+The port runs four kinds of model: the width-nested anytime LM
 (``family="dense"``, ``nest_levels >= 2``), the dense LMs without nesting
-(``family="dense"``: stablelm, qwen2.5, gemma3 with its sliding window) and
-the RWKV-6 family (``family="ssm"``, ``rwkv=True``).  A config that asks
-for anything still unported, a family or a field, raises a ``ValueError``
-naming the ROADMAP item that ports it: this is the one place that knows
-what the port does not run yet.
+(``family="dense"``: stablelm, qwen2.5, gemma3 with its sliding window),
+the mixture-of-experts LMs (``family="moe"``: olmoe, qwen3-moe; as in the
+reference, ``n_experts > 0`` puts a MoE FFN at layers ``i % moe_every ==
+moe_offset`` whatever the family) and the RWKV-6 family (``family="ssm"``,
+``rwkv=True``).  A config that asks for anything still unported, a family
+or a field, raises a ``ValueError`` naming the ROADMAP item that ports
+it: this is the one place that knows what the port does not run yet.
 """
 
 from __future__ import annotations
@@ -19,14 +21,13 @@ FAMILIES = ("dense", "moe", "hybrid", "ssm", "encdec", "vlm")
 
 # The reference's families the port does not run yet, with the ROADMAP
 # item (queue A3) that ports each.
-UNPORTED_FAMILIES = {"moe": "A3.3 (MoE)", "hybrid": "A3.4 (hybrid)",
+UNPORTED_FAMILIES = {"hybrid": "A3.4 (hybrid)",
                      "encdec": "A3.5 (whisper encoder-decoder)",
                      "vlm": "A3.5 (qwen2-vl)"}
 
 # Fields the port does not run yet, each with the value that turns it off
 # and the ROADMAP item (queue A3) that ports it.
 UNPORTED = (
-    ("n_experts", 0, "A3.3 (MoE)"),
     ("attn_every", 0, "A3.4 (hybrid: Mamba layers)"),
     ("encoder_layers", 0, "A3.5 (whisper encoder-decoder)"),
     ("m_rope", False, "A3.5 (qwen2-vl M-RoPE)"),
@@ -55,6 +56,10 @@ class ModelConfig:
     #                         (i+1) % global_every == 0; 0 = all global
     attn_logit_softcap: float | None = None
     n_experts: int = 0
+    top_k: int = 0
+    moe_every: int = 1                   # MoE FFN at layers i % moe_every
+    moe_offset: int = 0                  #   == moe_offset
+    capacity_factor: float = 1.25
     attn_every: int = 0
     rwkv: bool = False                   # RWKV-6 mixer in every layer
     rwkv_head_dim: int = 64
@@ -71,6 +76,8 @@ class ModelConfig:
     #                                      the key band, not the full sequence
     prefill_last_only: bool = False
     nest_backend: str = "blocks"         # blocks | masked | kernel
+    moe_dispatch: str = "onehot"         # onehot (GShard) | gather (sorted
+    #                                      index dispatch)
 
     def __post_init__(self):
         if self.family not in FAMILIES:
@@ -84,6 +91,14 @@ class ModelConfig:
             if value != off:
                 raise ValueError(f"{self.name}: {field}={value!r} is not "
                                  f"ported yet (ROADMAP {item})")
+        if self.n_experts and not self.top_k:
+            raise ValueError("MoE config needs top_k")
+        if self.n_experts and self.nest_levels != 1:
+            raise ValueError("the port runs MoE models without width "
+                             "nesting (nest_levels == 1)")
+        if self.moe_dispatch not in ("onehot", "gather"):
+            raise ValueError(f"moe_dispatch must be 'onehot' or 'gather', "
+                             f"not {self.moe_dispatch!r}")
         if self.nest_levels < 1:
             raise ValueError(f"nest_levels {self.nest_levels} < 1")
         if self.rwkv:
@@ -110,8 +125,10 @@ class ModelConfig:
         return "attn"
 
     def ffn_kind(self, layer: int) -> str:
-        """The feed-forward kind of layer ``layer``: dense (MoE is not
-        ported)."""
+        """The feed-forward kind of layer ``layer``: ``"moe"`` or
+        ``"dense"``."""
+        if self.n_experts and layer % self.moe_every == self.moe_offset:
+            return "moe"
         return "dense"
 
     def layer_plan(self) -> list[tuple[str, str]]:
@@ -129,10 +146,11 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding included once), as the
-        reference counts it: an RWKV layer counts a 3 * d * d_ff FFN."""
+        reference counts it: an RWKV layer counts a 3 * d * d_ff FFN, a
+        MoE layer its router and ``n_experts`` SwiGLU experts."""
         d, hd = self.d_model, self.head_dim
         total = 2 * self.vocab * d + d       # embed, unembed, final norm
-        for mixer, _ in self.layer_plan():
+        for mixer, ffn in self.layer_plan():
             total += 2 * d                    # two pre-norms
             if mixer == "rwkv":
                 total += 5 * d + 5 * d * d + 2 * d * self.rwkv_decay_lora \
@@ -142,7 +160,21 @@ class ModelConfig:
                     + 2 * d * self.n_kv_heads * hd
                 if self.qkv_bias:
                     total += (self.n_heads + 2 * self.n_kv_heads) * hd
-            total += 3 * d * self.d_ff       # dense FFN
+            if ffn == "dense":
+                total += 3 * d * self.d_ff
+            else:                             # router, experts
+                total += d * self.n_experts \
+                    + self.n_experts * 3 * d * self.d_ff
+        return total
+
+    def active_param_count(self) -> int:
+        """MoE: the parameters one token touches (``top_k`` experts a MoE
+        layer)."""
+        total = self.param_count()
+        for _, ffn in self.layer_plan():
+            if ffn == "moe":
+                total -= (self.n_experts - self.top_k) * 3 * self.d_model \
+                    * self.d_ff
         return total
 
     def replace(self, **kw) -> "ModelConfig":

@@ -10,9 +10,13 @@ of the stack is unstacked into ``layers[rep * period + pos]`` and the
 remainders follow (gemma3-1b: ``pos0..pos5`` x 4 repeats, then ``rem0``
 and ``rem1``), so layer ``i`` lands where ``cfg.mixer_kind(i)`` expects
 it.  Every leaf is carried, the q/k/v biases of a ``qkv_bias`` model
-included.  An RWKV layer keeps its whole block in ``"mixer"`` and has an
-empty ``"ffn"``.  Matrices keep the reference's ``[in, out]``
-layout (used as ``x @ W``), so nothing is transposed.
+included.  A MoE layer's ``"ffn"`` holds the router ``[d, E]`` (float32
+in a bf16 model, as the reference keeps it) and the expert stacks
+``w_gate``/``w_up`` ``[E, d, f]`` and ``w_down`` ``[E, f, d]``; the
+repeat axis in front of them is the one unstacked.  An RWKV layer keeps
+its whole block in ``"mixer"`` and has an empty ``"ffn"``.  Matrices
+keep the reference's ``[in, out]`` layout (used as ``x @ W``), so nothing
+is transposed.
 """
 
 from __future__ import annotations
@@ -30,7 +34,11 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> dict:
     dev = resolve_device(device)
 
     def t(a):
-        return torch.from_numpy(np.array(a)).to(dev)
+        a = np.array(a)
+        if a.dtype.name == "bfloat16":    # ml_dtypes' bfloat16: by its bits
+            return torch.from_numpy(a.view(np.int16)).view(
+                torch.bfloat16).to(dev)
+        return torch.from_numpy(a).to(dev)
 
     def tree(d):
         return {name: tree(v) if isinstance(v, dict) else t(v)

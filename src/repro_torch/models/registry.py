@@ -1,6 +1,7 @@
 """Uniform model API (port of ``repro.models.registry`` for the LM
-families ported so far: ``dense``, width-nested anytime LMs and LMs without
-nesting, and the ``ssm`` family's RWKV-6): ``build_model(cfg)`` ->
+families ported so far: ``dense``, width-nested anytime LMs and LMs
+without nesting, ``moe``, and the ``ssm`` family's RWKV-6):
+``build_model(cfg)`` ->
 
     model.init(generator=None, device=None)   -> params
     model.prefill(params, batch)              -> (logits, caches)

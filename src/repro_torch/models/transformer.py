@@ -1,16 +1,19 @@
 """Decoder-only LM (port of ``repro.models.transformer`` for the families
-the port runs: the width-nested anytime LM, the dense LMs without nesting
-and the RWKV-6 family).
+the port runs: the width-nested anytime LM, the dense LMs without nesting,
+the mixture-of-experts LMs and the RWKV-6 family).
 
 Parameters are a plain dict: ``embed [V, d]``, ``unembed [d, V]``,
 ``final_norm [d]`` and ``layers``, a list with one ``{"mixer": ...,
 "ffn": ...}`` dict per layer (the reference stacks layers per period
 position for ``lax.scan``; here they are a Python loop).
-``cfg.mixer_kind(i)`` picks a layer's kind, as in the reference:
-``"attn"`` and ``"attn_local"`` layers hold attention and SwiGLU params
-and a KV cache (``"attn_local"`` attends over ``cfg.sliding_window``
-positions); ``"rwkv"`` layers hold the time and channel mix in
-``"mixer"``, an empty ``"ffn"``, and an ``RwkvState`` cache.  A model with
+``cfg.mixer_kind(i)`` and ``cfg.ffn_kind(i)`` pick a layer's kinds, as in
+the reference: ``"attn"`` and ``"attn_local"`` layers hold attention
+params and a KV cache (``"attn_local"`` attends over
+``cfg.sliding_window`` positions), and in ``"ffn"`` the SwiGLU params of a
+``"dense"`` layer or the router and expert stacks of a ``"moe"`` layer
+(:mod:`repro_torch.models.moe`); ``"rwkv"`` layers hold the time and
+channel mix in ``"mixer"``, an empty ``"ffn"``, and an ``RwkvState``
+cache.  A model with
 ``nest_levels > 1`` runs the nested attention and SwiGLU, and ``level``
 selects the level-k prefix subnetwork: the whole pipeline runs on the
 ``d_k`` prefix of the residual stream.  A model without nesting runs the
@@ -28,6 +31,7 @@ from repro_torch.core.nesting import StripeSpec, prefix_rmsnorm
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import embed_init, rms_norm
@@ -38,13 +42,14 @@ class LMOutput(NamedTuple):
     caches: list[KVCache | rwkv_mod.RwkvState]
 
 
-def init_layer(cfg: ModelConfig, mixer: str, generator: torch.Generator,
-               device: torch.device) -> dict:
+def init_layer(cfg: ModelConfig, mixer: str, ffn: str,
+               generator: torch.Generator, device: torch.device) -> dict:
     if mixer == "rwkv":
         return {"mixer": rwkv_mod.rwkv_init(cfg, generator, device),
                 "ffn": {}}
+    init_ffn = moe_mod.moe_init if ffn == "moe" else mlp_mod.mlp_init
     return {"mixer": attn_mod.attn_init(cfg, generator, device),
-            "ffn": mlp_mod.mlp_init(cfg, generator, device)}
+            "ffn": init_ffn(cfg, generator, device)}
 
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
@@ -61,8 +66,8 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
         "unembed": embed_init((cfg.d_model, cfg.vocab), dtype, generator,
                               dev) * cfg.d_model ** -0.5,
     }
-    params["layers"] = [init_layer(cfg, cfg.mixer_kind(i), generator, dev)
-                        for i in range(cfg.n_layers)]
+    params["layers"] = [init_layer(cfg, mixer, ffn, generator, dev)
+                        for mixer, ffn in cfg.layer_plan()]
     return params
 
 
@@ -85,11 +90,13 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def apply_layer(lp: dict, x: torch.Tensor, positions: torch.Tensor,
-                cfg: ModelConfig, mixer: str, *, cache=None,
+                cfg: ModelConfig, mixer: str, ffn: str, *, cache=None,
                 cache_len=None, level: int | None = None):
     """One pre-norm block: attention + SwiGLU (nested when ``nest_levels >
-    1``; an ``"attn_local"`` layer with its sliding window), or the RWKV
-    time mix + channel mix.  Returns ``(x, new_cache)``."""
+    1``; an ``"attn_local"`` layer with its sliding window) or + the MoE
+    FFN of a ``"moe"`` layer, or the RWKV time mix + channel mix.  Returns
+    ``(x, new_cache)``; a MoE layer's aux loss is not computed (the
+    reference's ``jit`` drops it from a serving forward as dead code)."""
     if mixer == "rwkv":
         t, wkv, tail_t = rwkv_mod.rwkv_time_mix(lp["mixer"], x, cfg,
                                                 state=cache)
@@ -109,6 +116,9 @@ def apply_layer(lp: dict, x: torch.Tensor, positions: torch.Tensor,
                                       window=window, cache=cache,
                                       cache_len=cache_len)
     x = x + a
+    if ffn == "moe":
+        return x + moe_mod.moe(lp["ffn"], x, cfg, with_aux=False)[0], \
+            new_cache
     return x + mlp_mod.mlp(lp["ffn"], x, cfg), new_cache
 
 
@@ -152,8 +162,9 @@ def lm_apply(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         if k < cfg.nest_levels:
             x = x[..., :d_spec.width(k)]
     new_caches = []
+    plan = cfg.layer_plan()
     for i, lp in enumerate(params["layers"]):
-        x, nc = apply_layer(lp, x, positions, cfg, cfg.mixer_kind(i),
+        x, nc = apply_layer(lp, x, positions, cfg, *plan[i],
                             cache=caches[i] if decode else None,
                             cache_len=cache_len if decode else None,
                             level=level)

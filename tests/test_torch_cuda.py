@@ -441,6 +441,10 @@ FLASH_DENSE = {
                                   {"window": 512}),           # gemma3-1b
     "g4-hd256-window512-s1000": (1, 1000, 4, 1, 256, {"window": 512}),
     "g5-hd256-window512": (1, 1024, 5, 1, 256, {"window": 512}),
+    "g1-hd128-kv16-served": (4, 8, 16, 16, 128, {}),  # olmoe-1b-7b
+    "g1-hd128-kv16-ragged": (2, 300, 16, 16, 128, {}),
+    "g8-hd128-kv4-served": (4, 8, 32, 4, 128, {}),    # qwen3-moe-30b-a3b
+    "g8-hd128-kv4-ragged": (2, 300, 32, 4, 128, {}),
 }
 DECODE_DENSE = {
     "g5-hd128-rows": (4, 12, 40, 8, 128, [9, 10, 11, 12], {}),
@@ -457,14 +461,20 @@ DECODE_DENSE = {
                                 {"window": 512}),
     "g5-hd128-window512-rows": (4, 2048, 40, 8, 128, [2048, 1500, 700, 3],
                                 {"window": 512}),
+    "g1-hd128-kv16-rows-served": (4, 12, 16, 16, 128, [9, 10, 11, 12],
+                                  {}),                        # olmoe-1b-7b
+    "g1-hd128-kv16-ragged": (3, 777, 16, 16, 128, [777, 65, 1], {}),
+    "g8-hd128-kv4-rows-served": (4, 12, 32, 4, 128, [9, 10, 11, 12],
+                                 {}),                         # qwen3-moe
+    "g8-hd128-kv4-ragged": (3, 2048, 32, 4, 128, [2048, 700, 3], {}),
 }
 
 
 @pytest.mark.parametrize("case", list(FLASH_DENSE))
 def test_flash_attention_dense_geometries(cuda_device, case):
-    """g = 3 and 5, hd 128, 160 (the hd-192 instance, zero padding) and
-    256, windows that start inside a key tile, bf16 and float32 within
-    ``chip_smoke.ATT_TOL``."""
+    """g = 1 (MHA over 16 KV heads), 3, 5 and 8, hd 128, 160 (the hd-192
+    instance, zero padding) and 256, windows that start inside a key tile,
+    bf16 and float32 within ``chip_smoke.ATT_TOL``."""
     from chip_smoke import flash_case
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -476,7 +486,8 @@ def test_flash_attention_dense_geometries(cuda_device, case):
 @pytest.mark.parametrize("case", list(DECODE_DENSE))
 def test_decode_attention_dense_geometries(cuda_device, case):
     """g = 3 and 5 (a last block of a KV head with 1 or 3 of its 4 head
-    slots live), hd 128, 160 (20 lanes a row) and 256, per-row lengths
+    slots live), g = 1 over 16 KV heads and g = 8 (two full 4-head blocks
+    a KV head), hd 128, 160 (20 lanes a row) and 256, per-row lengths
     with and without window 512; the launched kernels are the split
     plan's (``chip_smoke.decode_case`` reads them from a graph)."""
     from chip_smoke import decode_case
@@ -573,6 +584,109 @@ def test_per_row_cache_len_decode_replays_in_a_graph(cuda_device, backend):
                 for x, y in zip(c, r):
                     torch.testing.assert_close(x.cpu(), y, rtol=1e-4,
                                                atol=1e-4)
+
+
+# --------------------------------------------------------------------- #
+# the MoE family                                                         #
+# --------------------------------------------------------------------- #
+# (experts, top_k, tokens B x S, capacity factor): olmoe-like and
+# qwen3-moe-like routing at a served prefill (32 tokens, one group) and
+# decode step (4 tokens), and a prefill at capacity factor 0.25 (drops).
+MOE_BLOCK = {
+    "olmoe-prefill": (64, 8, (4, 8), 1.25),
+    "olmoe-decode": (64, 8, (4, 1), 1.25),
+    "qwen3-moe-prefill": (128, 8, (4, 8), 1.25),
+    "qwen3-moe-decode": (128, 8, (4, 1), 1.25),
+    "olmoe-prefill-drops": (64, 8, (4, 8), 0.25),
+}
+
+
+def _moe_block(case, dispatch):
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import moe as moe_mod
+
+    e, k, (b, s), factor = MOE_BLOCK[case]
+    cfg = get_reduced("olmoe-1b-7b").replace(
+        dtype="float32", d_model=256, d_ff=128, n_experts=e, top_k=k,
+        capacity_factor=factor, moe_dispatch=dispatch)
+    params = moe_mod.moe_init(cfg, torch.Generator().manual_seed(0),
+                              torch.device("cpu"))
+    x = torch.randn((b, s, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    return cfg, params, x
+
+
+@pytest.mark.parametrize("dispatch", ["onehot", "gather"])
+@pytest.mark.parametrize("case", list(MOE_BLOCK))
+def test_moe_block_on_card_matches_cpu(cuda_device, case, dispatch):
+    """The MoE block in float32 (TF32 off) on the card against the CPU:
+    every routed id equal, output and aux loss within 1e-4; two calls on
+    the card bitwise equal (no atomics in the sums)."""
+    from chip_smoke import dropped_assignments, recording_routes
+    from repro_torch.models import moe as moe_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params, x = _moe_block(case, dispatch)
+    card = {n: w.to(cuda_device) for n, w in params.items()}
+    with recording_routes() as cpu_ids:
+        want, want_aux = moe_mod.moe(params, x, cfg)
+    with recording_routes() as card_ids:
+        got, aux = moe_mod.moe(card, x.to(cuda_device), cfg)
+        again, aux2 = moe_mod.moe(card, x.to(cuda_device), cfg)
+    assert torch.equal(card_ids[0].cpu(), cpu_ids[0])
+    assert torch.equal(card_ids[1], card_ids[0])
+    if case.endswith("drops"):
+        assert dropped_assignments(cpu_ids[0], cfg) > 0
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-4, atol=1e-4)
+    assert torch.equal(again, got) and torch.equal(aux2, aux)
+
+
+@pytest.mark.parametrize("dispatch", ["onehot", "gather"])
+def test_moe_block_replays_in_a_graph(cuda_device, dispatch):
+    """The bf16 block (float32 router) captured in a CUDA graph and
+    replayed on new inputs: bitwise equal to the eager call, with no
+    host read in the block (the capture would fail on one)."""
+    from repro_torch.models import moe as moe_mod
+
+    cfg, params, x = _moe_block("olmoe-prefill", dispatch)
+    cfg = cfg.replace(dtype="bfloat16")
+    card = {n: (w if n == "router" else w.to(torch.bfloat16)).to(
+        cuda_device) for n, w in params.items()}
+    xs = torch.randn((3,) + tuple(x.shape), generator=torch.Generator(
+    ).manual_seed(2)).to(cuda_device, torch.bfloat16)
+    static = xs[0].clone()
+    with torch.inference_mode():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            moe_mod.moe(card, static, cfg, with_aux=False)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out, _ = moe_mod.moe(card, static, cfg, with_aux=False)
+        for x_i in xs:
+            static.copy_(x_i)
+            graph.replay()
+            want, _ = moe_mod.moe(card, x_i, cfg, with_aux=False)
+            assert out.dtype == torch.bfloat16
+            assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("arch,factor", [("olmoe-1b-7b", None),
+                                         ("qwen3-moe-30b-a3b", None),
+                                         ("olmoe-1b-7b", 0.25)])
+def test_moe_model_on_card_matches_cpu(cuda_device, arch, factor):
+    """Reduced float32 MoE model, ``attn_backend="kernel"``: within 1e-4
+    of the CPU, prefill and 3 decode steps, every layer's routed ids
+    equal (``chip_smoke.moe_model_cpu_vs_card``); at capacity factor 0.25
+    the prefill drops assignments."""
+    from chip_smoke import moe_model_cpu_vs_card
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = moe_model_cpu_vs_card(cuda_device, arch, factor)
+    assert out["max_abs_diff"] < 1e-4
+    assert factor is None or out["prefill_dropped"] > 0
 
 
 # --------------------------------------------------------------------- #
@@ -751,7 +865,8 @@ def test_nested_matmul_v3_deterministic_at_served_shapes(cuda_device,
 # the serving engine's CUDA graphs                                        #
 # --------------------------------------------------------------------- #
 ENGINE_CASES = ["blocks-ref", "kernel-ref", "blocks-kernel", "kernel-kernel",
-                "rwkv", "qwen2.5-14b", "gemma3-1b"]
+                "rwkv", "qwen2.5-14b", "gemma3-1b", "olmoe-1b-7b",
+                "qwen3-moe-30b-a3b", "olmoe-1b-7b-gather"]
 
 
 def _serve_engine(cuda_device, case, max_len=12):
@@ -763,7 +878,13 @@ def _serve_engine(cuda_device, case, max_len=12):
         from repro_torch.configs.rwkv6_3b import reduced
 
         cfg = reduced()
-    elif case in ("qwen2.5-14b", "gemma3-1b"):
+    elif case == "olmoe-1b-7b-gather":
+        from repro_torch.configs import get_reduced
+
+        cfg = get_reduced("olmoe-1b-7b").replace(attn_backend="kernel",
+                                                 moe_dispatch="gather")
+    elif case in ("qwen2.5-14b", "gemma3-1b", "olmoe-1b-7b",
+                  "qwen3-moe-30b-a3b"):
         from repro_torch.configs import get_reduced
 
         cfg = get_reduced(case).replace(attn_backend="kernel")

@@ -20,7 +20,8 @@ both sides (the full config's 160 is a multiple of 8).
 
 Also here: the per-row ``[B]`` ``cache_len`` of decode (``_scatter_at``
 and ``_sdpa_decode``, through ``attention`` and ``nested_attention``),
-config fields and ``param_count``, ``build_model`` by family and the
+config fields and ``param_count``, ``build_model`` by family (MoE
+included; its own tests are in ``tests/test_torch_moe.py``) and the
 refusals of what is not ported, the period-6 unstacking of gemma3's
 layers, the engine's caches, ``ServeEngine.generate`` and two ticks of
 the fleet server against the reference's.
@@ -181,7 +182,7 @@ def test_gemma3_layer_plan():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("n_experts", 8, "A3.3"), ("attn_every", 8, "A3.4"),
+    ("family", "hybrid", "A3.4"), ("attn_every", 8, "A3.4"),
     ("encoder_layers", 4, "A3.5"), ("m_rope", True, "A3.5"),
     ("norm_kind", "layernorm", "A3.5"), ("tie_embeddings", True, "A3.1"),
     ("prefill_last_only", True, "A3.1")])
@@ -191,7 +192,7 @@ def test_config_refuses_unported(field, value, item):
 
 
 def test_get_config_refuses_unported_archs():
-    for arch in ("olmoe-1b-7b", "jamba-v0.1-52b", "whisper-tiny"):
+    for arch in ("qwen2-vl-2b", "jamba-v0.1-52b", "whisper-tiny"):
         with pytest.raises(KeyError, match="not ported yet"):
             get_config(arch)
     with pytest.raises(KeyError, match="unknown or not ported yet"):
@@ -201,7 +202,12 @@ def test_get_config_refuses_unported_archs():
 def test_build_model_by_family():
     model = t_build(get_reduced("gemma3-1b"))
     assert model.cfg.family == "dense"
-    for fam, item in (("moe", "A3.3"), ("hybrid", "A3.4"),
+    model = t_build(get_reduced("olmoe-1b-7b"))     # MoE is ported
+    assert model.cfg.family == "moe"
+    assert {model.cfg.ffn_kind(i) for i in range(2)} == {"moe"}
+    plain = t_build(get_reduced("qwen2.5-14b").replace(family="moe"))
+    assert plain.cfg.layer_plan() == get_reduced("qwen2.5-14b").layer_plan()
+    for fam, item in (("hybrid", "A3.4"),
                       ("encdec", "A3.5"), ("vlm", "A3.5")):
         with pytest.raises(ValueError,
                            match=f"{fam}.*not ported yet.*ROADMAP {item}"):
