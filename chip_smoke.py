@@ -101,7 +101,10 @@ Phases (each prints its own lines; any mismatch exits nonzero):
    decode with window 512 over per-row lengths; the MoE family's served
    prefill B=4, S=8 and decode over the 12-slot cache at per-row lengths:
    olmoe-1b-7b's h=kv=16, hd=128 (g=1) and qwen3-moe-30b-a3b's h=32,
-   kv=4, hd=128 (g=8: two 4-head decode blocks a KV head).
+   kv=4, hd=128 (g=8: two 4-head decode blocks a KV head); and the same
+   for jamba-v0.1-52b's h=32, kv=8, hd=128 (g=4) and qwen2-vl-2b's h=12,
+   kv=2, hd=128 (g=6: the second decode block of a KV head has two live
+   heads).
 9. the reduced float32 model with the ``kernel`` nest backend and
    ``attn_backend="kernel"`` on the card against the same model with
    ``blocks``/``ref`` on the CPU, within 1e-4 (head_dim 8).
@@ -185,11 +188,31 @@ Phases (each prints its own lines; any mismatch exits nonzero):
     timed replays), and the assignments the prefill dropped.
 20. serve ``qwen3-moe-30b-a3b`` the same way, at full width and depth
     (48 layers, 32 query heads over 4 KV heads of 128, 128 experts of
-    d_ff 768, top-8; 61 GB of weights).
-21. the last lines: one JSON object per kernel (``launches``: the sum
+    d_ff 768, top-8; 61 GB of weights).  Its model is freed before phase
+    21.
+21. the reduced float32 ``jamba-v0.1-52b`` (7 Mamba layers, one
+    attention layer, MoE on odd layers) and ``qwen2-vl-2b`` (given three
+    distinct M-RoPE position streams in every forward) with
+    ``attn_backend="kernel"`` on the card against the same model on the
+    CPU, as phase 14: prefill logits and every cache (KV and
+    ``MambaState``), then 3 decode steps, within 1e-4; every routed expert
+    id equal; the attention kernels launched once per attention layer a
+    forward.
+22. serve ``jamba-v0.1-52b`` at full width and ``JAMBA_DEPTH`` = 16 of
+    its 32 layers (two periods: 14 Mamba layers of d_inner 8192 and
+    d_state 16, 2 attention layers of 32 query heads over 8 KV heads of
+    128, 8 MoE layers of 16 experts of d_ff 14336 with top-2; 52.1 GB of
+    weights) as phase 19: ``flash_attention`` and ``decode_attention`` 2
+    times a forward; beside the weight reads, every expert's and the
+    routed experts' bytes, and one Mamba layer alone (block and
+    recurrence, decode and prefill, device time) with the Mamba layers'
+    share of a forward.
+23. serve ``qwen2-vl-2b`` at full width and depth (28 layers, 12 query
+    heads over 2 KV heads of 128, q/k/v biases) text-only, as phase 15.
+24. the last lines: one JSON object per kernel (``launches``: the sum
     over every ``serve`` run, graphed and eager, of phases 4, 7, 10, 13,
-    15-17, 19 and 20; ``launches_by_run`` by phase), the ``nvidia-smi``
-    line, and ``{"ok": true, "device": {...}}``.
+    15-17, 19, 20, 22 and 23; ``launches_by_run`` by phase), the
+    ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds.
 """
@@ -297,6 +320,10 @@ RWKV_LONG = 32768
 # olmoe-1b-7b's prefill (24 tokens, 8 experts, top-2: capacity 2) drops
 # assignments, so the drop path runs on the card.
 MOE_DROP_FACTOR = 0.25
+# Layers of jamba-v0.1-52b that phase 22 serves (of 32, at full width): two
+# whole periods of 8, every layer kind twice (26.05e9 parameters, 52.1 GB
+# in bf16); the whole model's 103.1 GB does not fit one 80 GB card.
+JAMBA_DEPTH = 16
 
 
 class SmokeFailure(RuntimeError):
@@ -1583,18 +1610,26 @@ def time_main_path_attention(device, cfg) -> dict:
 # lengths, one of them shorter than a tile; and the MoE family's served
 # prefill and decode at per-row lengths: olmoe-1b-7b's MHA (g=1, 16 KV
 # heads of 128) and qwen3-moe-30b-a3b's g=8 (32 query heads over 4 KV heads
-# of 128: two 4-head decode blocks a KV head).
+# of 128: two 4-head decode blocks a KV head); the hybrid's jamba-v0.1-52b
+# (g=4: 32 query heads over 8 KV heads of 128, one 4-head decode block a KV
+# head) and the vision-language decoder qwen2-vl-2b (g=6: 12 query heads
+# over 2 KV heads of 128, the second decode block of a KV head with two live
+# heads of its four).
 DENSE_FLASH = (
     ("qwen2.5-14b", (4, 8, 40, 8, 128), {}),
     ("stablelm-12b", (4, 8, 32, 8, 160), {}),
     ("gemma3-1b", (4, 8, 4, 1, 256), {"window": 512}),
     ("gemma3-1b_1024_window", (1, 1024, 4, 1, 256), {"window": 512}),
     ("olmoe-1b-7b", (4, 8, 16, 16, 128), {}),
-    ("qwen3-moe-30b-a3b", (4, 8, 32, 4, 128), {}))
+    ("qwen3-moe-30b-a3b", (4, 8, 32, 4, 128), {}),
+    ("jamba-v0.1-52b", (4, 8, 32, 8, 128), {}),
+    ("qwen2-vl-2b", (4, 8, 12, 2, 128), {}))
 DENSE_DECODE = (
     ("qwen2.5-14b_rows", (4, 12, 40, 8, 128, [9, 10, 11, 12]), {}),
     ("olmoe-1b-7b_rows", (4, 12, 16, 16, 128, [9, 10, 11, 12]), {}),
     ("qwen3-moe-30b-a3b_rows", (4, 12, 32, 4, 128, [9, 10, 11, 12]), {}),
+    ("jamba-v0.1-52b_rows", (4, 12, 32, 8, 128, [9, 10, 11, 12]), {}),
+    ("qwen2-vl-2b_rows", (4, 12, 12, 2, 128, [9, 10, 11, 12]), {}),
     ("stablelm-12b", (4, 12, 32, 8, 160, 11), {}),
     ("gemma3-1b_rows", (4, 12, 4, 1, 256, [9, 10, 11, 12]),
      {"window": 512}),
@@ -1937,8 +1972,10 @@ def rwkv_vs_plain(device, cfg, full: bool = True) -> dict:
 
 
 def param_tensors(params) -> list:
-    """Every tensor of the port's parameter dict."""
-    return [params[k] for k in ("embed", "unembed", "final_norm")] + [
+    """Every tensor of the port's parameter dict (a tied model has no
+    ``unembed``)."""
+    return [params[k] for k in ("embed", "unembed", "final_norm")
+            if k in params] + [
         w for layer in params["layers"] for part in layer.values()
         for w in part.values()]
 
@@ -2056,7 +2093,7 @@ def model_cpu_vs_card(device, backend: str = "blocks",
 
 
 # --------------------------------------------------------------------- #
-# phases 14-20: the dense and MoE families without nesting               #
+# phases 14-23: the dense, MoE, hybrid and vision-language families     #
 # --------------------------------------------------------------------- #
 @contextlib.contextmanager
 def recording_routes():
@@ -2096,19 +2133,22 @@ def dropped_assignments(ids, cfg) -> int:
     return int((loads - c).clamp(min=0).sum())
 
 
-def reduced_cpu_vs_card(device, cfg) -> dict:
-    """Phases 14 and 18: ``cfg`` (a reduced float32 model without nesting,
-    ``attn_backend="kernel"``) with the same weights (non-zero q/k/v biases
-    where it has them) on the card, where the attention kernels run, and
-    on the CPU, where their plain versions run: prefill logits and every
-    KV cache, then 3 decode steps, within 1e-4 (float32, TF32 off; the
-    card sums in another order), as phase 12; in a MoE model every layer's
-    routed expert ids of every step must be equal.  The 12-token prompt is
-    longer than gemma3's reduced window of 8, so the window masks in
-    prefill and in decode.  The card must launch ``flash_attention`` once
-    per layer in prefill and ``decode_attention`` once per layer a decode
-    step.  Returns the largest difference, the launches and the
-    assignments the prefill dropped (summed over its MoE layers)."""
+def reduced_cpu_vs_card(device, cfg, pos3d: bool = False) -> dict:
+    """Phases 14, 18 and 21: ``cfg`` (a reduced float32 model without
+    nesting, ``attn_backend="kernel"``) with the same weights (non-zero
+    q/k/v biases where it has them) on the card, where the attention
+    kernels run, and on the CPU, where their plain versions run: prefill
+    logits and every cache (KV, and the ``MambaState`` of a Mamba layer),
+    then 3 decode steps, within 1e-4 (float32, TF32 off; the card sums in
+    another order), as phase 12; in a MoE model every layer's routed
+    expert ids of every step must be equal.  The 12-token prompt is longer
+    than gemma3's reduced window of 8, so the window masks in prefill and
+    in decode.  With ``pos3d`` every forward gets three distinct M-RoPE
+    position streams (``[3, B, 12]``, then ``[3, B, 1]``).  The card must
+    launch ``flash_attention`` once per attention layer in prefill and
+    ``decode_attention`` once per attention layer a decode step.  Returns
+    the largest difference, the launches and the assignments the prefill
+    dropped (summed over its MoE layers)."""
     import numpy as np
     import torch
 
@@ -2128,21 +2168,29 @@ def reduced_cpu_vs_card(device, cfg) -> dict:
     sides = ((params, cpu), (copy_params(params, device), device))
     engines = [ServeEngine(build_model(cfg), max_len=15, batch_size=2,
                            device=dev, graphs=False) for _, dev in sides]
-    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 15))
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (2, 15))
+    base = np.arange(15)[None].repeat(2, 0)
+    streams = np.stack([base, base // 2 + rng.integers(0, 3, (2, 15)),
+                        base % 5 + rng.integers(0, 4, (2, 15))])
     n0 = (fa.flash_attention.launches, da.decode_attention.launches)
     worst = 0.0
 
-    def forward(i, **kw):
+    def forward(i):
         """Both sides' outputs of step ``i`` (-1: the prefill), with the
         routes each side took."""
         outs, routes = [], []
+        span = slice(0, 12) if i < 0 else slice(12 + i, 13 + i)
         for (p, dev), c in zip(sides, caches):
-            tok = toks[:, :12] if i < 0 else toks[:, 12 + i:13 + i]
+            kw = {} if i < 0 else dict(mode="decode", caches=c,
+                                       cache_len=12 + i)
+            if pos3d:
+                kw["pos3d"] = torch.as_tensor(streams[:, :, span],
+                                              device=dev)
             with recording_routes() as seen:
                 outs.append(tfm.lm_apply(
-                    p, cfg, torch.as_tensor(tok, device=dev),
-                    **({} if i < 0 else dict(mode="decode", caches=c,
-                                             cache_len=12 + i))))
+                    p, cfg, torch.as_tensor(toks[:, span], device=dev),
+                    **kw))
             routes.append(seen)
         if len(routes[0]) != len(routes[1]) or not all(
                 torch.equal(a, b.cpu()) for a, b in zip(*routes)):
@@ -2175,8 +2223,8 @@ def reduced_cpu_vs_card(device, cfg) -> dict:
             caches = [o.caches for o in outs]
     counts = (fa.flash_attention.launches - n0[0],
               da.decode_attention.launches - n0[1])
-    want = (cfg.n_layers, 3 * cfg.n_layers) if device.type == "cuda" \
-        else (0, 0)
+    n_attn = attention_layers(cfg)
+    want = (n_attn, 3 * n_attn) if device.type == "cuda" else (0, 0)
     if counts != want:
         raise SmokeFailure(f"reduced {cfg.name} on the card launched "
                            f"flash_attention {counts[0]} and decode_attention "
@@ -2188,10 +2236,15 @@ def reduced_cpu_vs_card(device, cfg) -> dict:
     moe_note = (f"; routed expert ids equal in all {n_routes} MoE calls, "
                 f"capacity factor {cfg.capacity_factor}, prefill dropped "
                 f"{dropped} assignments" if n_moe else "")
+    n_mamba = sum(m == "mamba" for m, _ in cfg.layer_plan())
+    kinds = (f"{n_attn} attention and {n_mamba} Mamba layers" if n_mamba
+             else f"{n_attn} attention layers")
     say(f"  reduced {cfg.name} (hd {cfg.head_dim}, window "
-        f"{cfg.sliding_window}), card (kernels) vs CPU (plain versions), "
-        f"prefill and 3 decode steps, logits and KV caches: ok (max abs "
-        f"diff {worst:.3e}; launches {counts}{moe_note})")
+        f"{cfg.sliding_window}, {kinds}"
+        f"{', three distinct pos3d streams' if pos3d else ''}), card "
+        f"(kernels) vs CPU (plain versions), prefill and 3 decode steps, "
+        f"logits and caches: ok (max abs diff {worst:.3e}; launches "
+        f"{counts}{moe_note})")
     return {"max_abs_diff": worst, "launches": list(counts),
             "moe_calls": n_routes, "prefill_dropped": dropped}
 
@@ -2276,8 +2329,10 @@ def moe_routing(engine, params, prompt_len: int) -> dict:
     at the state the timed decode replays start from (``cache_len`` at
     ``prompt_len``, the engine's next tokens, copies of its caches),
     recording every layer's routed ids.  Returns the distinct experts each
-    layer's decode tokens were routed to, the bytes a decode step reads
-    when it reads only those experts (every other weight but the embedding
+    MoE layer's decode tokens were routed to, the bytes of every expert
+    and of those routed to (expert sizes read from the first MoE layer: a
+    hybrid's layer 0 is dense), the bytes a decode step reads when it
+    reads only the routed experts (every other weight but the embedding
     table, as the one-hot dispatch reads them all), and the assignments
     the prefill dropped."""
     import torch
@@ -2294,14 +2349,19 @@ def moe_routing(engine, params, prompt_len: int) -> dict:
             tfm.lm_apply(params, cfg, buf.next_tok, mode="decode",
                          caches=caches, cache_len=prompt_len)
     experts = [int(ids.unique().numel()) for ids in dec]
-    per_expert = sum(params["layers"][0]["ffn"][n][0].numel()
+    first = next(layer["ffn"] for layer, (_, f) in zip(
+        params["layers"], cfg.layer_plan()) if f == "moe")
+    per_expert = sum(first[n][0].numel()
                      for n in ("w_gate", "w_up", "w_down")) * \
-        params["layers"][0]["ffn"]["w_gate"].element_size()
+        first["w_gate"].element_size()
+    n_moe = sum(f == "moe" for _, f in cfg.layer_plan())
     read = sum(t.numel() * t.element_size() for t in param_tensors(params)) \
         - params["embed"].numel() * params["embed"].element_size()
     unread = sum(cfg.n_experts - n for n in experts) * per_expert
     return {"decode_routed_experts": experts,
             "decode_tokens": int(dec[0].shape[0]),
+            "expert_bytes": n_moe * cfg.n_experts * per_expert,
+            "routed_expert_bytes": sum(experts) * per_expert,
             "routed_read_bytes": read - unread,
             "routed_read_ms": (read - unread) / H100_HBM_BYTES_S * 1e3,
             "prefill_dropped": sum(dropped_assignments(ids, cfg)
@@ -2309,14 +2369,75 @@ def moe_routing(engine, params, prompt_len: int) -> dict:
             "prefill_assignments": sum(ids.numel() for ids in pre)}
 
 
+def mamba_share(device, cfg, params, fwd: dict, prompt_len: int = 8,
+                batch: int = 4) -> dict:
+    """Phase 22: the served model's first Mamba layer alone, at the served
+    shapes (``batch`` rows, a decode step from a state and a
+    ``prompt_len``-token prefill): the device time of the whole block and
+    of its recurrence alone (``_ssm_scan``), each as calls captured in one
+    CUDA graph, the block's kernel nodes (read from a graph of one call),
+    and what the model's Mamba layers take of one graphed forward
+    (``fwd``'s decode and prefill times) at that rate.  The recurrence is
+    plain PyTorch, as the reference's ``lax.scan`` is XLA's."""
+    import torch
+
+    from repro_torch.models import mamba as mb
+
+    plan = cfg.layer_plan()
+    n_mamba = sum(m == "mamba" for m, _ in plan)
+    p = params["layers"][next(i for i, (m, _) in enumerate(plan)
+                              if m == "mamba")]["mixer"]
+    di, ds = cfg.mamba_d_inner, cfg.mamba_d_state
+    gen = torch.Generator(device=device).manual_seed(5)
+    dtype = getattr(torch, cfg.dtype)
+
+    def randn(*shape, dt=torch.float32):
+        return torch.randn(shape, generator=gen, device=device).to(dt)
+
+    state = mb.MambaState(randn(batch, di, ds),
+                          randn(batch, cfg.mamba_d_conv - 1, di, dt=dtype))
+    a = -torch.exp(p["a_log"])
+    out = {"layers": n_mamba}
+    with torch.inference_mode():
+        for kind, s, calls in (("decode", 1, 24), ("prefill", prompt_len, 8)):
+            x = randn(batch, s, cfg.d_model, dt=dtype)
+            st = state if kind == "decode" else None
+            delta = torch.rand((batch, s, di), generator=gen, device=device)
+            xs = [randn(batch, s, n) for n in (ds, ds, di)]
+            block = lambda: mb.mamba(p, x, cfg, state=st)
+            scan = lambda: mb._ssm_scan(state.ssm, delta, *xs, a, s)
+            out[f"{kind}_block_ms"] = graph_ms(block, calls=calls)
+            out[f"{kind}_scan_ms"] = graph_ms(scan, calls=calls)
+            out[f"{kind}_block_nodes"] = len(captured_kernels(block))
+            out[f"{kind}_scan_nodes"] = len(captured_kernels(scan))
+            for part in ("block", "scan"):
+                out[f"{kind}_{part}_share"] = n_mamba * \
+                    out[f"{kind}_{part}_ms"] / fwd[f"{kind}_ms"]
+    say(f"  {cfg.name}: one Mamba layer alone (device time, calls in a "
+        f"CUDA graph; B={batch}, d_inner {di}, d_state {ds}): decode step "
+        f"{out['decode_block_ms']:.6f} ms ({out['decode_block_nodes']} "
+        f"kernel nodes), its recurrence {out['decode_scan_ms']:.6f} ms "
+        f"({out['decode_scan_nodes']} nodes); {prompt_len}-token prefill "
+        f"{out['prefill_block_ms']:.6f} ms ({out['prefill_block_nodes']} "
+        f"nodes), its recurrence {out['prefill_scan_ms']:.6f} ms "
+        f"({out['prefill_scan_nodes']} nodes); x {n_mamba} layers: the "
+        f"blocks {out['decode_block_share']:.4f} of a decode forward "
+        f"(the recurrence {out['decode_scan_share']:.4f}), "
+        f"{out['prefill_block_share']:.4f} of a prefill forward (the "
+        f"recurrence {out['prefill_scan_share']:.4f})")
+    return out
+
+
 def serve_dense(device, cfg, floor_ms: float,
                 breakdown: bool = False) -> dict:
-    """Phases 15-17, 19 and 20: ``cfg`` (a dense or MoE model without
-    nesting, ``attn_backend="kernel"``, bf16, weights from a seed-0
-    generator on the card) behind the fleet server as phase 13 serves
-    ``rwkv6-3b``, graphed and then eagerly; ``serve`` checks every tick's
-    launches (``flash_attention`` n_layers times per prefill forward,
-    ``decode_attention`` n_layers times per decode forward,
+    """Phases 15-17, 19, 20, 22 and 23: ``cfg`` (a dense, MoE, hybrid or
+    vision-language model without nesting, ``attn_backend="kernel"``,
+    bf16, weights from a seed-0 generator on the card; the vision-language
+    model served text-only, as the reference's engine serves it) behind
+    the fleet server as phase 13 serves ``rwkv6-3b``, graphed and then
+    eagerly; ``serve`` checks every tick's launches (``flash_attention``
+    once per attention layer a prefill forward, ``decode_attention`` once
+    per attention layer a decode forward, none in a Mamba layer,
     ``alert_select`` once per tick, ``nested_matmul`` and ``rwkv_scan``
     never).  Then the graphed engine against the eager one (tokens bitwise
     equal, each graph's kernel nodes equal to its counted launches), one
@@ -2325,7 +2446,9 @@ def serve_dense(device, cfg, floor_ms: float,
     rows; for a MoE model that is every expert, as the one-hot dispatch
     reads them, and beside it the read of only the experts the step's
     tokens were routed to, :func:`moe_routing`) at 3.35 TB/s and beside
-    its launch floor (kernel nodes x ``floor_ms``), with ``breakdown`` its
+    its launch floor (kernel nodes x ``floor_ms``), for a hybrid model
+    what its Mamba layers take of it (:func:`mamba_share`), with
+    ``breakdown`` its
     device time by kind of kernel (:func:`device_breakdown`), and the peak
     ``torch.cuda.max_memory_allocated`` of the phase.  Frees the model
     before it returns."""
@@ -2355,6 +2478,8 @@ def serve_dense(device, cfg, floor_ms: float,
     if cfg.n_experts:
         fwd["moe"] = moe_routing(run["engine"], params, 8)
     peak = torch.cuda.max_memory_allocated(device)
+    if any(m == "mamba" for m, _ in cfg.layer_plan()):
+        fwd["mamba"] = mamba_share(device, cfg, params, fwd)
     say(f"  {cfg.name} ({cfg.n_layers} layers, d={cfg.d_model}) forward, "
         f"device time (one graph replay): decode {fwd['decode_ms']:.6f} ms "
         f"({fwd['decode_kernel_nodes']} kernel nodes, launch floor "
@@ -2369,7 +2494,10 @@ def serve_dense(device, cfg, floor_ms: float,
             f"step's {m['decode_tokens']} tokens went to "
             f"{min(m['decode_routed_experts'])}-"
             f"{max(m['decode_routed_experts'])} of {cfg.n_experts} experts "
-            f"a layer; reading only those: "
+            f"a MoE layer; every expert is {m['expert_bytes'] / 1e9:.3f} GB "
+            f"({m['expert_bytes'] / H100_HBM_BYTES_S * 1e3:.6f} ms at 3.35 "
+            f"TB/s), the routed ones {m['routed_expert_bytes'] / 1e9:.3f} "
+            f"GB; reading only those: "
             f"{m['routed_read_bytes'] / 1e9:.3f} GB, "
             f"{m['routed_read_ms']:.6f} ms at 3.35 TB/s (the one-hot "
             f"dispatch reads all: {read / 1e9:.3f} GB); the prefill dropped "
@@ -2499,6 +2627,13 @@ def gemma_window_kernel_vs_ref(device, cfg=None, prompt_len: int = 1024,
             "shape": f"B={batch},prompt={prompt_len},decode={steps},float32"}
 
 
+def attention_layers(cfg) -> int:
+    """The layers of ``cfg`` that hold attention (``"attn"`` or
+    ``"attn_local"``), each one ``flash_attention`` launch a prefill
+    forward and one ``decode_attention`` launch a decode forward."""
+    return sum(m in ("attn", "attn_local") for m, _ in cfg.layer_plan())
+
+
 def run_counts(run: dict) -> dict:
     """The launches one ``serve`` run counted, by kernel."""
     return {"alert_select": run["launches"],
@@ -2530,7 +2665,7 @@ def tenants(table):
 def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
           gen_tokens=4, expect_kernel=True, params=None,
           graphs=True) -> dict:
-    """Phases 4, 7, 10, 13, 15-17, 19 and 20: the fleet server over
+    """Phases 4, 7, 10, 13, 15-17, 19, 20, 22 and 23: the fleet server over
     ``cfg`` on ``device``, its engine replaying one CUDA graph per level
     and prompt length (``graphs``; False runs the same steps eagerly, the
     yardstick),
@@ -2539,10 +2674,11 @@ def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
     once per tick.  On the card, with ``cfg.nest_backend == "kernel"``,
     ``nested_matmul`` must launch 7 * n_layers times per forward pass (one
     per generated token), with ``cfg.attn_backend == "kernel"``
-    ``flash_attention`` n_layers times per prefill forward and
-    ``decode_attention`` n_layers times per decode forward, and for an
-    RWKV model ``rwkv_scan`` n_layers times per forward; otherwise they
-    must not launch at all."""
+    ``flash_attention`` once per attention layer (``"attn"`` or
+    ``"attn_local"`` in ``cfg.layer_plan()``; a Mamba layer has none) a
+    prefill forward and ``decode_attention`` once per attention layer a
+    decode forward, and for an RWKV model ``rwkv_scan`` n_layers times per
+    forward; otherwise they must not launch at all."""
     import numpy as np
     import torch
 
@@ -2576,8 +2712,8 @@ def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
     card = device.type == "cuda"
     per_forward = 7 * cfg.n_layers if (cfg.nest_backend == "kernel"
                                        and card) else 0
-    attn_per_forward = cfg.n_layers if (cfg.attn_backend == "kernel"
-                                        and card) else 0
+    attn_per_forward = attention_layers(cfg) if (
+        cfg.attn_backend == "kernel" and card) else 0
     rwkv_per_forward = cfg.n_layers if (cfg.rwkv and card) else 0
     t0 = time.perf_counter()
     srv = FleetAlertServer(engine, params,
@@ -2951,11 +3087,14 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     from repro_torch.configs.alert_anytime import CONFIG
+    from repro_torch.configs import get_reduced
     from repro_torch.configs.gemma3_1b import CONFIG as GEMMA_CONFIG
+    from repro_torch.configs.jamba_v01_52b import CONFIG as JAMBA_CONFIG
     from repro_torch.configs.olmoe_1b_7b import CONFIG as OLMOE_CONFIG
     from repro_torch.configs.qwen3_moe_30b_a3b import \
         CONFIG as QWEN3_MOE_CONFIG
     from repro_torch.configs.qwen2_5_14b import CONFIG as QWEN_CONFIG
+    from repro_torch.configs.qwen2_vl_2b import CONFIG as QWEN2VL_CONFIG
     from repro_torch.configs.rwkv6_3b import CONFIG as RWKV_CONFIG
     from repro_torch.configs.stablelm_12b import CONFIG as STABLELM_CONFIG
     from repro_torch.kernels import alert_select as ks
@@ -3168,7 +3307,24 @@ def main() -> int:
     phase.start("phase 20: serve qwen3-moe-30b-a3b")
     moe["qwen3-moe-30b-a3b"] = serve_dense(device, QWEN3_MOE_CONFIG.replace(
         attn_backend="kernel"), floor_ms, opts.breakdown)
-    for name, d in (dense | moe).items():
+
+    phase.start("phase 21: reduced hybrid and vision-language models on "
+                "the card")
+    err_hybrid = {arch: reduced_cpu_vs_card(device, get_reduced(
+        arch).replace(dtype="float32", attn_backend="kernel"),
+        pos3d=arch == "qwen2-vl-2b")
+        for arch in ("jamba-v0.1-52b", "qwen2-vl-2b")}
+
+    phase.start(f"phase 22: serve jamba-v0.1-52b ({JAMBA_DEPTH} of "
+                f"{JAMBA_CONFIG.n_layers} layers)")
+    hybrid = {"jamba-v0.1-52b": serve_dense(device, JAMBA_CONFIG.replace(
+        attn_backend="kernel", n_layers=JAMBA_DEPTH), floor_ms,
+        opts.breakdown)}
+
+    phase.start("phase 23: serve qwen2-vl-2b")
+    vlm = {"qwen2-vl-2b": serve_dense(device, QWEN2VL_CONFIG.replace(
+        attn_backend="kernel"), floor_ms, opts.breakdown)}
+    for name, d in (dense | moe | hybrid | vlm).items():
         counted[f"{name} ({d['n_layers']} layers)"] = d.pop("counts")
     phase.start(None)
     say(f"== done in {time.perf_counter() - t_start:.1f} s")
@@ -3237,6 +3393,10 @@ def main() -> int:
     kernels[-1]["served_dense"] = dense
     kernels[-1]["reduced_moe"] = err_moe
     kernels[-1]["served_moe"] = moe
+    kernels[-1]["served_hybrid"] = hybrid
+    kernels[-1]["served_vlm"] = vlm
+    for k in kernels[-2:]:
+        k["reduced_hybrid_vlm"] = err_hybrid
     b_case = rwkv["b"]
     kernels.append({
         "name": "rwkv_scan", "route": "cuda", "source": RS_SOURCE,

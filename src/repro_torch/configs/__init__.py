@@ -10,10 +10,12 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
+    "qwen2-vl-2b": "qwen2_vl_2b",
     "qwen2.5-32b": "qwen2_5_32b",
     "gemma3-1b": "gemma3_1b",
     "qwen2.5-14b": "qwen2_5_14b",
     "stablelm-12b": "stablelm_12b",
+    "jamba-v0.1-52b": "jamba_v01_52b",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "rwkv6-3b": "rwkv6_3b",

@@ -2,15 +2,19 @@
 that the port's families read, and those it refuses, with the same names
 and defaults.
 
-The port runs four kinds of model: the width-nested anytime LM
+The port runs six kinds of model: the width-nested anytime LM
 (``family="dense"``, ``nest_levels >= 2``), the dense LMs without nesting
 (``family="dense"``: stablelm, qwen2.5, gemma3 with its sliding window),
 the mixture-of-experts LMs (``family="moe"``: olmoe, qwen3-moe; as in the
 reference, ``n_experts > 0`` puts a MoE FFN at layers ``i % moe_every ==
-moe_offset`` whatever the family) and the RWKV-6 family (``family="ssm"``,
-``rwkv=True``).  A config that asks for anything still unported, a family
-or a field, raises a ``ValueError`` naming the ROADMAP item that ports
-it: this is the one place that knows what the port does not run yet.
+moe_offset`` whatever the family), the hybrid family (``family="hybrid"``:
+jamba, attention at layers ``i % attn_every == attn_offset`` and Mamba
+elsewhere), the vision-language family's decoder (``family="vlm"``:
+qwen2-vl, M-RoPE over ``pos3d`` position streams) and the RWKV-6 family
+(``family="ssm"``, ``rwkv=True``).  A config that asks for anything
+still unported, a family or a field, raises a ``ValueError`` naming the
+ROADMAP item that ports it: this is the one place that knows what the
+port does not run yet.
 """
 
 from __future__ import annotations
@@ -21,19 +25,13 @@ FAMILIES = ("dense", "moe", "hybrid", "ssm", "encdec", "vlm")
 
 # The reference's families the port does not run yet, with the ROADMAP
 # item (queue A3) that ports each.
-UNPORTED_FAMILIES = {"hybrid": "A3.4 (hybrid)",
-                     "encdec": "A3.5 (whisper encoder-decoder)",
-                     "vlm": "A3.5 (qwen2-vl)"}
+UNPORTED_FAMILIES = {"encdec": "A3.5 (whisper encoder-decoder)"}
 
 # Fields the port does not run yet, each with the value that turns it off
 # and the ROADMAP item (queue A3) that ports it.
 UNPORTED = (
-    ("attn_every", 0, "A3.4 (hybrid: Mamba layers)"),
     ("encoder_layers", 0, "A3.5 (whisper encoder-decoder)"),
-    ("m_rope", False, "A3.5 (qwen2-vl M-RoPE)"),
     ("norm_kind", "rmsnorm", "A3.5 (whisper LayerNorm)"),
-    ("tie_embeddings", False, "A3.1 (left: tied embeddings)"),
-    ("prefill_last_only", False, "A3.1 (left: last-position prefill)"),
 )
 
 
@@ -51,6 +49,7 @@ class ModelConfig:
     rope_theta: float = 1e4
     qkv_bias: bool = False
     m_rope: bool = False
+    mrope_sections: tuple[int, int, int] = (16, 24, 24)
     sliding_window: int | None = None    # window size for local layers
     global_every: int = 0                # gemma3: layer i is global iff
     #                         (i+1) % global_every == 0; 0 = all global
@@ -60,7 +59,14 @@ class ModelConfig:
     moe_every: int = 1                   # MoE FFN at layers i % moe_every
     moe_offset: int = 0                  #   == moe_offset
     capacity_factor: float = 1.25
-    attn_every: int = 0
+    attn_every: int = 0                  # hybrid: attention at layers
+    attn_offset: int = 4                 #   i % attn_every == attn_offset,
+    #                                      Mamba elsewhere; 0 = all attention
+    mamba_d_state: int = 16
+    mamba_expand: int = 2
+    mamba_d_conv: int = 4
+    mamba_dt_rank: int = 0               # 0 -> ceil(d_model / 16)
+    mamba_chunk: int = 128
     rwkv: bool = False                   # RWKV-6 mixer in every layer
     rwkv_head_dim: int = 64
     rwkv_decay_lora: int = 64
@@ -96,6 +102,9 @@ class ModelConfig:
         if self.n_experts and self.nest_levels != 1:
             raise ValueError("the port runs MoE models without width "
                              "nesting (nest_levels == 1)")
+        if self.attn_every and self.nest_levels != 1:
+            raise ValueError("the port runs hybrid models without width "
+                             "nesting (nest_levels == 1)")
         if self.moe_dispatch not in ("onehot", "gather"):
             raise ValueError(f"moe_dispatch must be 'onehot' or 'gather', "
                              f"not {self.moe_dispatch!r}")
@@ -112,13 +121,27 @@ class ModelConfig:
                              f"{self.attn_backend!r}")
 
     @property
+    def mamba_d_inner(self) -> int:
+        return self.mamba_expand * self.d_model
+
+    @property
+    def mamba_dt_rank_actual(self) -> int:
+        return self.mamba_dt_rank or -(-self.d_model // 16)
+
+    @property
     def rwkv_n_heads(self) -> int:
         return self.d_model // self.rwkv_head_dim
 
     def mixer_kind(self, layer: int) -> str:
-        """Which sequence mixer layer ``layer`` (0-based) uses."""
+        """Which sequence mixer layer ``layer`` (0-based) uses: ``rwkv``
+        first, then the hybrid's ``attn_every``, then gemma3's
+        ``global_every``, as the reference decides."""
         if self.rwkv:
             return "rwkv"
+        if self.attn_every:
+            if layer % self.attn_every == self.attn_offset % self.attn_every:
+                return "attn"
+            return "mamba"
         if self.global_every:
             return "attn" if (layer + 1) % self.global_every == 0 \
                 else "attn_local"
@@ -147,14 +170,26 @@ class ModelConfig:
     def param_count(self) -> int:
         """Analytic parameter count (embedding included once), as the
         reference counts it: an RWKV layer counts a 3 * d * d_ff FFN, a
-        MoE layer its router and ``n_experts`` SwiGLU experts."""
+        MoE layer its router and ``n_experts`` SwiGLU experts, a tied model
+        no unembedding.  A Mamba layer counts ``2 * d_inner`` vectors
+        (``dt_bias`` and ``d_skip``) where its tensors hold three: like the
+        reference, this count leaves out ``conv_b``, ``d_inner`` parameters
+        a Mamba layer."""
         d, hd = self.d_model, self.head_dim
-        total = 2 * self.vocab * d + d       # embed, unembed, final norm
+        total = self.vocab * d + d           # embed, final norm
+        if not self.tie_embeddings:
+            total += d * self.vocab          # unembed
         for mixer, ffn in self.layer_plan():
             total += 2 * d                    # two pre-norms
             if mixer == "rwkv":
                 total += 5 * d + 5 * d * d + 2 * d * self.rwkv_decay_lora \
                     + 3 * d
+            elif mixer == "mamba":
+                di, ds = self.mamba_d_inner, self.mamba_d_state
+                dt = self.mamba_dt_rank_actual
+                total += d * 2 * di + self.mamba_d_conv * di \
+                    + di * (dt + 2 * ds) + dt * di + di * ds + 2 * di \
+                    + di * d
             else:
                 total += 2 * d * self.n_heads * hd \
                     + 2 * d * self.n_kv_heads * hd

@@ -13,8 +13,13 @@ it.  Every leaf is carried, the q/k/v biases of a ``qkv_bias`` model
 included.  A MoE layer's ``"ffn"`` holds the router ``[d, E]`` (float32
 in a bf16 model, as the reference keeps it) and the expert stacks
 ``w_gate``/``w_up`` ``[E, d, f]`` and ``w_down`` ``[E, f, d]``; the
-repeat axis in front of them is the one unstacked.  An RWKV layer keeps
-its whole block in ``"mixer"`` and has an empty ``"ffn"``.  Matrices
+repeat axis in front of them is the one unstacked.  A Mamba layer's
+``"mixer"`` holds its block, ``a_log``, ``d_skip``, ``conv_b`` and
+``dt_bias`` float32 in a bf16 model as the reference keeps them (jamba's
+reduced config: ``pos0..pos5`` x 1 and ``rem0``, ``rem1``; 16 layers of
+the full one: ``pos0..pos7`` x 2).  An RWKV layer keeps its whole block
+in ``"mixer"`` and has an empty ``"ffn"``.  A tied model
+(``tie_embeddings``) has no ``unembed``.  Matrices
 keep the reference's ``[in, out]`` layout (used as ``x @ W``), so nothing
 is transposed.
 """
@@ -64,7 +69,8 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> dict:
     if len(layers) != cfg.n_layers:
         raise ValueError(f"found {len(layers)} layers in the reference "
                          f"pytree, config {cfg.name!r} has {cfg.n_layers}")
-    return {"embed": t(np_params["embed"]),
-            "unembed": t(np_params["unembed"]),
-            "final_norm": t(np_params["final_norm"]),
-            "layers": layers}
+    out = {"embed": t(np_params["embed"]),
+           "final_norm": t(np_params["final_norm"]), "layers": layers}
+    if "unembed" in np_params:
+        out["unembed"] = t(np_params["unembed"])
+    return out

@@ -35,7 +35,8 @@ from repro_torch.core.nesting import (StripeSpec, nested_linear,
                                       nested_norm_linear)
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.common import apply_rope, dense_init, rms_norm
+from repro_torch.models.common import (apply_mrope, apply_rope, dense_init,
+                                      rms_norm)
 
 
 class KVCache(NamedTuple):
@@ -198,10 +199,13 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
               cfg: ModelConfig, *, window: int | None = None,
               cache: KVCache | None = None,
               cache_len: int | torch.Tensor | None = None,
+              positions_3d: torch.Tensor | None = None,
               ) -> tuple[torch.Tensor, KVCache]:
     """Pre-norm causal attention of a model without nesting: RMSNorm, the
     q/k/v projections (plus ``bq``/``bk``/``bv`` where the params have
-    them), RoPE at ``positions``, attention with an optional sliding
+    them), RoPE at ``positions`` (M-RoPE at ``positions_3d [3, B, s]``
+    when ``cfg.m_rope`` is set and they are given, as in the reference),
+    attention with an optional sliding
     ``window``, the output projection.  Without a cache (prefill) the
     returned cache holds this call's k/v; with ``cache`` and ``cache_len``
     (decode) the step's k/v are written at ``cache_len`` in place.
@@ -215,8 +219,13 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
     q, k, v = xn @ params["wq"], xn @ params["wk"], xn @ params["wv"]
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = apply_rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
-    k = apply_rope(k.reshape(b, s, n_kv, hd), positions, cfg.rope_theta)
+    q, k = q.reshape(b, s, h, hd), k.reshape(b, s, n_kv, hd)
+    if cfg.m_rope and positions_3d is not None:
+        q = apply_mrope(q, positions_3d, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions_3d, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     v = v.reshape(b, s, n_kv, hd)
     out, new_cache = _attend(q, k, v, positions, cfg, cache, cache_len,
                              window, cfg.window_banded)

@@ -1,6 +1,7 @@
-"""Shared model primitives: RMSNorm, LayerNorm, rotary embeddings, init
-(port of ``repro.models.common``).  Norm statistics and rotary angles are
-float32 whatever the activation dtype, as in the reference."""
+"""Shared model primitives: RMSNorm, LayerNorm, rotary embeddings (M-RoPE
+included), init (port of ``repro.models.common``).  Norm statistics and
+rotary angles are float32 whatever the activation dtype, as in the
+reference."""
 
 from __future__ import annotations
 
@@ -52,6 +53,39 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     ang = positions[..., :, None].float() * inv          # [..., S, hd/2]
     cos = torch.cos(ang)[..., :, None, :]                # [..., S, 1, hd/2]
     sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _mrope_slots(sections: tuple[int, int, int],
+                 device: torch.device) -> torch.Tensor:
+    """The position stream (0 = t, 1 = h, 2 = w) of each frequency slot,
+    on ``device``, made once."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(np.repeat(np.arange(3), np.asarray(sections)),
+                               device=device)
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
+                sections: tuple[int, int, int]) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL, arXiv:2409.12191): the ``head_dim/2``
+    frequency slots are cut into (temporal, height, width) ``sections``,
+    and each section rotates by its own position stream.  With three equal
+    streams (text) it equals :func:`apply_rope`.
+
+    x: ``[B, S, heads, head_dim]``; positions_3d: ``[3, B, S]``."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {sections} != head_dim/2 "
+                         f"{hd // 2}")
+    inv = _rope_inv(hd, theta, x.device)                 # [hd/2]
+    slots = _mrope_slots(tuple(sections), x.device)      # [hd/2]
+    pos = positions_3d.float()[slots]                    # [hd/2, B, S]
+    ang = pos.permute(1, 2, 0) * inv                     # [B, S, hd/2]
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

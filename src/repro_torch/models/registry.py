@@ -1,6 +1,7 @@
 """Uniform model API (port of ``repro.models.registry`` for the LM
 families ported so far: ``dense``, width-nested anytime LMs and LMs
-without nesting, ``moe``, and the ``ssm`` family's RWKV-6):
+without nesting, ``moe``, ``hybrid``, ``vlm`` and the ``ssm`` family's
+RWKV-6):
 ``build_model(cfg)`` ->
 
     model.init(generator=None, device=None)   -> params
@@ -8,7 +9,10 @@ without nesting, ``moe``, and the ``ssm`` family's RWKV-6):
     model.decode_step(params, batch, caches)  -> (logits, caches)
     model.init_caches(batch_size, max_len)    -> caches
 
-``batch`` is a dict with ``tokens [B, S]`` and, for decode, ``cache_len``.
+``batch`` is a dict with ``tokens [B, S]``, for decode ``cache_len``, and
+for a ``vlm`` model optionally ``pos3d [3, B, S]`` (M-RoPE's position
+streams; without them its attention runs plain RoPE, as text-only serving
+does).
 """
 
 from __future__ import annotations
@@ -35,12 +39,14 @@ def build_model(cfg: ModelConfig) -> Model:
     run yet)."""
 
     def prefill(params, batch):
-        out = tfm.lm_apply(params, cfg, batch["tokens"], mode="prefill")
+        out = tfm.lm_apply(params, cfg, batch["tokens"], mode="prefill",
+                           pos3d=batch.get("pos3d"))
         return out.logits, out.caches
 
     def decode_step(params, batch, caches):
         out = tfm.lm_apply(params, cfg, batch["tokens"], mode="decode",
-                           caches=caches, cache_len=batch["cache_len"])
+                           caches=caches, cache_len=batch["cache_len"],
+                           pos3d=batch.get("pos3d"))
         return out.logits, out.caches
 
     return Model(

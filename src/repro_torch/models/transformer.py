@@ -1,23 +1,25 @@
 """Decoder-only LM (port of ``repro.models.transformer`` for the families
 the port runs: the width-nested anytime LM, the dense LMs without nesting,
-the mixture-of-experts LMs and the RWKV-6 family).
+the mixture-of-experts LMs, the hybrid (Jamba) LMs, the vision-language
+family's decoder and the RWKV-6 family).
 
-Parameters are a plain dict: ``embed [V, d]``, ``unembed [d, V]``,
-``final_norm [d]`` and ``layers``, a list with one ``{"mixer": ...,
-"ffn": ...}`` dict per layer (the reference stacks layers per period
-position for ``lax.scan``; here they are a Python loop).
-``cfg.mixer_kind(i)`` and ``cfg.ffn_kind(i)`` pick a layer's kinds, as in
-the reference: ``"attn"`` and ``"attn_local"`` layers hold attention
-params and a KV cache (``"attn_local"`` attends over
-``cfg.sliding_window`` positions), and in ``"ffn"`` the SwiGLU params of a
-``"dense"`` layer or the router and expert stacks of a ``"moe"`` layer
-(:mod:`repro_torch.models.moe`); ``"rwkv"`` layers hold the time and
-channel mix in ``"mixer"``, an empty ``"ffn"``, and an ``RwkvState``
-cache.  A model with
-``nest_levels > 1`` runs the nested attention and SwiGLU, and ``level``
-selects the level-k prefix subnetwork: the whole pipeline runs on the
-``d_k`` prefix of the residual stream.  A model without nesting runs the
-dense blocks.
+Parameters are a plain dict: ``embed [V, d]``, ``unembed [d, V]`` (absent
+in a model with ``tie_embeddings``, whose logits go through ``embed.T``,
+as the reference's), ``final_norm [d]`` and ``layers``, a list with one
+``{"mixer": ..., "ffn": ...}`` dict per layer (the reference stacks
+layers per period position for ``lax.scan``; here they are a Python
+loop).  ``cfg.mixer_kind(i)`` and ``cfg.ffn_kind(i)`` pick a layer's
+kinds, as in the reference: ``"attn"`` and ``"attn_local"`` layers hold
+attention params and a KV cache (``"attn_local"`` attends over
+``cfg.sliding_window`` positions), ``"mamba"`` layers the Mamba block
+(:mod:`repro_torch.models.mamba`) and a ``MambaState`` cache, and in
+``"ffn"`` the SwiGLU params of a ``"dense"`` layer or the router and
+expert stacks of a ``"moe"`` layer (:mod:`repro_torch.models.moe`);
+``"rwkv"`` layers hold the time and channel mix in ``"mixer"``, an empty
+``"ffn"``, and an ``RwkvState`` cache.  A model with ``nest_levels > 1``
+runs the nested attention and SwiGLU, and ``level`` selects the level-k
+prefix subnetwork: the whole pipeline runs on the ``d_k`` prefix of the
+residual stream.  A model without nesting runs the dense blocks.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.nesting import StripeSpec, prefix_rmsnorm
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
@@ -37,9 +40,12 @@ from repro_torch.models.attention import KVCache
 from repro_torch.models.common import embed_init, rms_norm
 
 
+Cache = KVCache | mamba_mod.MambaState | rwkv_mod.RwkvState
+
+
 class LMOutput(NamedTuple):
     logits: torch.Tensor
-    caches: list[KVCache | rwkv_mod.RwkvState]
+    caches: list[Cache]
 
 
 def init_layer(cfg: ModelConfig, mixer: str, ffn: str,
@@ -47,8 +53,10 @@ def init_layer(cfg: ModelConfig, mixer: str, ffn: str,
     if mixer == "rwkv":
         return {"mixer": rwkv_mod.rwkv_init(cfg, generator, device),
                 "ffn": {}}
+    init_mixer = mamba_mod.mamba_init if mixer == "mamba" \
+        else attn_mod.attn_init
     init_ffn = moe_mod.moe_init if ffn == "moe" else mlp_mod.mlp_init
-    return {"mixer": attn_mod.attn_init(cfg, generator, device),
+    return {"mixer": init_mixer(cfg, generator, device),
             "ffn": init_ffn(cfg, generator, device)}
 
 
@@ -63,18 +71,20 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
     params = {
         "embed": embed_init((cfg.vocab, cfg.d_model), dtype, generator, dev),
         "final_norm": torch.ones(cfg.d_model, dtype=dtype, device=dev),
-        "unembed": embed_init((cfg.d_model, cfg.vocab), dtype, generator,
-                              dev) * cfg.d_model ** -0.5,
     }
+    if not cfg.tie_embeddings:
+        params["unembed"] = embed_init((cfg.d_model, cfg.vocab), dtype,
+                                       generator, dev) * cfg.d_model ** -0.5
     params["layers"] = [init_layer(cfg, mixer, ffn, generator, dev)
                         for mixer, ffn in cfg.layer_plan()]
     return params
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                device=None) -> list[KVCache | rwkv_mod.RwkvState]:
+                device=None) -> list[Cache]:
     """One decode cache per layer: zeroed ``[B, max_len, n_kv, head_dim]``
-    KV buffers for attention, a zero ``RwkvState`` for RWKV."""
+    KV buffers for attention, a zero ``MambaState`` for Mamba and a zero
+    ``RwkvState`` for RWKV."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
@@ -82,6 +92,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     for i in range(cfg.n_layers):
         if cfg.mixer_kind(i) == "rwkv":
             caches.append(rwkv_mod.rwkv_init_state(cfg, batch, dev))
+        elif cfg.mixer_kind(i) == "mamba":
+            caches.append(mamba_mod.mamba_init_state(cfg, batch, dev))
         else:
             caches.append(KVCache(torch.zeros(shape, dtype=dtype, device=dev),
                                   torch.zeros(shape, dtype=dtype,
@@ -89,14 +101,28 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     return caches
 
 
+def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig,
+         ffn: str) -> torch.Tensor:
+    """The residual stream after the FFN of a layer without nesting: the
+    MoE FFN of a ``"moe"`` layer, else the dense SwiGLU."""
+    if ffn == "moe":
+        return x + moe_mod.moe(lp["ffn"], x, cfg, with_aux=False)[0]
+    return x + mlp_mod.mlp(lp["ffn"], x, cfg)
+
+
 def apply_layer(lp: dict, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ModelConfig, mixer: str, ffn: str, *, cache=None,
-                cache_len=None, level: int | None = None):
-    """One pre-norm block: attention + SwiGLU (nested when ``nest_levels >
-    1``; an ``"attn_local"`` layer with its sliding window) or + the MoE
-    FFN of a ``"moe"`` layer, or the RWKV time mix + channel mix.  Returns
+                cache_len=None, level: int | None = None,
+                pos3d: torch.Tensor | None = None):
+    """One pre-norm block: attention (M-RoPE at ``pos3d`` where the config
+    has ``m_rope``) or Mamba, then SwiGLU (nested when ``nest_levels >
+    1``; an ``"attn_local"`` layer with its sliding window) or the MoE FFN
+    of a ``"moe"`` layer; or the RWKV time mix + channel mix.  Returns
     ``(x, new_cache)``; a MoE layer's aux loss is not computed (the
     reference's ``jit`` drops it from a serving forward as dead code)."""
+    if mixer == "mamba":
+        m, new_cache = mamba_mod.mamba(lp["mixer"], x, cfg, state=cache)
+        return _ffn(lp, x + m, cfg, ffn), new_cache
     if mixer == "rwkv":
         t, wkv, tail_t = rwkv_mod.rwkv_time_mix(lp["mixer"], x, cfg,
                                                 state=cache)
@@ -114,36 +140,42 @@ def apply_layer(lp: dict, x: torch.Tensor, positions: torch.Tensor,
             new_cache
     a, new_cache = attn_mod.attention(lp["mixer"], x, positions, cfg,
                                       window=window, cache=cache,
-                                      cache_len=cache_len)
-    x = x + a
-    if ffn == "moe":
-        return x + moe_mod.moe(lp["ffn"], x, cfg, with_aux=False)[0], \
-            new_cache
-    return x + mlp_mod.mlp(lp["ffn"], x, cfg), new_cache
+                                      cache_len=cache_len,
+                                      positions_3d=pos3d)
+    return _ffn(lp, x + a, cfg, ffn), new_cache
 
 
-def lm_apply(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
-             mode: str = "prefill", caches: list | None = None,
+def lm_apply(params: dict, cfg: ModelConfig, tokens: torch.Tensor | None,
+             *, mode: str = "prefill", caches: list | None = None,
              cache_len: int | torch.Tensor | None = None,
-             level: int | None = None) -> LMOutput:
+             level: int | None = None, pos3d: torch.Tensor | None = None,
+             embeds: torch.Tensor | None = None) -> LMOutput:
     """Forward pass at nesting ``level`` (default: the deepest; a model
     without nesting takes ``None``).
 
     * ``mode='prefill'``: ``tokens [B, S]``, no caches in; the per-layer
-      k/v of the prompt (or the RWKV states after it) come back (the
-      serving engine merges them into its decode buffers).
+      k/v of the prompt (or the Mamba and RWKV states after it) come back
+      (the serving engine merges them into its decode buffers).
     * ``mode='decode'``: ``tokens [B, 1]`` with ``caches`` and
       ``cache_len``, an int, a 0-d integer tensor on the device (the
       serving engine's, which its CUDA graphs read at replay) or a ``[B]``
       integer tensor, one length per row; an attention step's k/v are
-      written into the caches in place, an RWKV layer returns a new
-      state.
+      written into the caches in place, a Mamba or RWKV layer returns a
+      new state.
+
+    ``pos3d [3, B, S]`` are M-RoPE's position streams (a config with
+    ``m_rope``; without them its attention runs plain RoPE), and
+    ``embeds [B, S, d]`` stand in for the token embeddings (the vision
+    frontend's path; ``tokens`` may then be None), as in the reference.
+    With ``cfg.prefill_last_only`` a prefill returns the last position's
+    logits only.
 
     Returns ``[B, S, V]`` logits of the chosen level.
     """
     if mode not in ("prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
-    b, s = tokens.shape
+    b, s = tokens.shape if embeds is None else embeds.shape[:2]
+    dev = tokens.device if embeds is None else embeds.device
     decode = mode == "decode"
     if decode and isinstance(cache_len, torch.Tensor):
         # read on the device, so a CUDA graph of the step replays at the
@@ -151,10 +183,10 @@ def lm_apply(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         positions = cache_len.to(torch.int32).reshape(-1, 1).expand(b, s)
     elif decode:
         positions = torch.full((b, s), int(cache_len), dtype=torch.int32,
-                               device=tokens.device)
+                               device=dev)
     else:
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = params["embed"][tokens]
+        positions = torch.arange(s, device=dev).expand(b, s)
+    x = params["embed"][tokens] if embeds is None else embeds
     nested = cfg.nest_levels > 1
     if nested:
         d_spec = StripeSpec.pow2(cfg.d_model, cfg.nest_levels)
@@ -167,10 +199,15 @@ def lm_apply(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         x, nc = apply_layer(lp, x, positions, cfg, *plan[i],
                             cache=caches[i] if decode else None,
                             cache_len=cache_len if decode else None,
-                            level=level)
+                            level=level, pos3d=pos3d)
         new_caches.append(nc)
+    if not decode and cfg.prefill_last_only:
+        x = x[:, -1:, :]
+    unembed = params.get("unembed")
+    if unembed is None:
+        unembed = params["embed"].T
     if not nested:
         h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return LMOutput(h @ params["unembed"], new_caches)
+        return LMOutput(h @ unembed, new_caches)
     hk = prefix_rmsnorm(x, params["final_norm"], d_spec, k, cfg.norm_eps)
-    return LMOutput(hk @ params["unembed"][:d_spec.width(k), :], new_caches)
+    return LMOutput(hk @ unembed[:d_spec.width(k), :], new_caches)

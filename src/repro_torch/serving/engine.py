@@ -6,15 +6,16 @@ counts their traces (``n_compiles``, the zero-recompile contract of
 DESIGN.md §8).  Here each program is a *step*: a plain function over the
 engine's own static buffers of one level (the prompt tokens, the next
 token, ``cache_len`` as an int32 device scalar, and the KV caches at the
-level's width or the RWKV states):
+level's width, the Mamba states or the RWKV states):
 
 * the prefill step runs ``lm_apply(mode="prefill")``, copies the prompt's
   k/v into the front of the static caches and zeroes their tail (the
-  state a fresh ``init_caches`` gives; RWKV states are replaced whole),
-  writes the argmax into the next-token buffer and sets ``cache_len``;
+  state a fresh ``init_caches`` gives; Mamba and RWKV states are replaced
+  whole), writes the argmax into the next-token buffer and sets
+  ``cache_len``;
 * the decode step runs one decode forward at ``cache_len``, copies the
-  new RWKV states into the static ones, writes the argmax and adds one to
-  ``cache_len``, all on the device.
+  new Mamba and RWKV states into the static ones, writes the argmax and
+  adds one to ``cache_len``, all on the device.
 
 On the card each step is captured once as a CUDA graph, per (level,
 prompt length) for prefill and per level for decode, after one eager call
@@ -116,7 +117,7 @@ class ServeEngine:
         cfg = self.model.cfg
         self.levels = list(range(1, cfg.nest_levels + 1)) \
             if cfg.nest_levels > 1 else [None]
-        self._kv = any(cfg.mixer_kind(i) != "rwkv"
+        self._kv = any(cfg.mixer_kind(i) in ("attn", "attn_local")
                        for i in range(cfg.n_layers))
         self._params = None
         self._buffers: dict = {}
@@ -125,7 +126,7 @@ class ServeEngine:
 
     def init_caches(self, level: int | None = None):
         """Fresh decode caches of ``level``: KV buffers sized to its KV
-        width, or the RWKV states."""
+        width, and the Mamba or RWKV states."""
         from repro_torch.models.attention import head_stripe_specs
 
         cfg = self.model.cfg
@@ -251,7 +252,8 @@ class ServeEngine:
     @staticmethod
     def _merge(buffers, new):
         """Copy each layer's new cache leaves into ``buffers`` in place and
-        return them: a leaf of the buffer's shape (an RWKV state) whole, a
+        return them: a leaf of the buffer's shape (a ``MambaState``'s SSM
+        state and conv tail, an ``RwkvState``'s leaves) whole, a
         shorter prefill k/v into the front of its buffer with the tail
         zeroed; a leaf that is the buffer itself (a decode step's cache,
         written in place) is left as it is."""

@@ -445,6 +445,9 @@ FLASH_DENSE = {
     "g1-hd128-kv16-ragged": (2, 300, 16, 16, 128, {}),
     "g8-hd128-kv4-served": (4, 8, 32, 4, 128, {}),    # qwen3-moe-30b-a3b
     "g8-hd128-kv4-ragged": (2, 300, 32, 4, 128, {}),
+    "g4-hd128-kv8-served": (4, 8, 32, 8, 128, {}),    # jamba-v0.1-52b
+    "g6-hd128-kv2-served": (4, 8, 12, 2, 128, {}),    # qwen2-vl-2b
+    "g6-hd128-kv2-ragged": (2, 300, 12, 2, 128, {}),
 }
 DECODE_DENSE = {
     "g5-hd128-rows": (4, 12, 40, 8, 128, [9, 10, 11, 12], {}),
@@ -467,12 +470,17 @@ DECODE_DENSE = {
     "g8-hd128-kv4-rows-served": (4, 12, 32, 4, 128, [9, 10, 11, 12],
                                  {}),                         # qwen3-moe
     "g8-hd128-kv4-ragged": (3, 2048, 32, 4, 128, [2048, 700, 3], {}),
+    "g4-hd128-kv8-rows-served": (4, 12, 32, 8, 128, [9, 10, 11, 12],
+                                 {}),                         # jamba
+    "g6-hd128-kv2-rows-served": (4, 12, 12, 2, 128, [9, 10, 11, 12],
+                                 {}),                         # qwen2-vl
+    "g6-hd128-kv2-ragged": (3, 2048, 12, 2, 128, [2048, 700, 3], {}),
 }
 
 
 @pytest.mark.parametrize("case", list(FLASH_DENSE))
 def test_flash_attention_dense_geometries(cuda_device, case):
-    """g = 1 (MHA over 16 KV heads), 3, 5 and 8, hd 128, 160 (the hd-192
+    """g = 1 (MHA over 16 KV heads), 3, 4, 5, 6 and 8, hd 128, 160 (the hd-192
     instance, zero padding) and 256, windows that start inside a key tile,
     bf16 and float32 within ``chip_smoke.ATT_TOL``."""
     from chip_smoke import flash_case
@@ -485,9 +493,10 @@ def test_flash_attention_dense_geometries(cuda_device, case):
 
 @pytest.mark.parametrize("case", list(DECODE_DENSE))
 def test_decode_attention_dense_geometries(cuda_device, case):
-    """g = 3 and 5 (a last block of a KV head with 1 or 3 of its 4 head
-    slots live), g = 1 over 16 KV heads and g = 8 (two full 4-head blocks
-    a KV head), hd 128, 160 (20 lanes a row) and 256, per-row lengths
+    """g = 3, 5 and 6 (a last block of a KV head with 1, 2 or 3 of its 4
+    head slots live), g = 1 over 16 KV heads, g = 4 (one full block a KV
+    head) and g = 8 (two full 4-head blocks a KV head), hd 128, 160 (20
+    lanes a row) and 256, per-row lengths
     with and without window 512; the launched kernels are the split
     plan's (``chip_smoke.decode_case`` reads them from a graph)."""
     from chip_smoke import decode_case
@@ -689,6 +698,104 @@ def test_moe_model_on_card_matches_cpu(cuda_device, arch, factor):
     assert factor is None or out["prefill_dropped"] > 0
 
 
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "qwen2-vl-2b"])
+def test_hybrid_and_vlm_models_on_card_match_cpu(cuda_device, arch):
+    """Reduced float32 ``jamba-v0.1-52b`` (Mamba, attention and MoE
+    layers) and ``qwen2-vl-2b`` (three distinct M-RoPE streams),
+    ``attn_backend="kernel"``: within 1e-4 of the CPU, prefill and 3
+    decode steps, every cache and every routed id
+    (``chip_smoke.reduced_cpu_vs_card``); the attention kernels launch
+    once per attention layer a forward."""
+    from chip_smoke import reduced_cpu_vs_card
+    from repro_torch.configs import get_reduced
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced(arch).replace(dtype="float32", attn_backend="kernel")
+    out = reduced_cpu_vs_card(cuda_device, cfg, pos3d=arch == "qwen2-vl-2b")
+    assert out["max_abs_diff"] < 1e-4
+    n_attn = sum(m == "attn" for m, _ in cfg.layer_plan())
+    assert out["launches"] == [n_attn, 3 * n_attn]
+
+
+def _mamba_block(dtype):
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import mamba as mb
+
+    cfg = get_reduced("jamba-v0.1-52b").replace(dtype=dtype, d_model=256)
+    params = mb.mamba_init(cfg, torch.Generator().manual_seed(0),
+                           torch.device("cpu"))
+    gen = torch.Generator().manual_seed(1)
+    for name in ("conv_b", "dt_bias"):
+        params[name].normal_(0.0, 0.5, generator=gen)
+    return cfg, params
+
+
+@pytest.mark.parametrize("s", [1, 2, 8, 20])
+def test_mamba_block_on_card_matches_cpu(cuda_device, s):
+    """The float32 Mamba block (TF32 off) on the card against the CPU,
+    from a state: output and both state leaves within 1e-4."""
+    from repro_torch.models import mamba as mb
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = _mamba_block("float32")
+    gen = torch.Generator().manual_seed(s)
+    x = torch.randn((3, s, cfg.d_model), generator=gen)
+    st = mb.MambaState(
+        torch.randn((3, cfg.mamba_d_inner, cfg.mamba_d_state),
+                    generator=gen),
+        torch.randn((3, cfg.mamba_d_conv - 1, cfg.mamba_d_inner),
+                    generator=gen))
+    want, want_st = mb.mamba(params, x, cfg, state=st)
+    card = {n: w.to(cuda_device) for n, w in params.items()}
+    got, got_st = mb.mamba(card, x.to(cuda_device), cfg, state=mb.MambaState(
+        *(t.to(cuda_device) for t in st)))
+    for a, b in ((got, want), (got_st.ssm, want_st.ssm),
+                 (got_st.conv, want_st.conv)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("s", [1, 8])
+def test_mamba_block_replays_in_a_graph(cuda_device, s):
+    """The bf16 block (its four float32 leaves float32) captured in a
+    CUDA graph, from a state, replayed twice on new inputs and states:
+    output and both state leaves bitwise equal to the eager call, with no
+    host read in the block (the capture would fail on one)."""
+    from repro_torch.models import mamba as mb
+
+    cfg, params = _mamba_block("bfloat16")
+    card = {n: w.to(cuda_device) for n, w in params.items()}
+    gen = torch.Generator().manual_seed(2)
+    di, ds, dc = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
+    inputs = [(torch.randn((4, s, cfg.d_model), generator=gen),
+               torch.randn((4, di, ds), generator=gen),
+               torch.randn((4, dc - 1, di), generator=gen))
+              for _ in range(3)]
+    inputs = [(x.to(cuda_device, torch.bfloat16), h.to(cuda_device),
+               c.to(cuda_device, torch.bfloat16)) for x, h, c in inputs]
+    static = [t.clone() for t in inputs[0]]
+    with torch.inference_mode():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            mb.mamba(card, static[0], cfg, state=mb.MambaState(*static[1:]))
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out, new = mb.mamba(card, static[0], cfg,
+                                state=mb.MambaState(*static[1:]))
+        for x, h, c in inputs[1:]:
+            for buf, t in zip(static, (x, h, c)):
+                buf.copy_(t)
+            graph.replay()
+            want, want_st = mb.mamba(card, x, cfg,
+                                     state=mb.MambaState(h, c))
+            assert out.dtype == new.conv.dtype == torch.bfloat16
+            assert new.ssm.dtype == torch.float32
+            assert torch.equal(out, want)
+            assert torch.equal(new.ssm, want_st.ssm)
+            assert torch.equal(new.conv, want_st.conv)
+
+
 # --------------------------------------------------------------------- #
 # rwkv_scan                                                              #
 # --------------------------------------------------------------------- #
@@ -866,7 +973,8 @@ def test_nested_matmul_v3_deterministic_at_served_shapes(cuda_device,
 # --------------------------------------------------------------------- #
 ENGINE_CASES = ["blocks-ref", "kernel-ref", "blocks-kernel", "kernel-kernel",
                 "rwkv", "qwen2.5-14b", "gemma3-1b", "olmoe-1b-7b",
-                "qwen3-moe-30b-a3b", "olmoe-1b-7b-gather"]
+                "qwen3-moe-30b-a3b", "olmoe-1b-7b-gather", "jamba-v0.1-52b",
+                "qwen2-vl-2b"]
 
 
 def _serve_engine(cuda_device, case, max_len=12):
@@ -884,7 +992,7 @@ def _serve_engine(cuda_device, case, max_len=12):
         cfg = get_reduced("olmoe-1b-7b").replace(attn_backend="kernel",
                                                  moe_dispatch="gather")
     elif case in ("qwen2.5-14b", "gemma3-1b", "olmoe-1b-7b",
-                  "qwen3-moe-30b-a3b"):
+                  "qwen3-moe-30b-a3b", "jamba-v0.1-52b", "qwen2-vl-2b"):
         from repro_torch.configs import get_reduced
 
         cfg = get_reduced(case).replace(attn_backend="kernel")

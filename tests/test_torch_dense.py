@@ -20,11 +20,13 @@ both sides (the full config's 160 is a multiple of 8).
 
 Also here: the per-row ``[B]`` ``cache_len`` of decode (``_scatter_at``
 and ``_sdpa_decode``, through ``attention`` and ``nested_attention``),
-config fields and ``param_count``, ``build_model`` by family (MoE
-included; its own tests are in ``tests/test_torch_moe.py``) and the
-refusals of what is not ported, the period-6 unstacking of gemma3's
-layers, the engine's caches, ``ServeEngine.generate`` and two ticks of
-the fleet server against the reference's.
+config fields and ``param_count``, ``build_model`` by family (MoE, hybrid
+and vlm included; their own tests are in ``tests/test_torch_moe.py``,
+``test_torch_hybrid.py`` and ``test_torch_vlm.py``), the refusals of what
+is not ported and the fields that once were refused, the period-6
+unstacking of gemma3's layers, the engine's caches,
+``ServeEngine.generate`` and two ticks of the fleet server against the
+reference's.
 """
 
 import dataclasses
@@ -182,19 +184,31 @@ def test_gemma3_layer_plan():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("family", "hybrid", "A3.4"), ("attn_every", 8, "A3.4"),
-    ("encoder_layers", 4, "A3.5"), ("m_rope", True, "A3.5"),
-    ("norm_kind", "layernorm", "A3.5"), ("tie_embeddings", True, "A3.1"),
-    ("prefill_last_only", True, "A3.1")])
+    ("family", "encdec", "A3.5"), ("encoder_layers", 4, "A3.5"),
+    ("norm_kind", "layernorm", "A3.5")])
 def test_config_refuses_unported(field, value, item):
     with pytest.raises(ValueError, match=f"{field}.*ROADMAP {item}"):
         get_reduced("qwen2.5-14b").replace(**{field: value})
 
 
+@pytest.mark.parametrize("field,value", [
+    ("family", "hybrid"), ("attn_every", 8), ("m_rope", True),
+    ("tie_embeddings", True), ("prefill_last_only", True)])
+def test_config_accepts_ported(field, value):
+    """What the port once refused (the hybrid family, Mamba layers,
+    M-RoPE, tied embeddings, last-position prefill) now builds, with the
+    reference's layer plan and parameter count."""
+    t = get_reduced("qwen2.5-14b").replace(**{field: value})
+    j = j_get_reduced("qwen2.5-14b").replace(**{field: value})
+    assert getattr(t, field) == value
+    assert t.layer_plan() == j.layer_plan()
+    assert t.param_count() == j.param_count()
+    assert t_build(t).cfg is t
+
+
 def test_get_config_refuses_unported_archs():
-    for arch in ("qwen2-vl-2b", "jamba-v0.1-52b", "whisper-tiny"):
-        with pytest.raises(KeyError, match="not ported yet"):
-            get_config(arch)
+    with pytest.raises(KeyError, match="not ported yet"):
+        get_config("whisper-tiny")
     with pytest.raises(KeyError, match="unknown or not ported yet"):
         get_reduced("no-such-model")
 
@@ -207,11 +221,12 @@ def test_build_model_by_family():
     assert {model.cfg.ffn_kind(i) for i in range(2)} == {"moe"}
     plain = t_build(get_reduced("qwen2.5-14b").replace(family="moe"))
     assert plain.cfg.layer_plan() == get_reduced("qwen2.5-14b").layer_plan()
-    for fam, item in (("hybrid", "A3.4"),
-                      ("encdec", "A3.5"), ("vlm", "A3.5")):
-        with pytest.raises(ValueError,
-                           match=f"{fam}.*not ported yet.*ROADMAP {item}"):
-            t_build(get_reduced("qwen2.5-14b").replace(family=fam))
+    hybrid = t_build(get_reduced("jamba-v0.1-52b"))  # and the hybrid, vlm
+    assert {m for m, _ in hybrid.cfg.layer_plan()} == {"mamba", "attn"}
+    assert t_build(get_reduced("qwen2-vl-2b")).cfg.m_rope
+    with pytest.raises(ValueError,
+                       match="encdec.*not ported yet.*ROADMAP A3.5"):
+        t_build(get_reduced("qwen2.5-14b").replace(family="encdec"))
     with pytest.raises(ValueError, match="unknown family"):
         get_reduced("qwen2.5-14b").replace(family="cnn")
 

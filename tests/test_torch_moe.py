@@ -129,8 +129,8 @@ def test_config_refusals():
         cfg.replace(moe_dispatch="sparse")
     with pytest.raises(ValueError, match="without width nesting"):
         cfg.replace(nest_levels=2)
-    with pytest.raises(ValueError, match="hybrid.*ROADMAP A3.4"):
-        cfg.replace(family="hybrid")
+    with pytest.raises(ValueError, match="encdec.*ROADMAP A3.5"):
+        cfg.replace(family="encdec")
 
 
 # --------------------------------------------------------------------- #
