@@ -104,7 +104,13 @@ Phases (each prints its own lines; any mismatch exits nonzero):
    kv=4, hd=128 (g=8: two 4-head decode blocks a KV head); and the same
    for jamba-v0.1-52b's h=32, kv=8, hd=128 (g=4) and qwen2-vl-2b's h=12,
    kv=2, hd=128 (g=6: the second decode block of a KV head has two live
-   heads).
+   heads); and the encoder-decoder's shapes (``WHISPER_FLASH``,
+   ``WHISPER_DECODE``; whisper-tiny's h=kv=6, hd 64, B=4): S=4 queries
+   over T=1500 frames, the encoder's non-causal S=T=1500, S=1 over
+   T=1500 and S=37 over T=100 (the first callers with S != T and of the
+   hd-64 instance; a ragged last key tile at T=1500), the decoder's
+   causal self-attention over the S=T=4 prompt, and decode over the 1500
+   frames, all live.
 9. the reduced float32 model with the ``kernel`` nest backend and
    ``attn_backend="kernel"`` on the card against the same model with
    ``blocks``/``ref`` on the CPU, within 1e-4 (head_dim 8).
@@ -209,10 +215,46 @@ Phases (each prints its own lines; any mismatch exits nonzero):
     share of a forward.
 23. serve ``qwen2-vl-2b`` at full width and depth (28 layers, 12 query
     heads over 2 KV heads of 128, q/k/v biases) text-only, as phase 15.
-24. the last lines: one JSON object per kernel (``launches``: the sum
+24. the reduced float32 ``whisper-tiny`` (2 encoder and 2 decoder
+    layers, hd 16) with ``attn_backend="kernel"`` on the card against the
+    same model on the CPU: 45 frames, a 12-token prompt, then 3 decode
+    steps at per-row lengths; prefill logits, self caches and cross k/v,
+    then each step's logits and caches, within 1e-4; ``flash_attention``
+    6 times in the prefill, ``decode_attention`` 4 times a step.
+25. ``whisper-tiny`` at full width and depth (4 encoder and 4 decoder
+    layers, d=384, 6 heads of 64) in float32 on the card, B=4, T=1500
+    frames (Whisper's 30-second window), the 4-token start-of-transcript
+    prompt (3 tokens in two rows) and 4 decode steps at per-row lengths,
+    ``attn_backend="kernel"`` against ``"ref"``, within 1e-4.
+26. ``whisper-tiny`` in bf16 with ``attn_backend="kernel"`` (weights from
+    a seed-0 generator on the card): the same batch, a 448-slot self
+    cache (Whisper's text context) and 16 greedy decode steps, prefill and
+    decode captured as CUDA graphs over static buffers (one request's
+    cross k/v, a ``[B]`` device ``cache_len``) and replayed, then run
+    eagerly: tokens bitwise equal, ``flash_attention`` 12 times a prefill
+    forward (4 encoder, 4 decoder self, 4 cross) and ``decode_attention``
+    8 times a decode forward (4 self, 4 cross), equal to each graph's
+    kernel nodes; the device time of one prefill and one decode replay
+    beside the decode step's reads and launch floor,
+    ``max_memory_allocated``, and the attention kernels at the model's
+    shapes (the encoder's B=4, S=T=1500 non-causal; the cross prefill's
+    S=4 over T=1500; the decoder's causal S=T=4; decode over the 1500
+    frames and over the self cache at per-row lengths) beside ``scaled_dot_product_attention`` and the
+    bound; with ``--breakdown``, each replay's device time by kind of
+    kernel.
+27. serve ``qwen2.5-32b`` at full width and depth (64 layers, d=5120, 40
+    query heads over 8 KV heads of 128, q/k/v biases; 65.5 GB of weights)
+    with its short cache, as phase 15; freed before phase 28.
+28. ``qwen2-vl-2b`` at full width and depth in float32 on the card with
+    three distinct M-RoPE streams (an 8-token text, a 16 x 16-patch image,
+    an 8-token text: 272 prompt tokens, B=2), one prefill and 3 decode
+    steps, ``attn_backend="kernel"`` against ``"ref"`` within 1e-4; text-
+    only RoPE must move the prefill logits by more than 10x that.
+29. the last lines: one JSON object per kernel (``launches``: the sum
     over every ``serve`` run, graphed and eager, of phases 4, 7, 10, 13,
-    15-17, 19, 20, 22 and 23; ``launches_by_run`` by phase), the
-    ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
+    15-17, 19, 20, 22, 23 and 27, and over phase 26's two runs;
+    ``launches_by_run`` by phase), the ``nvidia-smi`` line, and ``{"ok":
+    true, "device": {...}}``.
 
 Each phase prints its seconds.
 """
@@ -1378,20 +1420,23 @@ def sdpa_decode(q, k, v, lens, window):
     return call
 
 
-def flash_case(device, what, b, s, h, kv, hd, *, causal=True, window=None,
-               softcap=None, timed=False, seed=0) -> dict:
+def flash_case(device, what, b, s, h, kv, hd, *, t=None, causal=True,
+               window=None, softcap=None, timed=False, seed=0) -> dict:
     """Phase 8, prefill: ``flash_attention`` against its plain version at
-    one geometry in bf16 and float32; with ``timed``, the kernel, the plain
-    version and ``scaled_dot_product_attention`` (None with a softcap) in
-    bf16 over input sets rotated beyond L2, and the bound."""
+    one geometry (S queries over T = ``t`` keys, default S) in bf16 and
+    float32; with ``timed``, the kernel, the plain version and
+    ``scaled_dot_product_attention`` (None with a softcap) in bf16 over
+    input sets rotated beyond L2, and the bound."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
 
+    t = s if t is None else t
     gen = torch.Generator(device=device).manual_seed(seed)
-    shapes = [(b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)]
+    shapes = [(b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd)]
     kw = dict(causal=causal, window=window, softcap=softcap)
-    out = {"shape": f"B={b},S=T={s},h={h},kv={kv},hd={hd},causal={causal},"
+    rows = f"S=T={s}" if t == s else f"S={s},T={t}"
+    out = {"shape": f"B={b},{rows},h={h},kv={kv},hd={hd},causal={causal},"
                     f"window={window},softcap={softcap}", "err": 0.0,
            "ratio": 0.0}
     for dt in ("bfloat16", "float32"):
@@ -1412,7 +1457,7 @@ def flash_case(device, what, b, s, h, kv, hd, *, causal=True, window=None,
     if not timed or device.type != "cuda":
         return out
     dtype = torch.bfloat16
-    per_set = 2 * (b * s * h * hd + 2 * b * s * kv * hd)
+    per_set = 2 * (b * s * h * hd + 2 * b * t * kv * hd)
     sets = randn_sets(gen, shapes, dtype, device,
                       max(1, math.ceil(2 * L2_BYTES / per_set)))
     out["ms"] = graph_ms(rotating(lambda q, k, v: fa.flash_attention(
@@ -1430,7 +1475,7 @@ def flash_case(device, what, b, s, h, kv, hd, *, causal=True, window=None,
                                      calls=12)
         out["library_eager_ms"] = cuda_ms(rotating(lambda f: f(), lib_sets),
                                           launches=10)
-    cost = fa.flash_attention_cost(b, s, s, h, kv, hd, dtype, causal=causal,
+    cost = fa.flash_attention_cost(b, s, t, h, kv, hd, dtype, causal=causal,
                                    window=window)
     out["bound_ms"], out["bound_by"] = bound(cost)
     out.update(flops=cost["flops"], bytes=cost["bytes_accessed"],
@@ -1641,6 +1686,28 @@ DENSE_DECODE = (
      {"window": 512}))
 
 
+# The encoder-decoder's attention (whisper-tiny: h=kv=6, hd 64, no RoPE in
+# cross-attention), the first callers of flash_attention with S != T and
+# of its hd-64 instance: the prompt's S=4 queries over T=1500 encoder
+# frames (Whisper's 30-second window: a ragged last 64-key tile), the
+# encoder's non-causal S=T=1500 (a ragged last query tile too), one query
+# over the frames (flash_attention's single-row case; the model's decode
+# runs decode_attention there), a ragged S=37 over T=100, and the
+# decoder's causal self-attention over the S=T=4 prompt (the hd-64
+# instance's diagonal tile); and decode_attention over the T=1500 frames
+# with every frame live (g=1).
+WHISPER_FLASH = (
+    ("whisper_cross_s4_t1500", (4, 4, 6, 6, 64), {"t": 1500,
+                                                   "causal": False}),
+    ("whisper_encoder_s1500", (4, 1500, 6, 6, 64), {"causal": False}),
+    ("whisper_cross_s1_t1500", (4, 1, 6, 6, 64), {"t": 1500,
+                                                   "causal": False}),
+    ("whisper_s37_t100", (2, 37, 6, 6, 64), {"t": 100, "causal": False}),
+    ("whisper_decoder_self_s4", (4, 4, 6, 6, 64), {}))
+WHISPER_DECODE = (
+    ("whisper_cross_t1500", (4, 1500, 6, 6, 64, 1500), {}),)
+
+
 def attention_vs_plain(device, cfg, full: bool = True) -> dict:
     """Phase 8: both attention kernels against their plain versions at
     (a) the served shapes of ``cfg`` (prefill B=4, S=T=8, h=kv in {1, 2, 4,
@@ -1652,7 +1719,10 @@ def attention_vs_plain(device, cfg, full: bool = True) -> dict:
     window over per-row lengths; prefill at head dims 8, 40, 72 and 128
     (zero padding in shared memory), a ragged causal S=100, a window at
     S=1000, softcap 50 and no causal mask at S=200 (the wgmma path at hd
-    96).  Returns the cases by name."""
+    96); the dense family's served shapes, timed (``DENSE_FLASH``,
+    ``DENSE_DECODE``); the encoder-decoder's S != T, non-causal, hd-64
+    shapes (``WHISPER_FLASH``, ``WHISPER_DECODE``; timed in phase 26).
+    Returns the cases by name."""
     hd, heads = cfg.head_dim, [2 ** i for i in range(cfg.nest_levels)]
     res = {"fa": {}, "da": {}}
     for n in heads:
@@ -1699,6 +1769,10 @@ def attention_vs_plain(device, cfg, full: bool = True) -> dict:
         res["fa"][name] = flash_case(device, name, *args, timed=True, **kw)
     for name, args, kw in DENSE_DECODE:
         res["da"][name] = decode_case(device, name, *args, timed=True, **kw)
+    for name, args, kw in WHISPER_FLASH:
+        res["fa"][name] = flash_case(device, name, *args, **kw)
+    for name, args, kw in WHISPER_DECODE:
+        res["da"][name] = decode_case(device, name, *args, **kw)
     return res
 
 
@@ -1972,21 +2046,23 @@ def rwkv_vs_plain(device, cfg, full: bool = True) -> dict:
 
 
 def param_tensors(params) -> list:
-    """Every tensor of the port's parameter dict (a tied model has no
-    ``unembed``)."""
-    return [params[k] for k in ("embed", "unembed", "final_norm")
-            if k in params] + [
-        w for layer in params["layers"] for part in layer.values()
-        for w in part.values()]
+    """Every tensor of the port's parameter tree (dicts and per-layer
+    lists: an LM's ``layers``, an encoder-decoder's ``encoder`` and
+    ``decoder``; a tied model has no ``unembed``)."""
+    if isinstance(params, dict):
+        params = list(params.values())
+    if isinstance(params, list):
+        return [w for p in params for w in param_tensors(p)]
+    return [params]
 
 
-def copy_params(params, device) -> dict:
-    """The port's parameter dict with every tensor copied to ``device``."""
-    out = {k: v.to(device) for k, v in params.items() if k != "layers"}
-    out["layers"] = [{p: {n: w.to(device) for n, w in part.items()}
-                      for p, part in layer.items()}
-                     for layer in params["layers"]]
-    return out
+def copy_params(params, device):
+    """The port's parameter tree with every tensor copied to ``device``."""
+    if isinstance(params, dict):
+        return {k: copy_params(v, device) for k, v in params.items()}
+    if isinstance(params, list):
+        return [copy_params(v, device) for v in params]
+    return params.to(device)
 
 
 def rwkv_model_cpu_vs_card(device) -> float:
@@ -2289,23 +2365,31 @@ KERNEL_KINDS = (("matmul (cuBLAS)", ("nvjet", "gemm", "cublas", "cutlass",
 def device_breakdown(engine, kind: str, prompt_len: int,
                      reps: int = 3) -> dict:
     """Device time of one replay of the engine's ``kind`` ("prefill" or
-    "decode") graph at its one level, by kind of kernel: the self device
-    time of every kernel that ``torch.profiler`` (CUDA activity) records
-    over ``reps`` replays, over ``reps``, in ms; kernels not named in
-    ``KERNEL_KINDS`` (elementwise, reductions, copies, concatenations)
-    are "other".  ``busy_ms`` is their sum: the replay's time less it is
-    time the card spent between kernels."""
+    "decode") graph at its one level, by kind of kernel
+    (:func:`graph_breakdown`)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     step = engine.steps[(kind, None, prompt_len) if kind == "prefill"
                         else (kind, None)]
     with torch.inference_mode():
         engine._buffers[None].cache_len.fill_(prompt_len)
+    return graph_breakdown(step.graph, reps)
+
+
+def graph_breakdown(graph, reps: int = 3) -> dict:
+    """Device time of one replay of ``graph`` by kind of kernel: the self
+    device time of every kernel that ``torch.profiler`` (CUDA activity)
+    records over ``reps`` replays, over ``reps``, in ms; kernels not
+    named in ``KERNEL_KINDS`` (elementwise, reductions, copies,
+    concatenations) are "other".  ``busy_ms`` is their sum: the replay's
+    time less it is time the card spent between kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            step.graph.replay()
+            graph.replay()
         torch.cuda.synchronize()
     out = {name: 0.0 for name, _ in KERNEL_KINDS}
     out["other"] = 0.0
@@ -2430,8 +2514,8 @@ def mamba_share(device, cfg, params, fwd: dict, prompt_len: int = 8,
 
 def serve_dense(device, cfg, floor_ms: float,
                 breakdown: bool = False) -> dict:
-    """Phases 15-17, 19, 20, 22 and 23: ``cfg`` (a dense, MoE, hybrid or
-    vision-language model without nesting, ``attn_backend="kernel"``,
+    """Phases 15-17, 19, 20, 22, 23 and 27: ``cfg`` (a dense, MoE, hybrid
+    or vision-language model without nesting, ``attn_backend="kernel"``,
     bf16, weights from a seed-0 generator on the card; the vision-language
     model served text-only, as the reference's engine serves it) behind
     the fleet server as phase 13 serves ``rwkv6-3b``, graphed and then
@@ -2527,6 +2611,62 @@ def serve_dense(device, cfg, floor_ms: float,
     return out
 
 
+def lm_kernel_vs_ref(device, cfg, params, toks, prompt_len: int,
+                     steps: int, pos3d=None, tol: float = 1e-4):
+    """``cfg`` (float32) on the card with ``attn_backend="kernel"`` against
+    ``attn_backend="ref"`` on the same ``params`` and ``toks [B, prompt_len
+    + steps]``: a ``prompt_len``-token prefill, then ``steps`` decode
+    steps, logits of every step and every layer's KV cache, within rtol =
+    atol = ``tol``, through ``build_model``'s ``prefill`` and
+    ``decode_step``.  ``pos3d [3, B, prompt_len + steps]`` (M-RoPE's
+    streams) are sliced per forward when given.  Returns the worst
+    differences by kind and the kernel run's prefill logits."""
+    import torch
+
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import ServeEngine
+
+    batch = toks.shape[0]
+
+    def inputs(span):
+        out = {"tokens": toks[:, span]}
+        if pos3d is not None:
+            out["pos3d"] = pos3d[:, :, span]
+        return out
+
+    def run(c):
+        model = build_model(c)
+        eng = ServeEngine(model, max_len=prompt_len + steps,
+                          batch_size=batch, device=device, graphs=False)
+        logits, caches = model.prefill(params, inputs(slice(0, prompt_len)))
+        out = [logits]
+        caches = eng._merge(eng.init_caches(None), caches)
+        for i in range(steps):
+            j = prompt_len + i
+            logits, caches = model.decode_step(params, {
+                **inputs(slice(j, j + 1)), "cache_len": j}, caches)
+            out.append(logits)
+        return out, caches
+
+    worst = {"prefill": 0.0, "decode": 0.0, "caches": 0.0}
+    with torch.inference_mode():
+        got, got_c = run(cfg.replace(attn_backend="kernel"))
+        want, want_c = run(cfg.replace(attn_backend="ref"))
+        pairs = [("prefill", got[0], want[0])] + [
+            ("decode", a, b) for a, b in zip(got[1:], want[1:])] + [
+            ("caches", x, y) for ca, cb in zip(got_c, want_c)
+            for x, y in zip(ca, cb)]
+        for what, a, b in pairs:
+            diff = (a - b).abs()
+            worst[what] = max(worst[what], float(diff.max()))
+            if bool((diff > tol + tol * b.abs()).any()):
+                raise SmokeFailure(f"{cfg.name} float32, kernel vs ref "
+                                   f"{what}: max abs diff "
+                                   f"{float(diff.max()):.3e} past rtol = atol"
+                                   f" = {tol}")
+    return worst, got[0]
+
+
 def gemma_window_kernel_vs_ref(device, cfg=None, prompt_len: int = 1024,
                                steps: int = 4, batch: int = 2) -> dict:
     """Phase 16: ``gemma3-1b`` (``cfg``, default its full config) at full
@@ -2534,8 +2674,9 @@ def gemma_window_kernel_vs_ref(device, cfg=None, prompt_len: int = 1024,
     card): a ``prompt_len``-token prefill,
     then ``steps`` decode steps, with ``attn_backend="kernel"`` against
     ``attn_backend="ref"`` on the card, logits of every step and every
-    layer's KV cache.  The 22 local layers' window of 512 masks half of
-    the prompt's keys for its last rows and in every decode step.
+    layer's KV cache (:func:`lm_kernel_vs_ref`).  The 22 local layers'
+    window of 512 masks half of the prompt's keys for its last rows and in
+    every decode step.
 
     Tolerance rtol = atol = 1e-4, set from readings: the two runs share
     weights, tokens and every other operation (the same float32
@@ -2554,8 +2695,6 @@ def gemma_window_kernel_vs_ref(device, cfg=None, prompt_len: int = 1024,
 
     from repro_torch.configs.gemma3_1b import CONFIG
     from repro_torch.models import transformer as tfm
-    from repro_torch.models.registry import build_model
-    from repro_torch.serving.engine import ServeEngine
 
     tol = 1e-4
     cfg = (cfg or CONFIG).replace(dtype="float32")
@@ -2563,43 +2702,16 @@ def gemma_window_kernel_vs_ref(device, cfg=None, prompt_len: int = 1024,
     params = tfm.init_lm(cfg, gen, device=device)
     toks = torch.randint(0, cfg.vocab, (batch, prompt_len + steps),
                          generator=gen, device=device)
-
-    def run(c):
-        eng = ServeEngine(build_model(c), max_len=prompt_len + steps,
-                          batch_size=batch, device=device, graphs=False)
-        out = tfm.lm_apply(params, c, toks[:, :prompt_len])
-        logits = [out.logits]
-        caches = eng._merge(eng.init_caches(None), out.caches)
-        for i in range(steps):
-            out = tfm.lm_apply(params, c, toks[:, prompt_len + i:][:, :1],
-                               mode="decode", caches=caches,
-                               cache_len=prompt_len + i)
-            logits.append(out.logits)
-        return logits, caches
-
-    worst = {"prefill": 0.0, "decode": 0.0, "caches": 0.0}
+    worst, got = lm_kernel_vs_ref(device, cfg, params, toks, prompt_len,
+                                  steps, tol=tol)
+    moved = {}
     with torch.inference_mode():
-        got, got_c = run(cfg.replace(attn_backend="kernel"))
-        want, want_c = run(cfg.replace(attn_backend="ref"))
-        pairs = [("prefill", got[0], want[0])] + [
-            ("decode", a, b) for a, b in zip(got[1:], want[1:])] + [
-            ("caches", x, y) for ca, cb in zip(got_c, want_c)
-            for x, y in zip(ca, cb)]
-        for what, a, b in pairs:
-            diff = (a - b).abs()
-            worst[what] = max(worst[what], float(diff.max()))
-            if bool((diff > tol + tol * b.abs()).any()):
-                raise SmokeFailure(f"{cfg.name} float32, kernel vs ref "
-                                   f"{what}: max abs diff "
-                                   f"{float(diff.max()):.3e} past rtol = atol"
-                                   f" = {tol}")
-        moved = {}
         for what, window in (("edge", cfg.sliding_window - 1),
                              ("off", None)):
             other = tfm.lm_apply(params, cfg.replace(
                 attn_backend="kernel", sliding_window=window),
                 toks[:, :prompt_len]).logits
-            moved[what] = float((other - got[0]).abs().max())
+            moved[what] = float((other - got).abs().max())
         del other
     edge, bite = moved["edge"], moved["off"]
     if bite <= 10 * tol:
@@ -2619,12 +2731,488 @@ def gemma_window_kernel_vs_ref(device, cfg=None, prompt_len: int = 1024,
         f"atol = {tol}); with a window of {cfg.sliding_window - 1} the "
         f"prefill logits move by {edge:.3e}, with the window off by "
         f"{bite:.3e}")
-    del params, got, want, got_c, want_c
+    del params, got
     gc.collect()
-    torch.cuda.empty_cache()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
     return {**worst, "window_edge_diff": edge, "window_off_diff": bite,
             "tolerance": tol,
             "shape": f"B={batch},prompt={prompt_len},decode={steps},float32"}
+
+
+def image_streams(batch: int, text: int, grid: int, steps: int, device):
+    """M-RoPE's ``[3, B, S]`` position streams of a prompt as qwen2-vl
+    numbers it (arXiv:2409.12191 §2.1): ``text`` tokens (three equal
+    streams 0..text-1), a ``grid`` x ``grid`` image of patches (temporal
+    stream constant at ``text``, height and width streams ``text`` plus
+    the patch's row and column), ``text`` more tokens, then ``steps``
+    decode positions; text after the image continues from the largest
+    position so far plus one.  S = 2 * text + grid**2 + steps."""
+    import torch
+
+    first = torch.arange(text).expand(3, text)
+    r, c = torch.meshgrid(torch.arange(grid), torch.arange(grid),
+                          indexing="ij")
+    image = torch.stack([torch.full((grid * grid,), text),
+                         text + r.reshape(-1), text + c.reshape(-1)])
+    after = int(image.max()) + 1 + torch.arange(text + steps).expand(
+        3, text + steps)
+    one = torch.cat([first, image, after], dim=1)
+    return one[:, None].expand(3, batch, one.shape[1]).to(device)
+
+
+def mrope_kernel_vs_ref(device, cfg=None, text: int = 8, grid: int = 16,
+                        steps: int = 3, batch: int = 2) -> dict:
+    """Phase 28: ``qwen2-vl-2b`` (``cfg``, default its full config) at full
+    width and depth in float32 (weights from a seed-2 generator on the
+    card) with three distinct M-RoPE streams (:func:`image_streams`: a
+    16 x 16-patch image between two 8-token texts, 272 prompt tokens),
+    one prefill and ``steps`` decode steps through ``build_model`` with
+    ``attn_backend="kernel"`` against ``"ref"`` on the card
+    (:func:`lm_kernel_vs_ref`), within rtol = atol = 1e-4 as phase 16
+    holds gemma3's window.  The same prefill with the streams made equal
+    (text-only RoPE) must move the logits by more than 10x that, or the
+    streams did not reach the attention."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.qwen2_vl_2b import CONFIG
+    from repro_torch.models import transformer as tfm
+
+    tol = 1e-4
+    cfg = (cfg or CONFIG).replace(dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(2)
+    params = tfm.init_lm(cfg, gen, device=device)
+    for layer in params["layers"]:
+        for name in ("bq", "bk", "bv"):
+            if name in layer["mixer"]:
+                layer["mixer"][name].normal_(0.0, 0.5, generator=gen)
+    pos3d = image_streams(batch, text, grid, steps, device)
+    prompt_len = pos3d.shape[2] - steps
+    toks = torch.randint(0, cfg.vocab, (batch, prompt_len + steps),
+                         generator=gen, device=device)
+    worst, got = lm_kernel_vs_ref(device, cfg, params, toks, prompt_len,
+                                  steps, pos3d=pos3d, tol=tol)
+    with torch.inference_mode():
+        flat = tfm.lm_apply(params, cfg.replace(attn_backend="kernel"),
+                            toks[:, :prompt_len]).logits
+        moved = float((flat - got).abs().max())
+    if moved <= 10 * tol:
+        raise SmokeFailure(f"{cfg.name}: equal streams moved the prefill "
+                           f"logits by {moved:.3e} only; the three streams "
+                           f"did not reach the attention")
+    say(f"  {cfg.name} float32, {batch} x {prompt_len}-token prompt ({text} "
+        f"text, {grid}x{grid} image patches, {text} text; three distinct "
+        f"pos3d streams) + {steps} decode steps, attn_backend kernel vs ref "
+        f"on the card: max abs diff prefill logits {worst['prefill']:.3e}, "
+        f"decode logits {worst['decode']:.3e}, KV caches "
+        f"{worst['caches']:.3e} (rtol = atol = {tol}); text-only RoPE "
+        f"moves the prefill logits by {moved:.3e}")
+    del params, got, flat
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return {**worst, "equal_streams_diff": moved, "tolerance": tol,
+            "shape": f"B={batch},prompt={prompt_len},decode={steps},"
+                     f"float32,pos3d"}
+
+
+# --------------------------------------------------------------------- #
+# phases 24-26: the encoder-decoder (whisper-tiny)                       #
+# --------------------------------------------------------------------- #
+WHISPER_FRAMES = 1500      # Whisper's 30-second window after its conv stem
+WHISPER_SLOTS = 448        # Whisper's text context
+# Whisper's start-of-transcript sequence: <|startoftranscript|> <|en|>
+# <|transcribe|> <|notimestamps|>; rows 1 and 3 of the batch leave out
+# <|notimestamps|> (3 tokens), so the batch is ragged and decodes at
+# per-row lengths.
+WHISPER_SOT = (50258, 50259, 50359, 50363)
+WHISPER_ROWS = (4, 3, 4, 3)
+
+
+def whisper_launches(cfg) -> tuple[int, int]:
+    """(``flash_attention`` launches of a prefill forward,
+    ``decode_attention`` launches of a decode forward) of an
+    encoder-decoder on the ``kernel`` backend: each encoder layer's
+    self-attention and each decoder layer's self- and cross-attention
+    in prefill; each decoder layer's self- and cross-attention in
+    decode."""
+    return cfg.encoder_layers + 2 * cfg.n_layers, 2 * cfg.n_layers
+
+
+def whisper_decode_caches(cfg, prefill_caches, slots: int, device) -> dict:
+    """Decode caches after a prefill: the prompt's self k/v in front of
+    zeroed ``slots``-slot buffers, the cross k/v as the prefill made
+    them."""
+    from repro_torch.models.whisper import init_decoder_caches
+
+    self_c = init_decoder_caches(cfg, prefill_caches["cross"][0].k.shape[0],
+                                 slots, device=device)
+    for buf, new in zip(self_c, prefill_caches["self"]):
+        n = new.k.shape[1]
+        buf.k[:, :n].copy_(new.k)
+        buf.v[:, :n].copy_(new.v)
+    return {"self": self_c, "cross": prefill_caches["cross"]}
+
+
+def whisper_run(model, params, frames, toks, prompt_len: int, rows,
+                steps: int, device) -> list:
+    """``build_model``'s prefill of ``frames`` and ``toks[:, :prompt_len]``,
+    then ``steps`` decode steps of ``toks`` at per-row lengths ``rows +
+    i`` (a ``[B]`` tensor): every output in order, the prefill's logits,
+    self k/v and cross k/v, then each step's logits and self caches."""
+    import torch
+
+    cfg = model.cfg
+    logits, c = model.prefill(params, {"frames": frames,
+                                       "tokens": toks[:, :prompt_len]})
+    outs = [logits] + [x for kv in c["self"] + c["cross"] for x in kv]
+    caches = whisper_decode_caches(cfg, c, prompt_len + steps, device)
+    lens = torch.as_tensor(rows, dtype=torch.int32, device=device)
+    for i in range(steps):
+        j = prompt_len + i
+        logits, caches = model.decode_step(params, {
+            "tokens": toks[:, j:j + 1], "cache_len": lens + i}, caches)
+        outs += [logits] + [x for kv in caches["self"] for x in kv]
+    return outs
+
+
+def whisper_cpu_vs_card(device, frames: int = 45, prompt_len: int = 12,
+                        steps: int = 3) -> dict:
+    """Phase 24: reduced float32 ``whisper-tiny`` with
+    ``attn_backend="kernel"`` and the same weights on the card (the
+    kernels) and on the CPU (their plain versions): ``frames`` encoder
+    frames, a ``prompt_len``-token prompt, then ``steps`` decode steps at
+    per-row lengths (the second row two positions behind), prefill
+    logits, self caches and cross k/v, then each step's logits and self
+    caches, within 1e-4 (float32, TF32 off; the card sums in another
+    order), as phase 14.  The card must launch ``flash_attention`` once
+    per encoder layer and twice per decoder layer in the prefill, and
+    ``decode_attention`` twice per decoder layer a step.  Returns the
+    largest difference and the launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.whisper import init_encdec
+
+    cfg = get_reduced("whisper-tiny").replace(dtype="float32",
+                                              attn_backend="kernel")
+    cpu = torch.device("cpu")
+    params = init_encdec(cfg, torch.Generator().manual_seed(0), device=cpu)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, frames, cfg.d_model)).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab, (2, prompt_len + steps))
+    rows = [prompt_len, prompt_len - 2]
+    model = build_model(cfg)
+    n0 = (fa.flash_attention.launches, da.decode_attention.launches)
+    with torch.inference_mode():
+        want = whisper_run(model, params, torch.as_tensor(x),
+                           torch.as_tensor(toks), prompt_len, rows, steps,
+                           cpu)
+        got = whisper_run(model, copy_params(params, device),
+                          torch.as_tensor(x, device=device),
+                          torch.as_tensor(toks, device=device), prompt_len,
+                          rows, steps, device)
+    worst = 0.0
+    for a, b in zip(want, got):
+        b = b.cpu()
+        worst = max(worst, float((a - b).abs().max()))
+        if not torch.allclose(a, b, rtol=1e-4, atol=1e-4):
+            raise SmokeFailure(f"reduced {cfg.name}: card differs from CPU "
+                               f"by {float((a - b).abs().max())}")
+    counts = (fa.flash_attention.launches - n0[0],
+              da.decode_attention.launches - n0[1])
+    per_prefill, per_step = whisper_launches(cfg)
+    want_counts = ((per_prefill, steps * per_step) if device.type == "cuda"
+                   else (0, 0))
+    if counts != want_counts:
+        raise SmokeFailure(f"reduced {cfg.name} on the card launched "
+                           f"flash_attention {counts[0]} and "
+                           f"decode_attention {counts[1]} times, expected "
+                           f"{want_counts}")
+    say(f"  reduced {cfg.name} ({cfg.encoder_layers} encoder + "
+        f"{cfg.n_layers} decoder layers, hd {cfg.head_dim}, {frames} "
+        f"frames), card (kernels) vs CPU (plain versions), prefill and "
+        f"{steps} decode steps at per-row lengths, logits, self caches and "
+        f"cross k/v: ok (max abs diff {worst:.3e}; launches {counts})")
+    return {"max_abs_diff": worst, "launches": list(counts)}
+
+
+def whisper_kernel_vs_ref(device, cfg=None, frames: int = WHISPER_FRAMES,
+                          steps: int = 4, tol: float = 1e-4) -> dict:
+    """Phase 25: ``whisper-tiny`` (``cfg``, default its full config: 4
+    encoder and 4 decoder layers, d 384) in float32 on the card (weights
+    and frames from a seed-1 generator there), B=4 rows of ``frames``
+    frames and the start-of-transcript prompt (``WHISPER_ROWS`` tokens a
+    row), then ``steps`` decode steps at per-row lengths, with
+    ``attn_backend="kernel"`` against ``"ref"``: every output of
+    :func:`whisper_run` within rtol = atol = ``tol`` = 1e-4, as phase 16
+    holds gemma3's window (the runs differ only in the attention; the
+    encoder's 1500 frames are 24 key tiles, the last one ragged)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.whisper_tiny import CONFIG
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.whisper import init_encdec
+
+    cfg = (cfg or CONFIG).replace(dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(1)
+    params = init_encdec(cfg, gen, device=device)
+    x = torch.randn((len(WHISPER_ROWS), frames, cfg.d_model), generator=gen,
+                    device=device)
+    prompt_len = max(WHISPER_ROWS)
+    toks = torch.randint(0, cfg.vocab, (len(WHISPER_ROWS),
+                                        prompt_len + steps), generator=gen,
+                         device=device)
+    toks[:, :prompt_len] = torch.tensor(WHISPER_SOT) % cfg.vocab
+    with torch.inference_mode():
+        got, want = (whisper_run(build_model(cfg.replace(attn_backend=b)),
+                                 params, x, toks, prompt_len, WHISPER_ROWS,
+                                 steps, device) for b in ("kernel", "ref"))
+        n_self = 2 * cfg.n_layers
+        kinds = (["prefill"] + ["caches"] * n_self + ["cross"] * n_self
+                 + (["decode"] + ["caches"] * n_self) * steps)
+        worst = dict.fromkeys(("prefill", "decode", "caches", "cross"), 0.0)
+        for what, a, b in zip(kinds, got, want):
+            diff = (a - b).abs()
+            worst[what] = max(worst[what], float(diff.max()))
+            if bool((diff > tol + tol * b.abs()).any()):
+                raise SmokeFailure(f"{cfg.name} float32, kernel vs ref "
+                                   f"{what}: max abs diff "
+                                   f"{float(diff.max()):.3e} past rtol = atol"
+                                   f" = {tol}")
+    say(f"  {cfg.name} float32, B={len(WHISPER_ROWS)}, {frames} frames, "
+        f"prompt rows {list(WHISPER_ROWS)} + {steps} decode steps at per-row "
+        f"lengths, attn_backend kernel vs ref on the card: max abs diff "
+        f"prefill logits {worst['prefill']:.3e}, decode logits "
+        f"{worst['decode']:.3e}, self caches {worst['caches']:.3e}, cross "
+        f"k/v {worst['cross']:.3e} (rtol = atol = {tol})")
+    del params, got, want
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return {**worst, "tolerance": tol,
+            "shape": f"B={len(WHISPER_ROWS)},T={frames},"
+                     f"prompt={list(WHISPER_ROWS)},decode={steps},float32"}
+
+
+def whisper_serve(device, cfg=None, frames: int = WHISPER_FRAMES,
+                  slots: int = WHISPER_SLOTS, steps: int = 16,
+                  floor_ms: float = 0.0, breakdown: bool = False) -> dict:
+    """Phase 26: ``whisper-tiny`` (``cfg``, default its full config) in bf16
+    with ``attn_backend="kernel"``, weights and frames from a seed-0
+    generator on the card: B=4 rows of ``frames`` frames with the
+    start-of-transcript prompt (``WHISPER_ROWS`` tokens a row), greedy
+    decode for ``steps`` steps over a ``slots``-slot self cache, as two
+    steps over static buffers (the frames, the prompt, the self caches,
+    the cross k/v of one request, the next token and a ``[B]`` int32
+    ``cache_len`` on the device):
+
+    * prefill: encoder, cross k/v, decoder prefill; the prompt's k/v into
+      the front of the self caches (the tail zeroed), the cross k/v into
+      their buffers, each row's argmax at its last prompt position,
+      ``cache_len`` set to the rows' lengths;
+    * decode: one ``decode_step`` at ``cache_len``, the argmax, ``cache_len
+      + 1``, all on the device.
+
+    On the card each step is captured as a CUDA graph (``Step``, as the
+    serving engine captures its steps; a host read in either would fail
+    the capture) and replayed; the same steps run eagerly after, on the
+    same buffers.  Every launch counter starts at 0 before each of the
+    two runs and is read after it (the main path): ``flash_attention``
+    ``whisper_launches(cfg)[0]`` times (12) and ``decode_attention``
+    ``steps`` x ``whisper_launches(cfg)[1]`` times (8 a step), the other
+    kernels never.  Tokens of the two runs must be bitwise equal, and each
+    graph's kernel nodes must equal its counted launches.  Then (card
+    only) the device time of one prefill and one decode replay (CUDA
+    events, the median of 20) beside the decode step's reads and its
+    launch floor (kernel nodes x ``floor_ms``), ``max_memory_allocated``,
+    and the attention kernels at the model's shapes, timed against
+    ``scaled_dot_product_attention`` and the bound (:func:`flash_case`,
+    :func:`decode_case`); with ``breakdown``, each replay's device time
+    by kind of kernel (:func:`graph_breakdown`).  Frees the model before
+    it returns."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.whisper_tiny import CONFIG
+    from repro_torch.kernels import alert_select as ks
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.whisper import init_decoder_caches, init_encdec
+    from repro_torch.serving.engine import COUNTED, Step
+
+    cfg = (cfg or CONFIG).replace(attn_backend="kernel")
+    card = device.type == "cuda"
+    if card:
+        torch.cuda.reset_peak_memory_stats(device)
+    say(f"  nvidia-smi: {nvidia_smi_line()}" if card else "  (CPU)")
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init_encdec(cfg, gen, device=device)
+    model = build_model(cfg)
+    dtype = getattr(torch, cfg.dtype)
+    b, s0 = len(WHISPER_ROWS), max(WHISPER_ROWS)
+    kv_shape = (b, frames, cfg.n_kv_heads, cfg.head_dim)
+    x = torch.randn((b, frames, cfg.d_model), generator=gen,
+                    device=device).to(dtype)
+    prompt = (torch.tensor(WHISPER_SOT, device=device) % cfg.vocab).expand(
+        b, s0).contiguous()
+    rows = torch.tensor(WHISPER_ROWS, dtype=torch.int32, device=device)
+    self_c = init_decoder_caches(cfg, b, slots, device=device)
+    cross = [KVCache(torch.zeros(kv_shape, dtype=dtype, device=device),
+                     torch.zeros(kv_shape, dtype=dtype, device=device))
+             for _ in range(cfg.n_layers)]
+    next_tok = torch.zeros((b, 1), dtype=torch.long, device=device)
+    cache_len = torch.zeros(b, dtype=torch.int32, device=device)
+    last = (rows.long() - 1).view(b, 1, 1)
+
+    def prefill():
+        logits, c = model.prefill(params, {"frames": x, "tokens": prompt})
+        for buf, new in zip(self_c, c["self"]):
+            for dst, src in zip(buf, new):
+                dst[:, :s0].copy_(src)
+                dst[:, s0:].zero_()
+        for buf, new in zip(cross, c["cross"]):
+            for dst, src in zip(buf, new):
+                dst.copy_(src)
+        at_last = logits.gather(1, last.expand(b, 1, logits.shape[2]))
+        next_tok.copy_(torch.argmax(at_last, dim=-1))
+        cache_len.copy_(rows)
+
+    def decode():
+        logits, _ = model.decode_step(params, {
+            "tokens": next_tok, "cache_len": cache_len},
+            {"self": self_c, "cross": cross})
+        next_tok.copy_(torch.argmax(logits[:, -1:], dim=-1))
+        cache_len.add_(1)
+
+    counters = (ks.alert_select,) + COUNTED
+
+    def generate(pre, dec) -> tuple:
+        for w in counters:               # main path starts here
+            w.launches = 0
+        with torch.inference_mode():
+            pre()
+            toks = [next_tok.clone()]
+            for _ in range(steps):
+                dec()
+                toks.append(next_tok.clone())
+            out = torch.cat(toks, dim=1).cpu()
+        counts = {w.__name__: w.launches for w in counters}
+        return out, counts                # main path ends here
+
+    with torch.inference_mode():
+        graphed = (Step(prefill, device, card), Step(decode, device, card))
+        eager = (Step(prefill, device, False), Step(decode, device, False))
+    got, counts = generate(*graphed)
+    want, counts_e = generate(*eager)
+    if not torch.equal(got, want):
+        raise SmokeFailure(f"{cfg.name}: graphed tokens {got.tolist()} != "
+                           f"eager {want.tolist()}")
+    if int(got.min()) < 0 or int(got.max()) >= cfg.vocab:
+        raise SmokeFailure(f"{cfg.name}: tokens out of range")
+    per_prefill, per_step = whisper_launches(cfg)
+    want_counts = {w.__name__: 0 for w in counters}
+    if card:
+        want_counts.update(flash_attention=per_prefill,
+                           decode_attention=steps * per_step)
+    for name, c in (("graphed", counts), ("eager", counts_e)):
+        if c != want_counts:
+            raise SmokeFailure(f"{cfg.name} {name}: launches {c}, expected "
+                               f"{want_counts}")
+    out = {"model": cfg.name, "counts": [counts, counts_e],
+           "tokens": got.tolist(), "shape":
+               f"B={b},T={frames},prompt={list(WHISPER_ROWS)},"
+               f"slots={slots},decode={steps},{cfg.dtype}"}
+    say(f"  {cfg.name} ({cfg.encoder_layers} encoder + {cfg.n_layers} "
+        f"decoder layers, d={cfg.d_model}, {cfg.dtype}), B={b}, {frames} "
+        f"frames, prompt rows {list(WHISPER_ROWS)}, {steps} decode steps "
+        f"over {slots} slots: graphed tokens bitwise equal to eager ones; "
+        f"launches a run {counts}")
+    if card:
+        steps_by_kind = (("prefill", graphed[0]), ("decode", graphed[1]))
+        nodes = {kind: check_step_nodes(step, f"{cfg.name} {kind}")
+                 for kind, step in steps_by_kind}
+        times = {kind: replay_ms(step.graph,
+                                 lambda: cache_len.copy_(rows + 8))
+                 for kind, step in steps_by_kind}
+
+        def nbytes(tensors):
+            return sum(t.numel() * t.element_size() for t in tensors)
+
+        # a decode step reads the decoder's weights but the cross wk/wv
+        # (which made the cross k/v), the final norm, unembed, and the
+        # cross k/v; not the encoder, nor the embedding table (B rows)
+        dec = nbytes(param_tensors([params["final_norm"],
+                                    params["unembed"]] + [
+            {k: w for k, w in lp.items() if k != "cross"}
+            for lp in params["decoder"]] + [
+            {k: w for k, w in lp["cross"].items() if k not in ("wk", "wv")}
+            for lp in params["decoder"]]))
+        cross_bytes = nbytes(t for kv in cross for t in kv)
+        read = dec + cross_bytes
+        peak = torch.cuda.max_memory_allocated(device)
+        out.update(prefill_ms=times["prefill"], decode_ms=times["decode"],
+                   prefill_kernel_nodes=nodes["prefill"],
+                   decode_kernel_nodes=nodes["decode"],
+                   graph_launches={"prefill": graphed[0].launches,
+                                   "decode": graphed[1].launches},
+                   decode_read_bytes=read, cross_kv_bytes=cross_bytes,
+                   decode_read_ms=read / H100_HBM_BYTES_S * 1e3,
+                   decode_launch_floor_ms=nodes["decode"] * floor_ms,
+                   max_memory_allocated_bytes=peak)
+        say(f"  {cfg.name} device time (CUDA events around one graph "
+            f"replay): prefill (encoder, cross k/v, decoder prefill) "
+            f"{times['prefill']:.6f} ms ({nodes['prefill']} kernel nodes, "
+            f"flash_attention {graphed[0].launches[1]} of them), decode "
+            f"step {times['decode']:.6f} ms ({nodes['decode']} kernel "
+            f"nodes, launch floor {nodes['decode'] * floor_ms:.6f} ms; "
+            f"decode_attention {graphed[1].launches[2]}); a decode step "
+            f"reads {read / 1e6:.3f} MB (decoder weights and unembed "
+            f"{dec / 1e6:.3f} MB, cross k/v {cross_bytes / 1e6:.3f} MB): "
+            f"{out['decode_read_ms']:.6f} ms at 3.35 TB/s; "
+            f"max_memory_allocated {peak / 1e9:.3f} GB")
+        if breakdown:
+            out["breakdown"] = {}
+            for kind, step in steps_by_kind:
+                with torch.inference_mode():
+                    cache_len.copy_(rows + 8)
+                parts = out["breakdown"][kind] = graph_breakdown(step.graph)
+                say(f"  {cfg.name} {kind} replay by kind of kernel "
+                    f"(torch.profiler, self device time, ms): "
+                    + ", ".join(f"{k} {v:.6f}" for k, v in parts.items()))
+        h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        final = [r + steps for r in WHISPER_ROWS]
+        out["fa"] = {
+            "whisper_encoder": flash_case(device, "whisper encoder", b,
+                                          frames, h, kv, hd, causal=False,
+                                          timed=True),
+            "whisper_cross_prefill": flash_case(
+                device, "whisper cross prefill", b, s0, h, kv, hd,
+                t=frames, causal=False, timed=True),
+            "whisper_decoder_self": flash_case(
+                device, "whisper decoder self", b, s0, h, kv, hd,
+                timed=True)}
+        out["da"] = {
+            "whisper_cross_decode": decode_case(
+                device, "whisper cross decode", b, frames, h, kv, hd,
+                frames, timed=True),
+            "whisper_self_rows": decode_case(
+                device, "whisper self decode", b, slots, h, kv, hd, final,
+                timed=True)}
+    del params, graphed, eager, self_c, cross, x
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+    return out
 
 
 def attention_layers(cfg) -> int:
@@ -2665,8 +3253,8 @@ def tenants(table):
 def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
           gen_tokens=4, expect_kernel=True, params=None,
           graphs=True) -> dict:
-    """Phases 4, 7, 10, 13, 15-17, 19, 20, 22 and 23: the fleet server over
-    ``cfg`` on ``device``, its engine replaying one CUDA graph per level
+    """Phases 4, 7, 10, 13, 15-17, 19, 20, 22, 23 and 27: the fleet server
+    over ``cfg`` on ``device``, its engine replaying one CUDA graph per level
     and prompt length (``graphs``; False runs the same steps eagerly, the
     yardstick),
     with ``params`` or weights drawn from a seed-0 generator.  Every
@@ -2864,6 +3452,40 @@ WRAPPER_NODES = (("nested_matmul", ("nested_matmul",)),
                  ("rwkv_scan", ("rwkv_scan_kernel", "rwkv_scan_decode")))
 
 
+def check_step_nodes(step, what: str) -> int:
+    """Fails unless the CUDA graph of ``step`` holds, for each counted
+    wrapper (``WRAPPER_NODES``), as many kernel nodes as one replay adds to
+    that wrapper's count; returns the graph's kernel nodes."""
+    names = [name for name, _ in graph_kernels(step.graph)]
+    counted = tuple(sum(any(p in n for p in pats) for n in names)
+                    for _, pats in WRAPPER_NODES)
+    if counted != step.launches:
+        raise SmokeFailure(f"{what}: its graph holds {counted} kernel nodes "
+                           f"of {[w for w, _ in WRAPPER_NODES]}, its replay "
+                           f"counts {step.launches}")
+    return len(names)
+
+
+def replay_ms(graph, reset, reps: int = 20) -> float:
+    """Device time of one replay of ``graph``: CUDA events around single
+    replays, ``reset()`` (under inference mode) before each so every replay
+    does the same work; the median of ``reps`` after two warm-ups."""
+    import torch
+
+    times = []
+    for _ in range(reps + 2):
+        with torch.inference_mode():
+            reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times[2:])
+
+
 def engine_graphs_vs_eager(engine, params, prompt_len: int,
                            gen_tokens: int, rounds: int = 3) -> dict:
     """A graphed engine against the same steps run eagerly on the card,
@@ -2889,15 +3511,8 @@ def engine_graphs_vs_eager(engine, params, prompt_len: int,
     for key, step in engine.steps.items():
         if step.graph is None:
             raise SmokeFailure(f"step {key} was not captured")
-        names = [name for name, _ in graph_kernels(step.graph)]
-        counted = tuple(sum(any(p in n for p in pats) for n in names)
-                        for _, pats in WRAPPER_NODES)
-        if counted != step.launches:
-            raise SmokeFailure(f"step {key}: its graph holds {counted} "
-                               f"kernel nodes of {[w for w, _ in WRAPPER_NODES]}"
-                               f", its replay counts {step.launches}")
         nodes["/".join(str(k) for k in key)] = {
-            "kernel_nodes": len(names),
+            "kernel_nodes": check_step_nodes(step, f"step {key}"),
             "launches": dict(zip((w for w, _ in WRAPPER_NODES),
                                  step.launches))}
     prompt = np.random.default_rng(9).integers(
@@ -2948,26 +3563,14 @@ def forward_device_ms(engine, params, level, prompt_len: int,
     CUDA events around single replays of the engine's own graphs, the
     median of ``reps``; ``cache_len`` is set back before each decode
     replay so every replay decodes the same position."""
-    import torch
-
     engine.warmup(params, prompt_len)
     buf = engine._buffers[level]
     out = {}
     for kind, step in (("prefill", engine.steps["prefill", level,
                                                prompt_len]),
                        ("decode", engine.steps["decode", level])):
-        times = []
-        for _ in range(reps + 2):
-            with torch.inference_mode():
-                buf.cache_len.fill_(prompt_len)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            step.graph.replay()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        out[f"{kind}_ms"] = statistics.median(times[2:])
+        out[f"{kind}_ms"] = replay_ms(
+            step.graph, lambda: buf.cache_len.fill_(prompt_len), reps)
         out[f"{kind}_kernel_nodes"] = len(graph_kernels(step.graph))
     return out
 
@@ -3076,8 +3679,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one GPU "
                                  "and check it.")
     ap.add_argument("--breakdown", action="store_true",
-                    help="also break each dense model's graphed forwards "
-                    "down by kind of kernel with torch.profiler")
+                    help="also break each dense model's and whisper-tiny's "
+                    "graphed forwards down by kind of kernel with "
+                    "torch.profiler")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         say("FAIL: no CUDA device (torch.cuda.is_available() is false)")
@@ -3094,6 +3698,7 @@ def main() -> int:
     from repro_torch.configs.qwen3_moe_30b_a3b import \
         CONFIG as QWEN3_MOE_CONFIG
     from repro_torch.configs.qwen2_5_14b import CONFIG as QWEN_CONFIG
+    from repro_torch.configs.qwen2_5_32b import CONFIG as QWEN32_CONFIG
     from repro_torch.configs.qwen2_vl_2b import CONFIG as QWEN2VL_CONFIG
     from repro_torch.configs.rwkv6_3b import CONFIG as RWKV_CONFIG
     from repro_torch.configs.stablelm_12b import CONFIG as STABLELM_CONFIG
@@ -3324,6 +3929,27 @@ def main() -> int:
     phase.start("phase 23: serve qwen2-vl-2b")
     vlm = {"qwen2-vl-2b": serve_dense(device, QWEN2VL_CONFIG.replace(
         attn_backend="kernel"), floor_ms, opts.breakdown)}
+
+    phase.start("phase 24: reduced whisper-tiny on the card")
+    whisper = {"reduced_cpu_vs_card": whisper_cpu_vs_card(device)}
+
+    phase.start("phase 25: whisper-tiny float32, kernel vs ref backend")
+    whisper["kernel_vs_ref"] = whisper_kernel_vs_ref(device)
+
+    phase.start("phase 26: whisper-tiny bf16, graphed decode")
+    whisper["served"] = whisper_serve(device, floor_ms=floor_ms,
+                                      breakdown=opts.breakdown)
+    att["fa"].update(whisper["served"].pop("fa"))
+    att["da"].update(whisper["served"].pop("da"))
+    counted["whisper-tiny (phase 26)"] = whisper["served"].pop("counts")
+
+    phase.start("phase 27: serve qwen2.5-32b")
+    dense["qwen2.5-32b"] = serve_dense(device, QWEN32_CONFIG.replace(
+        attn_backend="kernel"), floor_ms, opts.breakdown)
+
+    phase.start("phase 28: qwen2-vl-2b float32 with three pos3d streams, "
+                "kernel vs ref backend")
+    vlm["qwen2-vl-2b"]["mrope_kernel_vs_ref"] = mrope_kernel_vs_ref(device)
     for name, d in (dense | moe | hybrid | vlm).items():
         counted[f"{name} ({d['n_layers']} layers)"] = d.pop("counts")
     phase.start(None)
@@ -3397,6 +4023,7 @@ def main() -> int:
     kernels[-1]["served_vlm"] = vlm
     for k in kernels[-2:]:
         k["reduced_hybrid_vlm"] = err_hybrid
+        k["whisper"] = whisper
     b_case = rwkv["b"]
     kernels.append({
         "name": "rwkv_scan", "route": "cuda", "source": RS_SOURCE,

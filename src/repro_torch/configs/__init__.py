@@ -1,7 +1,7 @@
 """Model configurations of the port: ``get_config(arch_id)`` /
 ``get_reduced(arch_id)`` over the architectures the port runs (the
-counterpart of ``repro.configs``).  Any other arch of the reference's zoo
-raises a ``KeyError`` that says it is not ported yet."""
+counterpart of ``repro.configs``): every arch of the reference's zoo.
+An unknown arch raises a ``KeyError``."""
 
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ _MODULES = {
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "rwkv6-3b": "rwkv6_3b",
     "alert-anytime-120m": "alert_anytime",
+    "whisper-tiny": "whisper_tiny",
 }
 
 ALL_IDS = list(_MODULES)
@@ -27,8 +28,7 @@ ALL_IDS = list(_MODULES)
 
 def _mod(arch_id: str):
     if arch_id not in _MODULES:
-        raise KeyError(f"arch {arch_id!r} is unknown or not ported yet "
-                       f"(ROADMAP queue A3); ported: {ALL_IDS}")
+        raise KeyError(f"arch {arch_id!r} is unknown; known: {ALL_IDS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
 
 

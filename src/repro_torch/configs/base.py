@@ -1,20 +1,21 @@
 """ModelConfig of the port: the fields of ``repro.configs.base.ModelConfig``
-that the port's families read, and those it refuses, with the same names
-and defaults.
+that the port's families read, with the same names and defaults.
 
-The port runs six kinds of model: the width-nested anytime LM
-(``family="dense"``, ``nest_levels >= 2``), the dense LMs without nesting
-(``family="dense"``: stablelm, qwen2.5, gemma3 with its sliding window),
-the mixture-of-experts LMs (``family="moe"``: olmoe, qwen3-moe; as in the
-reference, ``n_experts > 0`` puts a MoE FFN at layers ``i % moe_every ==
-moe_offset`` whatever the family), the hybrid family (``family="hybrid"``:
-jamba, attention at layers ``i % attn_every == attn_offset`` and Mamba
-elsewhere), the vision-language family's decoder (``family="vlm"``:
-qwen2-vl, M-RoPE over ``pos3d`` position streams) and the RWKV-6 family
-(``family="ssm"``, ``rwkv=True``).  A config that asks for anything
-still unported, a family or a field, raises a ``ValueError`` naming the
-ROADMAP item that ports it: this is the one place that knows what the
-port does not run yet.
+The port runs every family of the reference's zoo: the width-nested
+anytime LM (``family="dense"``, ``nest_levels >= 2``), the dense LMs
+without nesting (``family="dense"``: stablelm, qwen2.5, gemma3 with its
+sliding window), the mixture-of-experts LMs (``family="moe"``: olmoe,
+qwen3-moe; as in the reference, ``n_experts > 0`` puts a MoE FFN at layers
+``i % moe_every == moe_offset`` whatever the family), the hybrid family
+(``family="hybrid"``: jamba, attention at layers ``i % attn_every ==
+attn_offset`` and Mamba elsewhere), the vision-language family's decoder
+(``family="vlm"``: qwen2-vl, M-RoPE over ``pos3d`` position streams), the
+RWKV-6 family (``family="ssm"``, ``rwkv=True``) and the encoder-decoder
+(whisper).  As in the reference, ``encoder_layers > 0`` makes a model an
+encoder-decoder whatever its family (``build_model`` dispatches on it),
+and ``family="encdec"`` with ``encoder_layers == 0`` is a decoder-only
+LM.  ``norm_kind`` is declared, as the reference declares it, and read by
+no module: every norm is RMSNorm on both sides.
 """
 
 from __future__ import annotations
@@ -22,18 +23,6 @@ from __future__ import annotations
 import dataclasses
 
 FAMILIES = ("dense", "moe", "hybrid", "ssm", "encdec", "vlm")
-
-# The reference's families the port does not run yet, with the ROADMAP
-# item (queue A3) that ports each.
-UNPORTED_FAMILIES = {"encdec": "A3.5 (whisper encoder-decoder)"}
-
-# Fields the port does not run yet, each with the value that turns it off
-# and the ROADMAP item (queue A3) that ports it.
-UNPORTED = (
-    ("encoder_layers", 0, "A3.5 (whisper encoder-decoder)"),
-    ("norm_kind", "rmsnorm", "A3.5 (whisper LayerNorm)"),
-)
-
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -70,11 +59,11 @@ class ModelConfig:
     rwkv: bool = False                   # RWKV-6 mixer in every layer
     rwkv_head_dim: int = 64
     rwkv_decay_lora: int = 64
-    encoder_layers: int = 0
+    encoder_layers: int = 0              # 0 = decoder-only
     nest_levels: int = 1                 # width nesting; 1 = off
     dtype: str = "bfloat16"
     norm_eps: float = 1e-6
-    norm_kind: str = "rmsnorm"
+    norm_kind: str = "rmsnorm"           # declared; no module reads it
     tie_embeddings: bool = False
     attn_chunk: int = 1024               # query chunk of prefill attention
     attn_backend: str = "ref"            # ref | kernel
@@ -88,15 +77,6 @@ class ModelConfig:
     def __post_init__(self):
         if self.family not in FAMILIES:
             raise ValueError(f"unknown family {self.family!r}")
-        if self.family in UNPORTED_FAMILIES:
-            raise ValueError(f"{self.name}: family {self.family!r} is not "
-                             f"ported yet (ROADMAP "
-                             f"{UNPORTED_FAMILIES[self.family]})")
-        for field, off, item in UNPORTED:
-            value = getattr(self, field)
-            if value != off:
-                raise ValueError(f"{self.name}: {field}={value!r} is not "
-                                 f"ported yet (ROADMAP {item})")
         if self.n_experts and not self.top_k:
             raise ValueError("MoE config needs top_k")
         if self.n_experts and self.nest_levels != 1:
@@ -174,7 +154,11 @@ class ModelConfig:
         no unembedding.  A Mamba layer counts ``2 * d_inner`` vectors
         (``dt_bias`` and ``d_skip``) where its tensors hold three: like the
         reference, this count leaves out ``conv_b``, ``d_inner`` parameters
-        a Mamba layer."""
+        a Mamba layer.  An encoder-decoder adds its encoder layers (a
+        norm, attention and a SwiGLU each, no biases counted), each decoder
+        layer's cross-attention (a norm and four matrices) and the
+        encoder's final norm to the decoder's count, as the reference
+        does."""
         d, hd = self.d_model, self.head_dim
         total = self.vocab * d + d           # embed, final norm
         if not self.tie_embeddings:
@@ -200,6 +184,11 @@ class ModelConfig:
             else:                             # router, experts
                 total += d * self.n_experts \
                     + self.n_experts * 3 * d * self.d_ff
+        if self.encoder_layers:
+            attn = 2 * d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+            enc = self.encoder_layers * (2 * d + attn + 3 * d * self.d_ff)
+            cross = self.n_layers * (d + attn)        # a norm and 4 matrices
+            total += enc + cross + d                  # + encoder final norm
         return total
 
     def active_param_count(self) -> int:

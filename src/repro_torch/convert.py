@@ -19,7 +19,14 @@ repeat axis in front of them is the one unstacked.  A Mamba layer's
 reduced config: ``pos0..pos5`` x 1 and ``rem0``, ``rem1``; 16 layers of
 the full one: ``pos0..pos7`` x 2).  An RWKV layer keeps its whole block
 in ``"mixer"`` and has an empty ``"ffn"``.  A tied model
-(``tie_embeddings``) has no ``unembed``.  Matrices
+(``tie_embeddings``) has no ``unembed``.
+
+An encoder-decoder's pytree (``repro.models.whisper.init_encdec``) stacks
+its layers whole: ``params["encoder"]`` (``{"attn", "ffn"}``, leading
+axis ``encoder_layers``) and ``params["decoder"]`` (``{"self", "cross",
+"ffn"}``, leading axis ``n_layers``) are unstacked into lists of per-layer
+dicts, and ``embed``, ``unembed``, ``final_norm`` and ``enc_final_norm``
+are carried as they are (:mod:`repro_torch.models.whisper`).  Matrices
 keep the reference's ``[in, out]`` layout (used as ``x @ W``), so nothing
 is transposed.
 """
@@ -45,9 +52,25 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> dict:
                 torch.bfloat16).to(dev)
         return torch.from_numpy(a).to(dev)
 
-    def tree(d):
-        return {name: tree(v) if isinstance(v, dict) else t(v)
+    def tree(d, i=None):
+        """``d`` with every leaf carried (of a stack: its entry ``i``)."""
+        return {name: tree(v, i) if isinstance(v, dict) else
+                t(v if i is None else np.asarray(v)[i])
                 for name, v in d.items()}
+
+    if "encoder" in np_params:
+        stacks = {"encoder": cfg.encoder_layers, "decoder": cfg.n_layers}
+        out = {name: t(w) for name, w in np_params.items()
+               if name not in stacks}
+        for name, n in stacks.items():
+            first = np.asarray(next(iter(
+                np_params[name]["ffn"].values())))
+            if first.shape[0] != n:
+                raise ValueError(f"found {first.shape[0]} {name} layers in "
+                                 f"the reference pytree, config "
+                                 f"{cfg.name!r} has {n}")
+            out[name] = [tree(np_params[name], i) for i in range(n)]
+        return out
 
     layers = []
     group = np_params.get("group", {})
@@ -58,10 +81,7 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> dict:
         n_rep = np.asarray(first).shape[0]
     for rep in range(n_rep):
         for pos in range(n_pos):
-            stacked = group[f"pos{pos}"]
-            layers.append({part: {name: t(np.asarray(w)[rep])
-                                  for name, w in stacked[part].items()}
-                           for part in ("mixer", "ffn")})
+            layers.append(tree(group[f"pos{pos}"], rep))
     i = 0
     while f"rem{i}" in np_params:
         layers.append(tree(np_params[f"rem{i}"]))

@@ -1,6 +1,7 @@
 """Attention with RoPE, an optional sliding window and a KV cache (port of
 ``repro.models.attention``): the dense block (``attention``, with optional
-q/k/v biases) and the width-nested anytime block (``nested_attention``).
+q/k/v biases, non-causal for an encoder and cross-attention over an
+encoder's k/v) and the width-nested anytime block (``nested_attention``).
 
 Nested heads are striped: q heads follow the pow2 stripe spec, KV heads
 are striped when divisible and otherwise saturated into stripe 1.  The
@@ -16,7 +17,9 @@ declares it (``ref | kernel``):
   only its key band); decode attends one position over the cache.
 * ``"kernel"``: prefill runs ``flash_attention`` and decode
   ``decode_attention`` (the CUDA kernels on the card, their plain versions
-  on the CPU), one launch per layer and forward pass.
+  on the CPU), one launch per layer and forward pass; cross-attention runs
+  ``flash_attention`` over the encoder's frames with several queries and
+  ``decode_attention`` with one.
 
 Decode takes ``cache_len`` as an int, a 0-d integer tensor or a ``[B]``
 integer tensor (one length per batch row); a tensor is read on the device
@@ -45,7 +48,10 @@ class KVCache(NamedTuple):
 
 
 def attn_init(cfg: ModelConfig, generator: torch.Generator,
-              device: torch.device) -> dict:
+              device: torch.device, cross: bool = False) -> dict:
+    """One attention block's params; a ``cross`` block (the
+    encoder-decoder's cross-attention) has no q/k/v biases, even in a
+    ``qkv_bias`` config, as in the reference."""
     dtype = getattr(torch, cfg.dtype)
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -60,7 +66,7 @@ def attn_init(cfg: ModelConfig, generator: torch.Generator,
         "wo": w((h * hd, d),
                 scale=(h * hd) ** -0.5 / math.sqrt(2 * cfg.n_layers)),
     }
-    if cfg.qkv_bias:           # zero, as the reference initialises them
+    if cfg.qkv_bias and not cross:   # zero, as the reference initialises
         for name, n in (("bq", h), ("bk", kv), ("bv", kv)):
             params[name] = torch.zeros(n * hd, dtype=dtype, device=device)
     return params
@@ -163,11 +169,12 @@ def _scatter_at(buf: torch.Tensor, update: torch.Tensor,
 
 
 def _attend(q, k, v, positions, cfg: ModelConfig, cache, cache_len,
-            window: int | None, banded: bool):
+            window: int | None, banded: bool, causal: bool = True):
     """The attention of one layer on projected, rotated q, k, v: prefill
-    (no cache: ``k``/``v`` are the prompt's, returned as the cache) or a
-    decode step (``k``/``v`` written into ``cache`` at ``cache_len``, then
-    one position attends over it).  Returns ``(out [B,s,h,hd], cache)``."""
+    (no cache: ``k``/``v`` are the prompt's, returned as the cache; the
+    encoder's self-attention passes ``causal=False``) or a decode step
+    (``k``/``v`` written into ``cache`` at ``cache_len``, then one
+    position attends over it).  Returns ``(out [B,s,h,hd], cache)``."""
     s = q.shape[1]
     kernel = cfg.attn_backend == "kernel"
     softcap = cfg.attn_logit_softcap
@@ -186,29 +193,60 @@ def _attend(q, k, v, positions, cfg: ModelConfig, cache, cache_len,
                                window=window, softcap=softcap)
         return out, new_cache
     if kernel:
-        out = flash_attention(q, k, v, causal=True, window=window,
+        out = flash_attention(q, k, v, causal=causal, window=window,
                               softcap=softcap)
     else:
-        out = _sdpa_chunked(q, k, v, positions, positions, causal=True,
+        out = _sdpa_chunked(q, k, v, positions, positions, causal=causal,
                             chunk=min(cfg.attn_chunk, s), window=window,
                             softcap=softcap, banded=banded)
     return out, KVCache(k, v)
 
 
+def _cross(q, k, v, positions, cfg: ModelConfig) -> torch.Tensor:
+    """Cross-attention of the ``s`` decoder queries over all ``T`` encoder
+    frames: no causal mask, no window.  On the ``kernel`` backend a single
+    query (a decode step) runs ``decode_attention`` with every frame live,
+    which splits the T-key read across blocks, and more queries (a
+    prefill) run ``flash_attention``; the ``ref`` backend runs the chunked
+    softmax with the frames at positions ``0..T-1``, as the reference."""
+    b, s = q.shape[:2]
+    t = k.shape[1]
+    softcap = cfg.attn_logit_softcap
+    if cfg.attn_backend != "kernel":
+        k_pos = torch.arange(t, device=q.device).expand(b, t)
+        return _sdpa_chunked(q, k, v, positions, k_pos, causal=False,
+                             chunk=min(cfg.attn_chunk, s), softcap=softcap)
+    if s > 1:
+        return flash_attention(q, k, v, causal=False, softcap=softcap)
+    if softcap is not None:
+        raise ValueError("attn_backend='kernel': decode_attention has no "
+                         "logit softcap (nor has the reference's kernel); "
+                         "use attn_backend='ref'")
+    return decode_attention(q[:, 0], k, v, t)[:, None]
+
+
 def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
-              cfg: ModelConfig, *, window: int | None = None,
+              cfg: ModelConfig, *, causal: bool = True,
+              window: int | None = None,
               cache: KVCache | None = None,
               cache_len: int | torch.Tensor | None = None,
+              cross_kv: KVCache | None = None,
               positions_3d: torch.Tensor | None = None,
-              ) -> tuple[torch.Tensor, KVCache]:
-    """Pre-norm causal attention of a model without nesting: RMSNorm, the
-    q/k/v projections (plus ``bq``/``bk``/``bv`` where the params have
-    them), RoPE at ``positions`` (M-RoPE at ``positions_3d [3, B, s]``
-    when ``cfg.m_rope`` is set and they are given, as in the reference),
-    attention with an optional sliding
-    ``window``, the output projection.  Without a cache (prefill) the
-    returned cache holds this call's k/v; with ``cache`` and ``cache_len``
-    (decode) the step's k/v are written at ``cache_len`` in place.
+              ) -> tuple[torch.Tensor, KVCache | None]:
+    """Pre-norm attention of a model without nesting: RMSNorm, the q/k/v
+    projections (plus ``bq``/``bk``/``bv`` where the params have them),
+    RoPE at ``positions`` (M-RoPE at ``positions_3d [3, B, s]`` when
+    ``cfg.m_rope`` is set and they are given, as in the reference),
+    attention (causal unless ``causal=False``, as the encoder's is) with
+    an optional sliding ``window``, the output projection.  Without a
+    cache (prefill) the returned cache holds this call's k/v; with
+    ``cache`` and ``cache_len`` (decode) the step's k/v are written at
+    ``cache_len`` in place.
+
+    With ``cross_kv`` (the encoder-decoder's cross-attention: the encoder
+    output's k/v ``[B, T, kv, hd]``) only q is projected, with no RoPE,
+    and it attends over all T frames (:func:`_cross`); no cache comes
+    back.
 
     With ``cfg.attn_backend == "kernel"`` prefill masks on index
     positions, which equal ``positions`` because prefill starts at 0
@@ -216,10 +254,17 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
     b, s, _ = x.shape
     h, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     xn = rms_norm(x, params["norm"], cfg.norm_eps)
-    q, k, v = xn @ params["wq"], xn @ params["wk"], xn @ params["wv"]
+    q = xn @ params["wq"]
     if "bq" in params:
-        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q, k = q.reshape(b, s, h, hd), k.reshape(b, s, n_kv, hd)
+        q = q + params["bq"]
+    q = q.reshape(b, s, h, hd)
+    if cross_kv is not None:
+        out = _cross(q, *cross_kv, positions, cfg)
+        return out.reshape(b, s, h * hd) @ params["wo"], None
+    k, v = xn @ params["wk"], xn @ params["wv"]
+    if "bk" in params:
+        k, v = k + params["bk"], v + params["bv"]
+    k = k.reshape(b, s, n_kv, hd)
     if cfg.m_rope and positions_3d is not None:
         q = apply_mrope(q, positions_3d, cfg.rope_theta, cfg.mrope_sections)
         k = apply_mrope(k, positions_3d, cfg.rope_theta, cfg.mrope_sections)
@@ -228,7 +273,7 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
         k = apply_rope(k, positions, cfg.rope_theta)
     v = v.reshape(b, s, n_kv, hd)
     out, new_cache = _attend(q, k, v, positions, cfg, cache, cache_len,
-                             window, cfg.window_banded)
+                             window, cfg.window_banded, causal)
     return out.reshape(b, s, h * hd) @ params["wo"], new_cache
 
 

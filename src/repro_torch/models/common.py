@@ -94,12 +94,13 @@ def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
 def dense_init(shape: tuple[int, ...], dtype: torch.dtype,
                generator: torch.Generator, device: torch.device,
                scale: float | None = None) -> torch.Tensor:
-    """Truncated-normal (+-3 sd) fan-in init, drawn in float32."""
+    """Truncated-normal (+-3 sd) fan-in init, drawn and scaled in float32
+    (in place, so the float32 draw is the only temporary) and then cast."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
     w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=generator)
-    return (w * std).to(dtype)
+    return w.mul_(std).to(dtype)     # scaled in place: no second float32 copy
 
 
 def embed_init(shape: tuple[int, ...], dtype: torch.dtype,

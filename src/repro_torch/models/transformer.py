@@ -145,6 +145,20 @@ def apply_layer(lp: dict, x: torch.Tensor, positions: torch.Tensor,
     return _ffn(lp, x + a, cfg, ffn), new_cache
 
 
+def token_positions(b: int, s: int, device,
+                    cache_len: int | torch.Tensor | None) -> torch.Tensor:
+    """``[B, s]`` positions of the tokens of one forward: ``0..s-1`` in a
+    prefill (``cache_len`` None), ``cache_len`` in a decode step (an int,
+    or a 0-d or ``[B]`` integer tensor read on the device, so a CUDA graph
+    of the step replays at the tensor's current value)."""
+    if cache_len is None:
+        return torch.arange(s, device=device).expand(b, s)
+    if isinstance(cache_len, torch.Tensor):
+        return cache_len.to(torch.int32).reshape(-1, 1).expand(b, s)
+    return torch.full((b, s), int(cache_len), dtype=torch.int32,
+                      device=device)
+
+
 def lm_apply(params: dict, cfg: ModelConfig, tokens: torch.Tensor | None,
              *, mode: str = "prefill", caches: list | None = None,
              cache_len: int | torch.Tensor | None = None,
@@ -177,15 +191,7 @@ def lm_apply(params: dict, cfg: ModelConfig, tokens: torch.Tensor | None,
     b, s = tokens.shape if embeds is None else embeds.shape[:2]
     dev = tokens.device if embeds is None else embeds.device
     decode = mode == "decode"
-    if decode and isinstance(cache_len, torch.Tensor):
-        # read on the device, so a CUDA graph of the step replays at the
-        # tensor's current value
-        positions = cache_len.to(torch.int32).reshape(-1, 1).expand(b, s)
-    elif decode:
-        positions = torch.full((b, s), int(cache_len), dtype=torch.int32,
-                               device=dev)
-    else:
-        positions = torch.arange(s, device=dev).expand(b, s)
+    positions = token_positions(b, s, dev, cache_len if decode else None)
     x = params["embed"][tokens] if embeds is None else embeds
     nested = cfg.nest_levels > 1
     if nested:

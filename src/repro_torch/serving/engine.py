@@ -115,6 +115,10 @@ class ServeEngine:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         cfg = self.model.cfg
+        if cfg.encoder_layers:
+            raise ValueError(f"{cfg.name}: the engine serves decoder-only "
+                             f"LMs (lm_apply), not an encoder-decoder, as "
+                             f"the reference's does")
         self.levels = list(range(1, cfg.nest_levels + 1)) \
             if cfg.nest_levels > 1 else [None]
         self._kv = any(cfg.mixer_kind(i) in ("attn", "attn_local")

@@ -221,6 +221,15 @@ FLASH_CARD = {
     "wgmma-window": (1, 1000, 2, 1, 96, {"window": 100}),
     "wgmma-softcap": (2, 200, 4, 2, 96, {"softcap": 50.0}),
     "wgmma-bidirectional": (2, 200, 4, 2, 96, {"causal": False}),
+    # the encoder-decoder: S != T, no causal mask, hd 64
+    "whisper-cross-s4-t1500": (4, 4, 6, 6, 64, {"t": 1500,
+                                                "causal": False}),
+    "whisper-cross-s1-t1500": (2, 1, 6, 6, 64, {"t": 1500,
+                                                "causal": False}),
+    "whisper-encoder-s1500": (1, 1500, 6, 6, 64, {"causal": False}),
+    "whisper-s37-t100": (2, 37, 6, 6, 64, {"t": 100, "causal": False}),
+    "whisper-decoder-self-s4": (4, 4, 6, 6, 64, {}),    # causal, hd 64
+    "s100-t37": (2, 100, 4, 2, 64, {"t": 37, "causal": False}),
 }
 DECODE_CARD = {
     "main-path-h1": (4, 12, 1, 1, 96, [9, 10, 11, 12], {}),
@@ -233,6 +242,7 @@ DECODE_CARD = {
     "split-ragged": (4, 32768, 4, 1, 256, [32768, 31, 0, 4097], {}),
     "split-window-rows": (3, 4096, 4, 2, 64, [4096, 100, 2000],
                           {"window": 300}),
+    "whisper-cross-t1500": (4, 1500, 6, 6, 64, 1500, {}),
 }
 
 
@@ -715,6 +725,37 @@ def test_hybrid_and_vlm_models_on_card_match_cpu(cuda_device, arch):
     assert out["max_abs_diff"] < 1e-4
     n_attn = sum(m == "attn" for m, _ in cfg.layer_plan())
     assert out["launches"] == [n_attn, 3 * n_attn]
+
+
+def test_whisper_on_card_matches_cpu(cuda_device):
+    """Reduced float32 ``whisper-tiny``, ``attn_backend="kernel"``: within
+    1e-4 of the CPU, prefill (logits, self caches, cross k/v) and 3 decode
+    steps at per-row lengths (``chip_smoke.whisper_cpu_vs_card``);
+    ``flash_attention`` once per encoder layer and twice per decoder
+    layer in the prefill, ``decode_attention`` twice per decoder layer a
+    step."""
+    from chip_smoke import whisper_cpu_vs_card
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = whisper_cpu_vs_card(cuda_device)
+    assert out["max_abs_diff"] < 1e-4
+    assert out["launches"] == [6, 12]
+
+
+def test_whisper_graphed_decode_matches_eager(cuda_device):
+    """Reduced bf16 ``whisper-tiny`` through ``chip_smoke.whisper_serve``
+    at 100 frames, a 40-slot cache and 6 steps: prefill and decode
+    captured as CUDA graphs over static buffers (a ``[B]`` device
+    ``cache_len``, the cross k/v of one request) give the eager steps'
+    tokens bitwise, with the launches each graph's kernel nodes show."""
+    from chip_smoke import whisper_serve
+    from repro_torch.configs import get_reduced
+
+    out = whisper_serve(cuda_device, get_reduced("whisper-tiny"),
+                        frames=100, slots=40, steps=6)
+    assert out["graph_launches"] == {"prefill": (0, 6, 0, 0),
+                                     "decode": (0, 0, 4, 0)}
+    assert len(out["tokens"][0]) == 7
 
 
 def _mamba_block(dtype):

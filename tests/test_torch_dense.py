@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ALL_IDS as J_ALL_IDS
 from repro.configs import get_config as j_get_config
 from repro.configs import get_reduced as j_get_reduced
 from repro.core import controller as jc
@@ -187,8 +188,33 @@ def test_gemma3_layer_plan():
     ("family", "encdec", "A3.5"), ("encoder_layers", 4, "A3.5"),
     ("norm_kind", "layernorm", "A3.5")])
 def test_config_refuses_unported(field, value, item):
-    with pytest.raises(ValueError, match=f"{field}.*ROADMAP {item}"):
-        get_reduced("qwen2.5-14b").replace(**{field: value})
+    """The fields the port refused until ROADMAP A3.5 (``item``) ported
+    the encoder-decoder now build and equal the reference: the layer plan
+    and ``param_count``, and the model ``build_model`` makes of them.
+    ``family="encdec"`` without encoder layers and ``norm_kind=
+    "layernorm"`` (which no module reads, on either side) give the plain
+    decoder-only LM, with the same logits; ``encoder_layers=4`` an
+    encoder-decoder with 4 encoder layers (``build_model`` dispatches on
+    ``encoder_layers``, not on the family)."""
+    base = get_reduced("qwen2.5-14b").replace(dtype="float32")
+    t = base.replace(**{field: value})
+    j = j_get_reduced("qwen2.5-14b").replace(dtype="float32",
+                                             **{field: value})
+    assert getattr(t, field) == value
+    assert t.layer_plan() == j.layer_plan()
+    assert t.param_count() == j.param_count()
+    model = t_build(t)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    if field == "encoder_layers":
+        assert len(params["encoder"]) == value == j.encoder_layers
+        assert len(params["decoder"]) == t.n_layers
+        return
+    assert "encoder" not in params and len(params["layers"]) == t.n_layers
+    toks = {"tokens": torch.from_numpy(
+        np.random.default_rng(0).integers(0, t.vocab, (2, 6)))}
+    torch.testing.assert_close(model.prefill(params, toks)[0],
+                               t_build(base).prefill(params, toks)[0],
+                               rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("field,value", [
@@ -207,9 +233,14 @@ def test_config_accepts_ported(field, value):
 
 
 def test_get_config_refuses_unported_archs():
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_config("whisper-tiny")
-    with pytest.raises(KeyError, match="unknown or not ported yet"):
+    """Every arch of the reference's zoo is ported, whisper-tiny last (at
+    the reference's 61,074,432 parameters); an unknown arch is refused."""
+    assert set(ALL_IDS) == set(J_ALL_IDS)
+    whisper = get_config("whisper-tiny")
+    assert whisper.encoder_layers == 4
+    assert whisper.param_count() == 61_074_432 == \
+        j_get_config("whisper-tiny").param_count()
+    with pytest.raises(KeyError, match="unknown"):
         get_reduced("no-such-model")
 
 
@@ -224,9 +255,11 @@ def test_build_model_by_family():
     hybrid = t_build(get_reduced("jamba-v0.1-52b"))  # and the hybrid, vlm
     assert {m for m, _ in hybrid.cfg.layer_plan()} == {"mamba", "attn"}
     assert t_build(get_reduced("qwen2-vl-2b")).cfg.m_rope
-    with pytest.raises(ValueError,
-                       match="encdec.*not ported yet.*ROADMAP A3.5"):
-        t_build(get_reduced("qwen2.5-14b").replace(family="encdec"))
+    lm = t_build(get_reduced("qwen2.5-14b").replace(family="encdec"))
+    assert lm.cfg.layer_plan() == get_reduced("qwen2.5-14b").layer_plan()
+    assert "layers" in lm.init(device="cpu")   # no encoder: the LM
+    encdec = t_build(get_reduced("whisper-tiny"))
+    assert len(encdec.init(device="cpu")["encoder"]) == 2
     with pytest.raises(ValueError, match="unknown family"):
         get_reduced("qwen2.5-14b").replace(family="cnn")
 

@@ -129,8 +129,13 @@ def test_config_refusals():
         cfg.replace(moe_dispatch="sparse")
     with pytest.raises(ValueError, match="without width nesting"):
         cfg.replace(nest_levels=2)
-    with pytest.raises(ValueError, match="encdec.*ROADMAP A3.5"):
-        cfg.replace(family="encdec")
+    # no longer refused: family="encdec" without encoder layers is the
+    # same MoE LM, as in the reference
+    lm = cfg.replace(family="encdec")
+    assert lm.layer_plan() == cfg.layer_plan() == \
+        j_get_reduced("olmoe-1b-7b").replace(family="encdec").layer_plan()
+    params = t_build(lm).init(device="cpu")
+    assert "router" in params["layers"][0]["ffn"]
 
 
 # --------------------------------------------------------------------- #
