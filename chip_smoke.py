@@ -250,11 +250,33 @@ Phases (each prints its own lines; any mismatch exits nonzero):
     an 8-token text: 272 prompt tokens, B=2), one prefill and 3 decode
     steps, ``attn_backend="kernel"`` against ``"ref"`` within 1e-4; text-
     only RoPE must move the prefill logits by more than 10x that.
-29. the last lines: one JSON object per kernel (``launches``: the sum
+29. the fleet simulator's golden scenario (``golden_table()``: K=9
+    candidates of the image family from their roofline terms, L=8; the
+    middle of three deadlines, E_goal = 170 W x T_goal): ``FleetSim`` on
+    the card over the seed-1 default, cpu and memory traces must give
+    ``tests/golden_traces.json``'s alert mean energy, mean error and miss
+    rate exactly, with one ``alert_select`` launch a tick, and
+    ``InferenceSim.run_oracle`` its oracle numbers to rtol 1e-9; all
+    seven schemes on the memory trace under both goals, on the card and
+    on the CPU, bitwise equal.
+30. a fleet of ``FLEET_LANES`` = 65536 churning streams on the same
+    table (three environments, both goals, five deadlines, arrivals at
+    ticks 0-99, 400 inputs each: T = 499 ticks) through ``run_fleet`` on
+    the card: ``alert_select`` launched exactly T times; one stream of
+    every 256, run on the CPU as a fleet of its own, bitwise equal to
+    its rows; ``deliver_step`` on the card bitwise equal to
+    ``deliver_tick`` at 16 recorded ticks; the mid-run tick's ``select``
+    on the card bitwise equal to the CPU's over all 65536 lanes.  Prints
+    the trace building and run seconds, the median tick, the card's busy
+    time and idle share a tick over 5 ticks of the run (torch.profiler),
+    and at the mid-run tick's inputs the medians of ``select``,
+    ``deliver_tick``, ``deliver_step`` and the feedback step, each with its
+    share of the tick.
+31. the last lines: one JSON object per kernel (``launches``: the sum
     over every ``serve`` run, graphed and eager, of phases 4, 7, 10, 13,
-    15-17, 19, 20, 22, 23 and 27, and over phase 26's two runs;
-    ``launches_by_run`` by phase), the ``nvidia-smi`` line, and ``{"ok":
-    true, "device": {...}}``.
+    15-17, 19, 20, 22, 23 and 27, over phase 26's two runs and over the
+    fleet runs of phases 29 and 30; ``launches_by_run`` by phase), the
+    ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds.
 """
@@ -262,6 +284,7 @@ Each phase prints its seconds.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -3215,6 +3238,438 @@ def whisper_serve(device, cfg=None, frames: int = WHISPER_FRAMES,
     return out
 
 
+# --------------------------------------------------------------------- #
+# phases 29-30: the fleet simulator                                      #
+# --------------------------------------------------------------------- #
+SCHEMES = ("alert", "alert_plus", "alert_trad", "alert_dnn", "alert_power",
+           "oracle", "oracle_static")
+# Phase 30: the fleet's lanes (phase 3's S), the streams held to the CPU
+# (every FLEET_CHECK-th), the ticks whose delivery inputs are recorded,
+# and the repeats of each timed piece.
+FLEET_LANES = 65536
+FLEET_CHECK = 256
+FLEET_RECORDED = 16
+FLEET_REPS = 20
+# The ticks of phase 30's run traced by torch.profiler for the card's busy
+# time: FLEET_PROFILED ticks from the middle.
+FLEET_PROFILED = 5
+
+
+def counted_run(fn, runs: list):
+    """Run ``fn`` with every launch counter at 0 and append the launches
+    it counted, by kernel, to ``runs``."""
+    from repro_torch.kernels import alert_select as ks
+    from repro_torch.serving.engine import COUNTED
+
+    counters = (ks.alert_select,) + COUNTED
+    for w in counters:                    # main path starts here
+        w.launches = 0
+    out = fn()
+    runs.append({w.__name__: w.launches for w in counters})
+    return out                            # main path ends here
+
+
+def same_result(got, want, fields, what: str) -> None:
+    """Fails unless every field of ``got`` is bitwise equal to ``want``'s
+    (None equal to None)."""
+    import numpy as np
+
+    for f in fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if (a is None) != (b is None) or (
+                a is not None and not np.array_equal(a, b)):
+            raise SmokeFailure(f"{what}: {f} differs")
+
+
+def fleet_goldens(device, golden_path=None) -> dict:
+    """Phase 29: the golden scenario on ``device``.  ``FleetSim`` on each
+    of the three seed-1 traces must give ``tests/golden_traces.json``'s
+    alert numbers exactly, launching ``alert_select`` once a tick on the
+    card, and ``InferenceSim.run_oracle`` its oracle numbers to rtol 1e-9,
+    atol 1e-12.  Then every scheme on the memory trace under both goals,
+    on ``device`` and on the CPU: the results must be bitwise equal."""
+    import torch
+
+    from repro_torch.core.controller import Constraints, Goal
+    from repro_torch.serving.scenarios import (GOLDEN_BUDGET_W, GOLDEN_SEED,
+                                               golden_deadline, golden_table)
+    from repro_torch.serving.sim import (ENVS, EnvironmentTrace, FleetSim,
+                                         InferenceSim)
+
+    path = Path(golden_path or ROOT / "tests" / "golden_traces.json")
+    golden = json.loads(path.read_text())
+    table = golden_table()
+    deadline = float(golden_deadline(table, 3)[1])
+    cons = Constraints.from_power_budget(deadline, GOLDEN_BUDGET_W)
+    card = device.type == "cuda"
+    runs, out = [], {}
+    for env in ("default", "cpu", "memory"):
+        trace = EnvironmentTrace(ENVS[env], seed=GOLDEN_SEED)
+        t0 = time.perf_counter()
+        res = counted_run(lambda: FleetSim(table, [trace], device=device)
+                          .run_alert(Goal.MAXIMIZE_ACCURACY, cons), runs)
+        secs = time.perf_counter() - t0
+        got = {k: getattr(res, k)
+               for k in ("mean_energy", "mean_error", "miss_rate")}
+        if got != golden["envs"][env]["alert"]:
+            raise SmokeFailure(f"golden {env}/alert: {got} != "
+                               f"{golden['envs'][env]['alert']}")
+        n_sel = runs[-1]["alert_select"]
+        if n_sel != (trace.n if card else 0):
+            raise SmokeFailure(f"golden {env}: alert_select launched "
+                               f"{n_sel} times over {trace.n} ticks")
+        oracle = InferenceSim(table, trace, device=device).run_oracle(
+            Goal.MAXIMIZE_ACCURACY, cons)
+        for key, want in golden["envs"][env]["oracle"].items():
+            have = getattr(oracle, key)
+            if not abs(have - want) <= 1e-12 + 1e-9 * abs(want):
+                raise SmokeFailure(f"golden {env}/oracle/{key}: {have} "
+                                   f"!= {want}")
+        out[env] = {**got, "ticks": trace.n, "alert_select": n_sel,
+                    "seconds": secs}
+        say(f"  golden {env}: alert {got} equal to the fixture, "
+            f"alert_select launched {n_sel} times in {trace.n} ticks "
+            f"({secs:.3f} s); oracle within rtol 1e-9")
+    trace = EnvironmentTrace(ENVS["memory"], seed=GOLDEN_SEED)
+    goals = {Goal.MINIMIZE_ENERGY: Constraints(deadline=deadline,
+                                               accuracy_goal=0.8),
+             Goal.MAXIMIZE_ACCURACY: cons}
+    cpu = torch.device("cpu")
+    fields = ("energy", "accuracy", "latency", "missed", "budget",
+              "config")
+    for goal, c in goals.items():
+        for scheme in SCHEMES:
+            got = counted_run(lambda: InferenceSim(
+                table, trace, device=device).run_scheme(scheme, goal, c),
+                runs)
+            want = InferenceSim(table, trace, device=cpu).run_scheme(
+                scheme, goal, c)
+            same_result(got, want, fields, f"{scheme} {goal.value}")
+            adaptive = scheme.startswith("alert")
+            n_sel = runs[-1]["alert_select"]
+            if n_sel != (trace.n if card and adaptive else 0):
+                raise SmokeFailure(f"{scheme} {goal.value}: alert_select "
+                                   f"launched {n_sel} times")
+    say(f"  {len(SCHEMES)} schemes x 2 goals on the memory trace: "
+        f"{device.type} bitwise equal to the CPU")
+    out["counts"] = runs
+    return out
+
+
+class FleetRecorder:
+    """Reads a ``FleetSim`` run from outside: while active it wraps the
+    names ``repro_torch.serving.sim`` looks up (the engine class,
+    ``deliver_tick``, ``observe_fleet``, the goal bank class) so that each
+    ``select`` notes its start time, and the ticks in ``record`` keep
+    their delivery inputs, and tick ``mid`` its select arguments and its
+    feedback objects.  The ticks of ``profiled`` (a range, on the card)
+    run under ``torch.profiler``: ``window_s`` is their host time, from the
+    first one's ``select`` to the card's end of the last.  FleetSim itself
+    is not changed."""
+
+    def __init__(self, record, mid: int, profiled=range(0)):
+        self.record, self.mid, self.profiled = set(record), mid, profiled
+        self.stamps, self.inputs = [], {}
+        self.engine = self.select_args = self.feedback = None
+        self.bank = self.delivered = self.prof = self.window_s = None
+
+    def _profile(self, n: int) -> None:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        if not self.profiled or n not in (self.profiled.start,
+                                          self.profiled.stop):
+            return
+        torch.cuda.synchronize()
+        if n == self.profiled.start:
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.__enter__()
+        else:
+            self.window_s = time.perf_counter() - self.stamps[
+                self.profiled.start]
+            self.prof.__exit__(None, None, None)
+
+    def __enter__(self):
+        from repro_torch.serving import sim
+
+        rec = self
+        saved = {n: getattr(sim, n) for n in (
+            "BatchedAlertEngine", "deliver_tick", "observe_fleet",
+            "WindowedGoalBank")}
+        self._saved = saved
+
+        class Engine(saved["BatchedAlertEngine"]):
+            def select(self, *args, **kw):
+                n = len(rec.stamps)
+                if n == rec.mid:
+                    rec.engine, rec.select_args = self, (args, kw)
+                rec._profile(n)
+                rec.stamps.append(time.perf_counter())
+                return super().select(*args, **kw)
+
+        class Bank(saved["WindowedGoalBank"]):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                rec.bank = self
+
+        def deliver(table, st, i_glob, j_act, scale, dvec, *rest):
+            n = len(rec.stamps) - 1
+            if n in rec.record:
+                rec.inputs[n] = tuple(x.copy() for x in (
+                    i_glob, j_act, scale, dvec, rest[-1]))
+            d = saved["deliver_tick"](table, st, i_glob, j_act, scale, dvec,
+                                      *rest)
+            if n == rec.mid:
+                rec.delivered = (d, rest, scale, dvec, i_glob, j_act)
+            return d
+
+        def observe(slow, idle, *args, **kw):
+            if len(rec.stamps) - 1 == rec.mid:
+                rec.feedback = (slow, idle, args, kw)
+            return saved["observe_fleet"](slow, idle, *args, **kw)
+
+        sim.BatchedAlertEngine, sim.WindowedGoalBank = Engine, Bank
+        sim.deliver_tick, sim.observe_fleet = deliver, observe
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serving import sim
+
+        for name, obj in self._saved.items():
+            setattr(sim, name, obj)
+        return False
+
+    def device_split(self) -> dict:
+        """The profiled ticks' device work, a tick: busy ms (every kernel
+        and copy), ``alert_select``'s ms, the other kernels' ms and count,
+        the copies' ms and count; ``host_ms``, the window's host time a
+        tick, and ``idle_share``, the share of it the card was not busy.
+        Empty where the profiler recorded no device time."""
+        out = {"select_ms": 0.0, "kernels_ms": 0.0, "kernels": 0,
+               "copies_ms": 0.0, "copies": 0}
+        for ev in self.prof.key_averages():
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = ev.self_cuda_time_total
+            if not us or ev.key.startswith(("aten::", "cuda")):
+                continue
+            if "alert_select" in ev.key:
+                out["select_ms"] += us / 1e3
+            elif ev.key.startswith(("Memcpy", "Memset")):
+                out["copies_ms"] += us / 1e3
+                out["copies"] += ev.count
+            else:
+                out["kernels_ms"] += us / 1e3
+                out["kernels"] += ev.count
+        ticks = len(self.profiled)
+        out = {k: v / ticks for k, v in out.items()}
+        out["busy_ms"] = out["select_ms"] + out["kernels_ms"] + \
+            out["copies_ms"]
+        if not out["busy_ms"]:
+            return {}
+        out["host_ms"] = self.window_s * 1e3 / ticks
+        out["idle_share"] = 1.0 - out["busy_ms"] / out["host_ms"]
+        return out
+
+
+def sync_ms(fn, sync, reps: int = FLEET_REPS) -> float:
+    """Median host time of ``fn`` with ``sync`` before and after each
+    call (one untimed call first)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def fleet_full(device, lanes: int = FLEET_LANES,
+               check_every: int = FLEET_CHECK) -> dict:
+    """Phase 30: ``run_fleet`` over ``lanes`` churning streams
+    (:func:`fleet_specs`) on ``device``.  ``alert_select`` must launch
+    once a tick on the card; every ``check_every``-th stream, run again on
+    the CPU as a fleet of its own, must give rows bitwise equal to the
+    card's; ``deliver_step`` on the device must be bitwise equal to
+    ``deliver_tick`` on ``FLEET_RECORDED`` recorded ticks; at one mid-run
+    tick's inputs, ``select`` on the device must be bitwise equal to a CPU
+    engine's over every lane.  Prints the run's seconds, the median tick,
+    the card's busy time a tick over ``FLEET_PROFILED`` ticks of the run
+    (``torch.profiler``) and, at the mid-run tick's inputs, the medians of
+    ``select``, ``deliver_tick``, ``deliver_step`` and the feedback step
+    (``observe_fleet``, ``record``, ``current_goal``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import sim
+    from repro_torch.serving.scenarios import fleet_specs, golden_table
+
+    card = device.type == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    table = golden_table()
+    t0 = time.perf_counter()
+    specs = fleet_specs(table, lanes)
+    trace_s = time.perf_counter() - t0
+    n_ticks = max(sp.arrival + sp.trace.n for sp in specs)
+    mid = n_ticks // 2
+    record = np.linspace(0, n_ticks - 1, FLEET_RECORDED).astype(int)
+    profiled = range(mid + 1, mid + 1 + FLEET_PROFILED) if card else range(0)
+    runs = []
+    with FleetRecorder(record, mid, profiled) as rec:
+        t0 = time.perf_counter()
+        res = counted_run(lambda: sim.run_fleet(table, specs, device=device),
+                          runs)
+        run_s = time.perf_counter() - t0
+    n_sel = runs[-1]["alert_select"]
+    if n_sel != (n_ticks if card else 0) or len(rec.stamps) != n_ticks:
+        raise SmokeFailure(f"fleet: alert_select launched {n_sel} times, "
+                           f"{len(rec.stamps)} selects, in {n_ticks} ticks")
+    for f in ("energy", "accuracy", "latency"):
+        x = getattr(res, f)
+        if x.shape != (lanes, n_ticks) or not np.isfinite(x).all():
+            raise SmokeFailure(f"fleet: {f} is not finite [S, T]")
+    if res.active.sum() != sum(sp.trace.n for sp in specs):
+        raise SmokeFailure("fleet: live cells do not add up to the traces")
+    ticks_s = t0 + run_s - rec.stamps[0]
+    # Tick n lasts from its select to the next; the profiled ticks and the
+    # one before them (which starts the profiler) are left out.
+    tick_ms = [(b - a) * 1e3 for n, (a, b) in enumerate(
+        zip(rec.stamps, rec.stamps[1:])) if n + 1 not in profiled
+        and n not in profiled]
+
+    # Check 2: one stream of every check_every, as a CPU fleet of its own:
+    # the first of each block, or the second in every other block, so that
+    # Eq. 4 (even) and Eq. 5 (odd) lanes are both held.
+    blocks = np.arange(0, lanes, check_every)
+    lanes_chk = blocks + np.arange(len(blocks)) % 2
+    sub = sim.run_fleet(table, [specs[s] for s in lanes_chk],
+                        device=torch.device("cpu"))
+    t_sub = sub.energy.shape[1]
+    for f in ("energy", "accuracy", "latency", "missed", "budget",
+              "active"):
+        rows = getattr(res, f)[lanes_chk]
+        # Past the sub-fleet's last tick every lane is dead: zero, but for
+        # the budget grid, which holds E_goal there.
+        tail_ok = f == "budget" or not rows[:, t_sub:].any()
+        if not (np.array_equal(rows[:, :t_sub], getattr(sub, f))
+                and tail_ok):
+            raise SmokeFailure(f"fleet: lanes one in {check_every} differ "
+                               f"from their CPU run in {f}")
+
+    # Check 3: deliver_step on the device against deliver_tick.
+    st = table.staircase_tensors()
+    consts = dict(latency_kl=table.latency, run_power_kl=table.run_power,
+                  q_fail=table.q_fail, lvl_lat_kml=st.lvl_lat,
+                  lvl_valid_km=st.lvl_valid, lvl_acc_km=st.lvl_acc)
+    is_any = np.zeros(len(table.candidates), bool)
+    for g in table.anytime_groups().values():
+        is_any[g] = True
+    dev_consts = {k: torch.as_tensor(v, device=device)
+                  if isinstance(v, np.ndarray) else v
+                  for k, v in consts.items()}
+    dev_consts["is_anytime_k"] = torch.as_tensor(is_any, device=device)
+
+    def step_on_device(i_glob, j_act, scale, dvec):
+        return sim.deliver_step(
+            *(torch.as_tensor(x, device=device)
+              for x in (i_glob, j_act, scale, dvec)), 0.25, **dev_consts)
+
+    fields = [f.name for f in dataclasses.fields(sim.DeliveredTick)]
+    for n, (i_glob, j_act, scale, dvec, prof) in sorted(rec.inputs.items()):
+        want = sim.deliver_tick(table, st, i_glob, j_act, scale, dvec, 0.25,
+                                is_any, prof)
+        if not np.array_equal(prof, table.latency[i_glob, j_act]):
+            raise SmokeFailure(f"fleet tick {n}: profiled pick is not the "
+                               f"executed config's")
+        got = step_on_device(i_glob, j_act, scale, dvec)
+        for f, g in zip(fields, got):
+            if not np.array_equal(g.cpu().numpy(), getattr(want, f)):
+                raise SmokeFailure(f"fleet tick {n}: deliver_step {f} "
+                                   f"differs from deliver_tick")
+
+    # Check 4: tick `mid`'s select over every lane, on the device and on
+    # the CPU's plain version.
+    cpu = torch.device("cpu")
+    args, kw = rec.select_args
+    eng = rec.engine
+    got = sim.BatchedAlertEngine.select(eng, *args, **kw)
+    want = sim.BatchedAlertEngine(
+        eng.table, eng.goal, overhead=eng.overhead,
+        paper_faithful_energy=eng.paper_faithful_energy, device=cpu).select(
+        *(x.to(cpu) if torch.is_tensor(x) else x for x in args),
+        **{k: x.to(cpu) if torch.is_tensor(x) else x for k, x in kw.items()})
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if a.shape != (lanes,) or not np.array_equal(a, b):
+            raise SmokeFailure(f"fleet tick {mid}: select {f.name} differs "
+                               f"from the CPU's in {int((a != b).sum())} "
+                               f"of {lanes} lanes")
+
+    # The pieces of one tick at tick `mid`'s inputs.
+    select_ms = sync_ms(lambda: sim.BatchedAlertEngine.select(
+        rec.engine, *args, **kw), sync)
+    d, rest, scale, dvec, i_glob, j_act = rec.delivered
+    deliver_ms = sync_ms(lambda: sim.deliver_tick(
+        table, st, i_glob, j_act, scale, dvec, *rest), sync)
+    dev_in = [torch.as_tensor(x, device=device)
+              for x in (i_glob, j_act, scale, dvec)]
+    step_ms = sync_ms(lambda: sim.deliver_step(
+        *dev_in, 0.25, **dev_consts), sync)
+    slow, idle, fb_args, fb_kw = rec.feedback
+    mask = fb_kw["mask"]
+
+    def feedback():
+        sim.observe_fleet(slow, idle, *fb_args, **fb_kw)
+        rec.bank.record(d.accuracy, mask=mask)
+        rec.bank.current_goal()
+
+    feedback_ms = sync_ms(feedback, sync)
+    tick_med = statistics.median(tick_ms)
+    smi = nvidia_smi_line() if card else "cpu"
+    busy = rec.device_split() if card else {}
+    split = {"select_ms": select_ms, "deliver_tick_ms": deliver_ms,
+             "feedback_ms": feedback_ms}
+    out = {"lanes": lanes, "ticks": n_ticks, "trace_build_s": trace_s,
+           "run_s": run_s, "setup_s": run_s - ticks_s, "ticks_s": ticks_s,
+           "tick_median_ms": tick_med, "tick_min_ms": min(tick_ms),
+           "tick_max_ms": max(tick_ms), **split,
+           "deliver_step_ms": step_ms,
+           "shares": {k[:-3]: v / tick_med for k, v in split.items()},
+           "checked_lanes": len(lanes_chk),
+           "recorded_ticks": len(rec.inputs), "alert_select": n_sel,
+           "device_tick": busy, "nvidia_smi": smi, "counts": runs}
+    say(f"  fleet S={lanes}, T={n_ticks}: traces built in {trace_s:.3f} s; "
+        f"run_fleet {run_s:.3f} s (set-up {run_s - ticks_s:.3f} s, ticks "
+        f"{ticks_s:.3f} s); alert_select launched {n_sel} times; "
+        f"{len(lanes_chk)} lanes bitwise equal to their CPU run; "
+        f"deliver_step bitwise equal to deliver_tick on "
+        f"{len(rec.inputs)} ticks; tick {mid}'s select bitwise equal to the "
+        f"CPU's on all {lanes} lanes [{smi}]")
+    say(f"  one tick, median over the run: {tick_med:.6f} ms (min "
+        f"{min(tick_ms):.6f}, max {max(tick_ms):.6f}); at tick {mid}'s "
+        f"inputs, medians of {FLEET_REPS} synced calls: select "
+        f"{select_ms:.6f} ms, deliver_tick {deliver_ms:.6f} ms, "
+        f"deliver_step on the {device.type} {step_ms:.6f} ms, feedback "
+        f"(observe_fleet + record + current_goal) {feedback_ms:.6f} ms; "
+        f"shares of the tick: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in out["shares"].items())
+        + f" [{smi}]")
+    if busy:
+        say(f"  the card over ticks {profiled.start}-{profiled.stop - 1} "
+            f"(torch.profiler), a tick: busy {busy['busy_ms']:.6f} ms of "
+            f"{busy['host_ms']:.6f} ms on the host clock (idle share "
+            f"{busy['idle_share']:.4f}): alert_select {busy['select_ms']:.6f}"
+            f" ms, {busy['kernels']:.1f} other kernels "
+            f"{busy['kernels_ms']:.6f} ms, {busy['copies']:.1f} copies "
+            f"{busy['copies_ms']:.6f} ms [{smi}]")
+    elif card:
+        say("  the card's busy time: not measured (torch.profiler recorded "
+            "no device time)")
+    return out
+
+
 def attention_layers(cfg) -> int:
     """The layers of ``cfg`` that hold attention (``"attn"`` or
     ``"attn_local"``), each one ``flash_attention`` launch a prefill
@@ -3952,6 +4407,15 @@ def main() -> int:
     vlm["qwen2-vl-2b"]["mrope_kernel_vs_ref"] = mrope_kernel_vs_ref(device)
     for name, d in (dense | moe | hybrid | vlm).items():
         counted[f"{name} ({d['n_layers']} layers)"] = d.pop("counts")
+
+    phase.start("phase 29: the fleet simulator's golden traces and schemes "
+                "on the card")
+    fleet_golden = fleet_goldens(device)
+    counted["phase 29"] = fleet_golden.pop("counts")
+
+    phase.start(f"phase 30: a fleet of {FLEET_LANES} streams on the card")
+    fleet = fleet_full(device)
+    counted["phase 30"] = fleet.pop("counts")
     phase.start(None)
     say(f"== done in {time.perf_counter() - t_start:.1f} s")
 
@@ -3972,6 +4436,7 @@ def main() -> int:
         "main_path_plain_ms": mp_plain,
         "main_path_bound_ms": mp_bound, "main_path_select_ms": select_ms,
         "version": SELECT_VERSION, "bitwise_cases": n_select_cases,
+        "fleet_goldens": fleet_golden, "fleet": fleet,
         **{f: timing[f] for f in ("instruction_bound_ms",
                                   "fp64_instructions_per_cell",
                                   "fp64_instructions_per_cell_most",

@@ -38,6 +38,14 @@ class Constraints:
     accuracy_goal: float | None = None  # Q_goal  (min-energy task)
     energy_goal: float | None = None    # E_goal (J) (max-accuracy task)
 
+    @staticmethod
+    def from_power_budget(deadline: float, power_budget: float,
+                          accuracy_goal: float | None = None
+                          ) -> "Constraints":
+        """Section 3.1: E_goal = P_goal * T_goal."""
+        return Constraints(deadline=deadline, accuracy_goal=accuracy_goal,
+                           energy_goal=power_budget * deadline)
+
 
 @dataclasses.dataclass(frozen=True)
 class Decision:

@@ -4,7 +4,10 @@ Per candidate configuration (d_i, p_j) the controller consumes the
 profiled mean latency ``t_train[i, j]``, the accuracy ``q[i]`` and the
 active power ``p_run[i, j]``, plus ``q_fail`` and, for anytime families,
 the per-level accuracy staircase (Eq. 10).  The table is small host data
-(numpy); the scoring engine copies what it needs to the device once.
+(numpy); the scoring engine copies what it needs to the device once.  A
+table is built analytically from roofline terms
+(:func:`profile_from_roofline`) or from measured callables
+(:func:`profile_measured`).
 
 Measured timing: CUDA work is asynchronous, so :func:`measure_mean_latency`
 syncs on every call inside the timed region (:func:`default_sync`: a
@@ -34,6 +37,20 @@ class Candidate:
     is_anytime_level: bool = False
     anytime_group: str | None = None  # levels of one anytime net share a group
     level: int = 0             # nesting level within the group (1-based)
+
+
+@dataclasses.dataclass(frozen=True)
+class StaircaseTensors:
+    """Padded anytime staircases (the fleet simulator's delivery reads
+    them): ``lvl_lat[k, m, :]`` is the profiled latency of level m+1 of
+    candidate k's staircase at each power bucket, ``lvl_acc[k, m]`` its
+    accuracy, ``lvl_valid[k, m]`` whether the level exists.  Traditional
+    candidates are 1-level staircases of themselves."""
+
+    lvl_lat: np.ndarray     # [K, M, L] float64
+    lvl_acc: np.ndarray     # [K, M]   float64
+    lvl_valid: np.ndarray   # [K, M]   bool
+    n_levels: np.ndarray    # [K]      int
 
 
 @dataclasses.dataclass
@@ -81,16 +98,85 @@ class ProfileTable:
                 rows[i] = idxs[:pos + 1]
         return rows
 
+    def staircase_tensors(self) -> StaircaseTensors:
+        """Every candidate's staircase padded to ``M = max levels`` with
+        ``valid=False`` rows (an anytime level-m candidate has its group's
+        levels 1..m, a traditional one itself).  Built once per table and
+        cached."""
+        if getattr(self, "_staircase_cache", None) is None:
+            k, l = self.latency.shape
+            rows = self.staircase_rows()
+            m = max(len(r) for r in rows.values()) if rows else 1
+            lvl_lat = np.ones((k, m, l), dtype=np.float64)
+            lvl_acc = np.zeros((k, m), dtype=np.float64)
+            lvl_valid = np.zeros((k, m), dtype=bool)
+            n_levels = np.zeros(k, dtype=np.int64)
+            for i, r in rows.items():
+                lvl_lat[i, :len(r)] = self.latency[r, :]
+                lvl_acc[i, :len(r)] = [self.candidates[j].accuracy
+                                       for j in r]
+                lvl_valid[i, :len(r)] = True
+                n_levels[i] = len(r)
+            self._staircase_cache = StaircaseTensors(
+                lvl_lat=lvl_lat, lvl_acc=lvl_acc, lvl_valid=lvl_valid,
+                n_levels=n_levels)
+        return self._staircase_cache
+
     def subset(self, indices: Sequence[int]) -> "ProfileTable":
-        """Restrict the table to candidate rows ``indices``."""
+        """Restrict the table to candidate rows ``indices``.  When every
+        kept candidate's staircase prefix survives, the parent's cached
+        staircase tensors are shared by row slicing; a subset that cuts a
+        group mid-prefix rebuilds its own on first use."""
         idx = list(indices)
-        return ProfileTable(
+        sub = ProfileTable(
             candidates=[self.candidates[i] for i in idx],
             power_caps=self.power_caps,
             latency=self.latency[idx],
             run_power=self.run_power[idx],
             q_fail=self.q_fail,
         )
+        cache = getattr(self, "_staircase_cache", None)
+        if cache is not None:
+            kept = set(idx)
+            rows = self.staircase_rows()
+            if all(set(rows[i]) <= kept for i in idx):
+                sub._staircase_cache = StaircaseTensors(
+                    lvl_lat=cache.lvl_lat[idx], lvl_acc=cache.lvl_acc[idx],
+                    lvl_valid=cache.lvl_valid[idx],
+                    n_levels=cache.n_levels[idx])
+        return sub
+
+
+def roofline_latency(flops: float, bytes_hbm: float, speed_fraction: float,
+                     peak_flops: float, hbm_bw: float) -> float:
+    """Latency under clock fraction ``speed_fraction``: the compute term
+    scales 1/f, the memory term is clock-invariant; the larger wins."""
+    compute = flops / (peak_flops * speed_fraction)
+    memory = bytes_hbm / hbm_bw
+    return max(compute, memory)
+
+
+def profile_from_roofline(candidates: Sequence[Candidate],
+                          power_model: PowerModel,
+                          n_power_buckets: int = 8,
+                          peak_flops: float = 197e12,
+                          hbm_bw: float = 819e9,
+                          q_fail: float = 0.0,
+                          overhead: float = 0.0) -> ProfileTable:
+    """A table built analytically from each candidate's roofline terms at
+    every power bucket, with the bucket's operating-point draw as its
+    active power.  The default peak rates are the reference's, so both
+    packages build the same table from the same candidates."""
+    caps = power_model.buckets(n_power_buckets)
+    lat = np.zeros((len(candidates), len(caps)))
+    pw = np.zeros_like(lat)
+    for i, cand in enumerate(candidates):
+        for j, cap in enumerate(caps):
+            f = power_model.speed_fraction(cap)
+            lat[i, j] = roofline_latency(cand.flops, cand.bytes_hbm, f,
+                                         peak_flops, hbm_bw) + overhead
+            pw[i, j] = power_model.power_at_fraction(f)
+    return ProfileTable(list(candidates), caps, lat, pw, q_fail=q_fail)
 
 
 def synthetic_table(seed: int, n_single: int = 8, n_levels: int = 4,

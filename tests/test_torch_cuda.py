@@ -1315,3 +1315,91 @@ def test_rwkv_scan_takes_unaligned_u_and_s0_views(cuda_device, monkeypatch,
     want = rs.rwkv_scan(r, k, v, w, u, s0)
     torch.cuda.synchronize()
     assert all(torch.equal(a, c) for a, c in zip(got, want))
+
+
+# --------------------------------------------------------------------- #
+# The fleet simulator on the card                                        #
+# --------------------------------------------------------------------- #
+def test_churning_fleet_on_card_equals_cpu(cuda_device):
+    """64 churning streams of both goals (phase 30's tenants): every
+    FleetResult array bitwise equal to the CPU port's run."""
+    from repro_torch.serving.scenarios import fleet_specs, golden_table
+    from repro_torch.serving.sim import run_fleet
+
+    table = golden_table()
+    specs = fleet_specs(table, 64)
+    got = run_fleet(table, specs, device=cuda_device)
+    want = run_fleet(table, specs, device="cpu")
+    for f in ("energy", "accuracy", "latency", "missed", "budget",
+              "active"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("env", ["default", "cpu", "memory"])
+def test_fleet_on_card_reproduces_golden_traces(cuda_device, env):
+    """``tests/golden_traces.json``'s alert entries with ``==`` on the
+    CUDA ``alert_select``, the table rebuilt by ``golden_table()``."""
+    import json
+    import os
+
+    from repro_torch.core.controller import Constraints, Goal
+    from repro_torch.serving.scenarios import golden_deadline, golden_table
+    from repro_torch.serving.sim import ENVS, EnvironmentTrace, FleetSim
+
+    with open(os.path.join(os.path.dirname(__file__),
+                           "golden_traces.json")) as f:
+        golden = json.load(f)
+    table = golden_table()
+    cons = Constraints.from_power_budget(
+        float(golden_deadline(table, 3)[1]), golden["budget_w"])
+    fleet = FleetSim(table, [EnvironmentTrace(ENVS[env],
+                                              seed=golden["seed"])],
+                     device=cuda_device)
+    res = fleet.run_alert(Goal.MAXIMIZE_ACCURACY, cons)
+    assert fleet.engine.backend == "cuda"
+    assert {k: getattr(res, k) for k in golden["envs"][env]["alert"]} == \
+        golden["envs"][env]["alert"]
+
+
+def test_deliver_step_on_card_equals_deliver_tick(cuda_device):
+    from repro_torch.serving.scenarios import golden_table
+    from repro_torch.serving.sim import DeliveredTick, deliver_step, \
+        deliver_tick
+
+    table = golden_table()
+    st = table.staircase_tensors()
+    k, l = table.latency.shape
+    is_any = np.zeros(k, bool)
+    for g in table.anytime_groups().values():
+        is_any[g] = True
+    rng = np.random.default_rng(4)
+    s = 65536
+    i, j = rng.integers(0, k, s), rng.integers(0, l, s)
+    scale = rng.uniform(0.5, 3.0, s)
+    dvec = rng.uniform(0.01, 2.0 * float(table.latency.max()), s)
+    want = deliver_tick(table, st, i, j, scale, dvec, 0.25, is_any,
+                        table.latency[i, j])
+    got = deliver_step(*(torch.as_tensor(x, device=cuda_device)
+                         for x in (i, j, scale, dvec)), 0.25,
+                       latency_kl=table.latency,
+                       run_power_kl=table.run_power, q_fail=table.q_fail,
+                       is_anytime_k=is_any, lvl_lat_kml=st.lvl_lat,
+                       lvl_valid_km=st.lvl_valid, lvl_acc_km=st.lvl_acc)
+    for f, g in zip(DeliveredTick.__dataclass_fields__, got):
+        assert g.device.type == "cuda"
+        assert np.array_equal(g.cpu().numpy(), getattr(want, f)), f
+
+
+def test_fleet_launches_alert_select_once_per_tick(cuda_device):
+    from repro_torch.core.controller import Constraints, Goal
+    from repro_torch.serving.scenarios import golden_deadline, golden_table
+    from repro_torch.serving.sim import ENVS, FleetSim
+
+    table = golden_table()
+    fleet = FleetSim.from_phases(table, ENVS["cpu"], 8, seed=3,
+                                 length_cv=0.1, device=cuda_device)
+    cons = Constraints(deadline=float(golden_deadline(table, 3)[1]),
+                       accuracy_goal=0.8)
+    before = ks.alert_select.launches
+    fleet.run_alert(Goal.MINIMIZE_ENERGY, cons)
+    assert ks.alert_select.launches - before == fleet.n_ticks

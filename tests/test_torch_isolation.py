@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports jax or the reference package ``repro``."""
+``chip_smoke.py`` imports jax, the reference package ``repro`` or the
+reference's ``benchmarks``."""
 
 import ast
 import os
@@ -27,7 +28,7 @@ def imported_modules(path: Path) -> set[str]:
 
 def forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "benchmarks")
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
