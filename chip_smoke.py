@@ -272,11 +272,40 @@ Phases (each prints its own lines; any mismatch exits nonzero):
     and at the mid-run tick's inputs the medians of ``select``,
     ``deliver_tick``, ``deliver_step`` and the feedback step, each with its
     share of the tick.
-31. the last lines: one JSON object per kernel (``launches``: the sum
+31. the session gateway (``SessionGateway``: many sessions paged over
+    few lanes, EDF admission, one ``select`` a served round) on the card,
+    on the reference's recorded traffic cells.  (a) The golden overload
+    workload (24 sessions over 8 lanes) must give
+    ``tests/golden_traces.json``'s ``gateway`` summary with ``==``, and the
+    straggler workload its ``straggler`` trip set, time and latency, with
+    no trip without the fault.  (b) ``bench_traffic``'s 1024 Eq. 4
+    sessions over 256 lanes at loads 0.5, 2, 8 and 24, under the
+    controller and a fixed config, each run again with every select's
+    kernel launch held to ``alert_select_plain`` on the same device
+    tensors (picks, feasibility and relaxed codes bitwise on every lane),
+    as are the runs of (a), (c) and (d); at loads 2 and 24 each run held
+    to the port's host logic on the CPU (``hold_to_cpu``): driven with the
+    card's decisions, the CPU sees bitwise the card's inputs at every
+    select and ends bitwise equal, and where its own plain version picked
+    otherwise the two picks' accuracies lie within 2 ulp on an active
+    relaxed Eq. 4 lane (float64 ``torch.erf`` differs between the CPU and
+    CUDA in the last bit).  (c) At load 8, a device loss (lanes 192-255
+    quarantined) and a brownout; the brownout run killed and resumed
+    from its checkpoint, bitwise equal to the uninterrupted run.  (d)
+    ``bench_obs``'s 20,000 sessions over 1,024 lanes, held to the CPU as
+    in (b): the median round, the mid-run round's paging, ``select``,
+    ``deliver_tick`` and feedback (medians of synced calls), and the
+    card's busy time and idle share over 5 rounds (torch.profiler).
+    ``alert_select`` must launch once a served round under the controller
+    and never under the fixed config.  Also prints at how many of 200,001
+    points of [-8, 8] float64 ``torch.erf`` on the card differs from the
+    CPU's.
+32. the last lines: one JSON object per kernel (``launches``: the sum
     over every ``serve`` run, graphed and eager, of phases 4, 7, 10, 13,
     15-17, 19, 20, 22, 23 and 27, over phase 26's two runs and over the
-    fleet runs of phases 29 and 30; ``launches_by_run`` by phase), the
-    ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
+    fleet and gateway runs of phases 29-31; ``launches_by_run`` by
+    phase), the ``nvidia-smi`` line, and ``{"ok": true, "device":
+    {...}}``.
 
 Each phase prints its seconds.
 """
@@ -292,6 +321,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -3357,18 +3387,21 @@ def fleet_goldens(device, golden_path=None) -> dict:
 
 
 class FleetRecorder:
-    """Reads a ``FleetSim`` run from outside: while active it wraps the
-    names ``repro_torch.serving.sim`` looks up (the engine class,
-    ``deliver_tick``, ``observe_fleet``, the goal bank class) so that each
-    ``select`` notes its start time, and the ticks in ``record`` keep
-    their delivery inputs, and tick ``mid`` its select arguments and its
+    """Reads a ``FleetSim`` or ``SessionGateway`` run from outside: while
+    active it wraps the names ``module`` looks up (the engine class,
+    ``deliver_tick``, ``observe_fleet``, the goal bank class; by default in
+    ``repro_torch.serving.sim``, and ``repro_torch.traffic.gateway`` looks
+    up the same four) so that each ``select`` notes its start time, and
+    the ticks (a gateway's served rounds) in ``record`` keep their
+    delivery inputs, and tick ``mid`` its select arguments and its
     feedback objects.  The ticks of ``profiled`` (a range, on the card)
     run under ``torch.profiler``: ``window_s`` is their host time, from the
-    first one's ``select`` to the card's end of the last.  FleetSim itself
-    is not changed."""
+    first one's ``select`` to the card's end of the last.  Neither class
+    is changed."""
 
-    def __init__(self, record, mid: int, profiled=range(0)):
+    def __init__(self, record, mid: int, profiled=range(0), module=None):
         self.record, self.mid, self.profiled = set(record), mid, profiled
+        self.module = module
         self.stamps, self.inputs = [], {}
         self.engine = self.select_args = self.feedback = None
         self.bank = self.delivered = self.prof = self.window_s = None
@@ -3392,6 +3425,7 @@ class FleetRecorder:
     def __enter__(self):
         from repro_torch.serving import sim
 
+        sim = self.module or sim
         rec = self
         saved = {n: getattr(sim, n) for n in (
             "BatchedAlertEngine", "deliver_tick", "observe_fleet",
@@ -3436,7 +3470,7 @@ class FleetRecorder:
         from repro_torch.serving import sim
 
         for name, obj in self._saved.items():
-            setattr(sim, name, obj)
+            setattr(self.module or sim, name, obj)
         return False
 
     def device_split(self) -> dict:
@@ -3668,6 +3702,563 @@ def fleet_full(device, lanes: int = FLEET_LANES,
         say("  the card's busy time: not measured (torch.profiler recorded "
             "no device time)")
     return out
+
+
+# Phase 31: the session gateway over the reference's recorded traffic
+# cells (``repro_torch.serving.scenarios``): ``bench_traffic``'s 1024
+# Poisson Eq. 4 sessions over 256 lanes at loads 0.5-24, tick T_goal/4,
+# a queue of 4 x lanes; ``bench_obs``'s 20,000 such sessions over 1,024
+# lanes at the rate that fills them, tick T_goal, 24 T_goal, seed 11.
+# Loads whose card runs are held to the CPU.
+GW_CPU_LOADS = (2.0, 24.0)
+# The faulted runs: the load, the iteration the brownout run is killed
+# at and the checkpoint cadence (its checkpoint is taken at iteration 48).
+GW_FAULT_LOAD = 8.0
+GW_KILL_AT, GW_CKPT_EVERY = 61, 16
+SCALE_SESSIONS, SCALE_LANES = 20_000, 1024
+SCALE_ROUNDS, SCALE_SEED = 24, 11
+# Served rounds of the scale run traced by torch.profiler.
+SCALE_PROFILED = 5
+GATEWAY_FIELDS = ("sid", "index", "arrival", "status", "start", "latency",
+                  "sojourn", "missed", "accuracy", "energy", "model_index",
+                  "power_index")
+
+
+def same_gateway_result(got, want, what: str) -> None:
+    """Fails unless every per-request array, the round count, the paging
+    counters and the horizon of ``got`` equal ``want``'s bitwise."""
+    same_result(got, want, GATEWAY_FIELDS, what)
+    for f in ("n_rounds", "pages_in", "pages_out", "horizon"):
+        if getattr(got, f) != getattr(want, f):
+            raise SmokeFailure(f"{what}: {f} {getattr(got, f)} != "
+                               f"{getattr(want, f)}")
+
+
+@contextlib.contextmanager
+def select_log(gw, inject=None, hold_plain: bool = False):
+    """While active, ``gw``'s engine keeps, for each ``select``, host
+    copies of the eight lane vectors it hands the kernel in
+    ``log["inputs"]`` and its decisions in ``log["outs"]``.  With
+    ``hold_plain`` every launch is held to ``alert_select_plain`` on the
+    same device tensors: the int32 results (model, power, feasible,
+    relaxed code) must be bitwise equal on every lane.  With ``inject``
+    (another run's ``log["outs"]``) each ``select`` returns that run's
+    decisions; ``log["outs"]`` keeps the engine's own."""
+    import torch
+
+    from repro_torch.kernels import alert_select as ks
+
+    log = {"inputs": [], "outs": []}
+    eng = gw.engine
+    kernel, select = eng._kernel, type(eng).select
+
+    def held(*lanes, **kw):
+        ints, f64 = kernel.alert_select_packed(*lanes, **kw)
+        log["inputs"].append([x.cpu().numpy().copy() for x in lanes])
+        if hold_plain:
+            i, j, _, _, _, feas, rel = ks.alert_select_plain(*lanes, **kw)
+            want = torch.stack([i, j, feas.to(torch.int32), rel])
+            if not torch.equal(ints, want):
+                bad = (ints != want).any(dim=0).nonzero().flatten()
+                raise SmokeFailure(
+                    f"select {len(log['outs'])}: the kernel's picks differ "
+                    f"from its plain version's on the same "
+                    f"{lanes[0].device.type} tensors at lanes "
+                    f"{bad[:8].tolist()}")
+        return ints, f64
+
+    def noted(*args, **kw):
+        n = len(log["outs"])
+        log["outs"].append(select(eng, *args, **kw))
+        if inject is None:
+            return log["outs"][-1]
+        if n >= len(inject):
+            raise SmokeFailure(f"select {n} has no decisions to inject")
+        return inject[n]
+
+    eng._kernel = types.SimpleNamespace(
+        **{**vars(kernel), "alert_select_packed": held})
+    eng.select = noted
+    try:
+        yield log
+    finally:
+        del eng.select
+        eng._kernel = kernel
+
+
+def held_run(gw, run, runs: list):
+    """``run(gw)`` (counted, :func:`counted_run`) with every select of
+    ``gw`` held to the plain version: ``(result, select_log)``."""
+    with select_log(gw, hold_plain=True) as log:
+        res = counted_run(lambda: run(gw), runs)
+    return res, log
+
+
+def hold_to_cpu(make, run, got, log: dict, what: str) -> dict:
+    """Holds the card's gateway run ``got`` (``log``, its
+    :func:`select_log`) to the port's host logic on the CPU: a fresh CPU
+    gateway (``make(cpu)``) driven by ``run`` with the card's decisions
+    injected must see bitwise the card's lane inputs at every select and
+    end bitwise equal to ``got``.  Where the CPU's plain version decided
+    otherwise than the card's kernel (a pick or a relaxed code), the pick
+    contract must hold: an active ``RELAXED_ACCURACY`` lane on both whose
+    two picks' accuracies, as the CPU estimates them at the common
+    inputs, lie within 2 ulp (float64 ``torch.erf`` differs between the
+    CPU and CUDA in the last bit).  ``bitwise``: no decision differed, so
+    the CPU's own run is the card's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.batched import RELAXED_ACCURACY
+
+    g = make(torch.device("cpu"))
+    with select_log(g, inject=log["outs"]) as mine:
+        res = run(g)
+    same_gateway_result(got, res, what + ": the CPU with the card's "
+                        "decisions injected")
+    if len(mine["outs"]) != len(log["outs"]):
+        raise SmokeFailure(f"{what}: {len(mine['outs'])} selects on the "
+                           f"CPU, {len(log['outs'])} on the card")
+    differ, n_lanes, worst = [], 0, 0.0
+    for n, (a_in, b_in, a, b) in enumerate(zip(
+            log["inputs"], mine["inputs"], log["outs"], mine["outs"])):
+        if not all(np.array_equal(x, y) for x, y in zip(a_in, b_in)):
+            raise SmokeFailure(f"{what}: the inputs of select {n} differ "
+                               f"between the card and the CPU")
+        lanes = np.nonzero((a.model_index != b.model_index)
+                           | (a.power_index != b.power_index)
+                           | (a.relaxed_code != b.relaxed_code))[0]
+        if not len(lanes):
+            continue
+        mu, sigma, phi, dl = (x[lanes] for x in a_in[:4])
+        if not (a_in[7][lanes].all()
+                and (a.relaxed_code[lanes] == RELAXED_ACCURACY).all()
+                and (b.relaxed_code[lanes] == RELAXED_ACCURACY).all()):
+            raise SmokeFailure(f"{what}: select {n} decided differently "
+                               f"on lanes {lanes.tolist()}, not all active "
+                               f"relaxed Eq. 4 lanes")
+        acc = g.engine.estimate(
+            mu, sigma, phi, np.maximum(dl - g.engine.overhead, 1e-9)).accuracy
+        r = np.arange(len(lanes))
+        x = acc[r, a.model_index[lanes], a.power_index[lanes]]
+        y = acc[r, b.model_index[lanes], b.power_index[lanes]]
+        ulp = np.abs(x - y) / np.spacing(np.maximum(np.abs(x), np.abs(y)))
+        if not (ulp <= 2).all():
+            raise SmokeFailure(f"{what}: select {n}'s picks on lanes "
+                               f"{lanes.tolist()} break the pick contract: "
+                               f"accuracies {x.tolist()} on the card's, "
+                               f"{y.tolist()} on the CPU's")
+        differ.append(n)
+        n_lanes += len(lanes)
+        worst = max(worst, float(ulp.max()))
+    return {"bitwise": not differ, "selects": len(log["outs"]),
+            "differing_selects": differ, "differing_lanes": n_lanes,
+            "max_ulp": worst}
+
+
+def check_select_launches(res, counts: dict, device, what: str,
+                          rounds: int | None = None,
+                          policy: str = "alert") -> None:
+    """Fails unless ``alert_select`` launched once a served round on the
+    card under ``policy="alert"`` (``rounds``, default the result's), and
+    never otherwise, by the result's count and by the counter's."""
+    n = res.n_rounds if rounds is None else rounds
+    want = n if device.type == "cuda" and policy == "alert" else 0
+    if res.select_launches != want or counts["alert_select"] != want:
+        raise SmokeFailure(
+            f"{what}: alert_select launched {res.select_launches} times "
+            f"(counter {counts['alert_select']}) over {n} served rounds")
+
+
+def gateway_goldens(device, runs: list, golden_path=None) -> dict:
+    """Phase 31 (a): the gateway's goldens on ``device``.  The golden
+    overload workload's summary must equal ``tests/golden_traces.json``'s
+    ``gateway`` entry with ``==``; on the straggler workload the detector
+    must trip exactly the golden's lanes at its time and latency in
+    rounds, and never on the same workload without the fault.  Every
+    select is held to the plain version (:func:`held_run`)."""
+    import numpy as np
+
+    from repro_torch.serving.scenarios import (gateway_summary,
+                                               golden_gateway_workload,
+                                               golden_table,
+                                               straggler_workload)
+    from repro_torch.traffic import (KalmanLaneDetector, SessionGateway,
+                                     generate_requests)
+
+    golden = json.loads(Path(golden_path or ROOT / "tests" /
+                             "golden_traces.json").read_text())
+    table = golden_table()
+    sessions, n_lanes, dl = golden_gateway_workload(table)
+    gw = SessionGateway(table, n_lanes, tick=dl, max_queue=4 * n_lanes,
+                        device=device)
+    res, _ = held_run(gw, lambda g: g.run(sessions,
+                                          generate_requests(sessions)), runs)
+    got = gateway_summary(res)
+    if got != golden["gateway"]:
+        raise SmokeFailure(f"gateway golden: {got} != {golden['gateway']}")
+    check_select_launches(res, runs[-1], device, "gateway golden")
+    launches = [res.select_launches]
+    sessions, n_lanes, dl, faults = straggler_workload(table)
+    g = golden["straggler"]
+    dets = []
+    for fs in (faults, None):
+        det = KalmanLaneDetector(n_lanes)
+        res, _ = held_run(
+            SessionGateway(table, n_lanes, tick=dl, device=device),
+            lambda g: g.run(sessions, generate_requests(sessions),
+                            faults=fs, detector=det), runs)
+        check_select_launches(res, runs[-1], device, "straggler run")
+        launches.append(res.select_launches)
+        dets.append(det)
+    det, clean = dets
+    lane = g["fault_lane"]
+    got_s = {"tripped_lanes": [int(x) for x in np.nonzero(det.tripped)[0]],
+             "first_trip_time_s": float(det.first_trip_time[lane]),
+             "detection_latency_rounds": det.detection_latency(
+                 lane, g["fault_start_rounds"] * dl) / dl,
+             "clean_false_positives": int(clean.tripped.sum())}
+    for key, have in got_s.items():
+        if have != g[key]:
+            raise SmokeFailure(f"straggler golden {key}: {have} != {g[key]}")
+    say(f"  golden gateway (24 sessions over 8 lanes): {got} equal to the "
+        f"fixture with ==; straggler: {got_s} equal to the fixture; "
+        f"alert_select launched {launches} times, once a served round")
+    return {"gateway": got, "straggler": got_s, "select_launches": launches}
+
+
+def gateway_row(res) -> dict:
+    """The numbers phase 31 prints for one gateway run."""
+    return {"offered": res.offered, "served": int(res.served.sum()),
+            "rejected_infeasible": int((res.status == 1).sum()),
+            "rejected_backpressure": int((res.status == 2).sum()),
+            "goodput_rps": res.goodput,
+            "served_miss_rate": res.served_miss_rate,
+            "p99_sojourn_s": res.percentile_sojourn(99),
+            "energy_per_good_j": res.energy_per_good,
+            "pages_in": res.pages_in, "pages_out": res.pages_out,
+            "rounds": res.n_rounds, "select_launches": res.select_launches}
+
+
+def gateway_traffic(device, runs: list, loads=None,
+                    cpu_loads=GW_CPU_LOADS) -> dict:
+    """Phase 31 (b): ``bench_traffic``'s workload on ``device`` at each
+    of ``loads`` (default all four), under ``policy="alert"`` and
+    ``policy="static"`` (the hindsight-static config of a seed-5 trace,
+    the reference load sweep's baseline).  Each run is timed, then run
+    again with every select held to the plain version, bitwise equal;
+    at ``cpu_loads`` that run is held to the CPU (:func:`hold_to_cpu`)."""
+    import torch
+
+    from repro_torch.core.controller import Goal
+    from repro_torch.serving.scenarios import (TRAFFIC_LANES,
+                                               TRAFFIC_LOADS, TRAFFIC_SEED,
+                                               TRAFFIC_SESSIONS,
+                                               golden_table, traffic_mix,
+                                               traffic_sessions)
+    from repro_torch.serving.sim import CPU_ENV, EnvironmentTrace, InferenceSim
+    from repro_torch.traffic import SessionGateway, generate_requests
+
+    table = golden_table()
+    _, dl, cons = traffic_mix(table, TRAFFIC_SESSIONS, TRAFFIC_LANES, 0.5)
+    static = InferenceSim(table, EnvironmentTrace(CPU_ENV, seed=TRAFFIC_SEED),
+                          device=torch.device("cpu")).run_oracle_static(
+        Goal.MINIMIZE_ENERGY, cons).config
+
+    def gateway(dev):
+        return SessionGateway(table, TRAFFIC_LANES, tick=dl / 4,
+                              max_queue=4 * TRAFFIC_LANES, device=dev)
+
+    out = {"static_config": list(static), "loads": {}}
+    for load in TRAFFIC_LOADS if loads is None else loads:
+        sessions, _, _ = traffic_sessions(table, load)
+        row = {}
+        for policy in ("alert", "static"):
+            kw = dict(policy=policy,
+                      static_config=static if policy == "static" else None)
+
+            def run(gw):
+                return gw.run(sessions, generate_requests(sessions), **kw)
+
+            what = f"traffic load {load} {policy}"
+            gw = gateway(device)
+            t0 = time.perf_counter()
+            res = counted_run(lambda: run(gw), runs)
+            secs = time.perf_counter() - t0
+            check_select_launches(res, runs[-1], device, what,
+                                  policy=policy)
+            again, log = held_run(gateway(device), run, runs)
+            same_gateway_result(again, res, what + " run again, held to "
+                                "the plain version")
+            check_select_launches(again, runs[-1], device, what,
+                                  policy=policy)
+            row[policy] = {**gateway_row(res), "run_s": secs}
+            if load in cpu_loads:
+                row[policy]["cpu"] = hold_to_cpu(gateway, run, again, log,
+                                                 what)
+            say(f"  load {load} {policy}: " + ", ".join(
+                f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in row[policy].items()))
+        out["loads"][str(load)] = row
+    return out
+
+
+def gateway_faults(device, runs: list, load: float = GW_FAULT_LOAD) -> dict:
+    """Phase 31 (c): ``bench_traffic``'s workload at ``load`` on
+    ``device`` under ``scenario("device_loss", n_devices=4)`` (the last
+    device's lanes, 192-255 of 256, must end quarantined and the run must
+    differ from the clean one) and ``scenario("brownout")``; the brownout
+    run killed at iteration ``GW_KILL_AT`` and resumed from its checkpoint
+    must equal the uninterrupted run bitwise.  Every select is held to
+    the plain version (:func:`held_run`)."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.runtime.elastic import dead_lane_mask
+    from repro_torch.runtime.ft import InjectedFailure
+    from repro_torch.serving.scenarios import (TRAFFIC_LANES, golden_table,
+                                               traffic_sessions)
+    from repro_torch.traffic import (SessionGateway, generate_requests,
+                                     scenario)
+
+    lanes = TRAFFIC_LANES
+    table = golden_table()
+    sessions, dl, _ = traffic_sessions(table, load)
+
+    def gateway():
+        return SessionGateway(table, lanes, tick=dl / 4,
+                              max_queue=4 * lanes, device=device)
+
+    def run(fs=None, **kw):
+        return lambda g: g.run(sessions, generate_requests(sessions),
+                               faults=fs, **kw)
+
+    gw = gateway()
+    clean, _ = held_run(gw, run(), runs)
+    check_select_launches(clean, runs[-1], device, "clean run")
+    out, faulted = {}, {}
+    for kind in ("device_loss", "brownout"):
+        fs = scenario(kind, lanes, start=4 * dl, horizon=30 * dl, seed=11,
+                      n_devices=4)
+        res, _ = held_run(gw, run(fs), runs)
+        check_select_launches(res, runs[-1], device, kind)
+        if all(np.array_equal(getattr(res, f), getattr(clean, f))
+               for f in GATEWAY_FIELDS):
+            raise SmokeFailure(f"{kind}: the run equals the clean run")
+        faulted[kind] = fs, res
+        out[kind] = gateway_row(res)
+        if kind == "device_loss":
+            dead = np.nonzero(gw._dead)[0]
+            if not np.array_equal(gw._dead,
+                                  dead_lane_mask(lanes, 4, [3])):
+                raise SmokeFailure(f"device_loss: lanes {dead.tolist()} "
+                                   f"quarantined")
+            out[kind]["quarantined"] = [int(dead[0]), int(dead[-1])]
+        say(f"  {kind} at load {load}: {out[kind]}")
+    fs, want = faulted["brownout"]
+    with tempfile.TemporaryDirectory() as td:
+        ck = str(Path(td) / "ck")
+
+        def killed(g):
+            try:
+                run(fs, checkpoint_dir=ck, checkpoint_every=GW_CKPT_EVERY,
+                    kill_at_round=GW_KILL_AT)(g)
+            except InjectedFailure:
+                return True
+            return False
+
+        if not held_run(gateway(), killed, runs)[0]:
+            raise SmokeFailure("brownout: the run was not killed")
+        tree, step = ckpt_io.restore_tree(ck)
+        before = int(tree["meta"]["n_rounds"])
+        got, _ = held_run(gateway(), lambda g: g.resume(
+            sessions, generate_requests(sessions), checkpoint_dir=ck,
+            faults=fs), runs)
+    same_gateway_result(got, want, "brownout killed and resumed")
+    check_select_launches(got, runs[-1], device, "resumed run",
+                          rounds=got.n_rounds - before)
+    out["resumed_from_iteration"] = step
+    say(f"  brownout killed at iteration {GW_KILL_AT}, resumed from the "
+        f"checkpoint of iteration {step} ({before} rounds served): "
+        f"bitwise equal to the uninterrupted run")
+    return out
+
+
+def gateway_scale(device, runs: list, n_sessions: int = SCALE_SESSIONS,
+                  n_lanes: int = SCALE_LANES,
+                  rounds: int = SCALE_ROUNDS) -> dict:
+    """Phase 31 (d): ``bench_obs``'s workload through the host gateway on
+    ``device``.  The timed run carries no check; a second run, with every
+    select held to the plain version, must equal it bitwise and is held
+    to the CPU (:func:`hold_to_cpu`).  Prints the
+    median round (one ``select`` start to the next), at the mid-run
+    round's inputs the medians of ``FLEET_REPS`` synced calls of its
+    paging (the evictees' ``export_lanes`` and the paged-in sessions'
+    ``import_lanes`` on the three banks), ``select``, ``deliver_tick`` and
+    the feedback (``observe_fleet`` and ``record``), and on the card its
+    busy time and idle share over ``SCALE_PROFILED`` rounds
+    (``torch.profiler``)."""
+    import torch
+
+    from repro_torch.serving.scenarios import golden_table, traffic_mix
+    from repro_torch.traffic import build_sessions, gateway
+
+    card = device.type == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    table = golden_table()
+    mix, dl, _ = traffic_mix(table, n_sessions, n_lanes, 1.0)
+    t0 = time.perf_counter()
+    sessions = build_sessions(mix, rounds * dl, seed=SCALE_SEED)
+    build_s = time.perf_counter() - t0
+    mid = rounds // 2
+    profiled = range(mid + 1, mid + 1 + SCALE_PROFILED) if card \
+        else range(0)
+    paging = {}
+
+    class Gateway(gateway.SessionGateway):
+        """Notes the lanes the mid-run round pages out and in."""
+
+        def _page_in(self, sids, sess, round_k, now):
+            if len(rec.stamps) != mid:
+                return super()._page_in(sids, sess, round_k, now)
+            before = self._resident.copy()
+            paged = [s for s in sids if s in self._store]
+            lanes = super()._page_in(sids, sess, round_k, now)
+            paging["out"] = [ln for ln, s in enumerate(before)
+                             if s >= 0 and int(s) not in self._lane_of]
+            paging["in"] = [self._lane_of[s] for s in paged]
+            paging["fresh"] = len(sids) - len(paged) - sum(
+                before[self._lane_of[s]] == s for s in sids)
+            return lanes
+
+    def make(dev):
+        return gateway.SessionGateway(table, n_lanes, tick=dl,
+                                      max_queue=4 * n_lanes, device=dev)
+
+    def run(g):
+        return g.run(sessions, gateway.generate_requests(sessions))
+
+    with FleetRecorder((), mid, profiled, module=gateway) as rec:
+        gw = Gateway(table, n_lanes, tick=dl, max_queue=4 * n_lanes,
+                     device=device)
+        requests = gateway.generate_requests(sessions)
+        t0 = time.perf_counter()
+        res = counted_run(lambda: gw.run(sessions, requests), runs)
+        run_s = time.perf_counter() - t0
+    check_select_launches(res, runs[-1], device, "scale run")
+    if len(rec.stamps) != res.n_rounds or (card and rec.window_s is None):
+        raise SmokeFailure(f"scale run: {len(rec.stamps)} selects in "
+                           f"{res.n_rounds} rounds; profiled window "
+                           f"{'missed' if rec.window_s is None else 'ok'}")
+    again, log = held_run(make(device), run, runs)
+    same_gateway_result(again, res, "scale run again, held to the plain "
+                        "version")
+    check_select_launches(again, runs[-1], device, "scale run again")
+    cpu_check = hold_to_cpu(make, run, again, log, "scale run")
+    round_ms = [(b - a) * 1e3 for n, (a, b) in enumerate(
+        zip(rec.stamps, rec.stamps[1:])) if n + 1 not in profiled
+        and n not in profiled]
+    banks = (gw.slow, gw.idle, gw.goal_bank)
+    snaps = [b.export_lanes(paging["in"]) for b in banks]
+
+    def page():
+        for b in banks:
+            b.export_lanes(paging["out"])
+        for b, snap in zip(banks, snaps):
+            b.import_lanes(paging["in"], snap)
+
+    args, kw = rec.select_args
+    d, rest, scale, dvec, i_glob, j_act = rec.delivered
+    slow, idle, fb_args, fb_kw = rec.feedback
+
+    def feedback():
+        gateway.observe_fleet(slow, idle, *fb_args, **fb_kw)
+        rec.bank.record(d.accuracy, mask=fb_kw["mask"])
+
+    split = {
+        "page_ms": sync_ms(page, sync),
+        "select_ms": sync_ms(lambda: gateway.BatchedAlertEngine.select(
+            rec.engine, *args, **kw), sync),
+        "deliver_tick_ms": sync_ms(lambda: gateway.deliver_tick(
+            table, gw._st, i_glob, j_act, scale, dvec, *rest), sync),
+        "feedback_ms": sync_ms(feedback, sync)}
+    round_med = statistics.median(round_ms)
+    smi = nvidia_smi_line() if card else "cpu"
+    busy = rec.device_split() if card else {}
+    out = {"sessions": n_sessions, "lanes": n_lanes,
+           "offered": res.offered, "served": int(res.served.sum()),
+           "rounds": res.n_rounds, "pages_in": res.pages_in,
+           "pages_out": res.pages_out, "build_s": build_s, "run_s": run_s,
+           "round_median_ms": round_med, "round_min_ms": min(round_ms),
+           "round_max_ms": max(round_ms), "mid_round": mid,
+           "mid_round_paged": {"out": len(paging["out"]),
+                               "in": len(paging["in"]),
+                               "fresh": int(paging["fresh"])},
+           **split, "shares": {k[:-3]: v / round_med
+                               for k, v in split.items()},
+           "rest_share": 1.0 - sum(split.values()) / round_med,
+           "device_round": busy, "cpu": cpu_check, "nvidia_smi": smi}
+    say(f"  scale: {n_sessions} sessions over {n_lanes} lanes, "
+        f"{res.offered} requests, {out['served']} served in {res.n_rounds} "
+        f"rounds ({res.pages_in} pages in, {res.pages_out} out); sessions "
+        f"built in {build_s:.3f} s, run {run_s:.3f} s; against the CPU: "
+        f"{cpu_check} [{smi}]")
+    say(f"  one round, median over the run: {round_med:.6f} ms (min "
+        f"{min(round_ms):.6f}, max {max(round_ms):.6f}); at round {mid} "
+        f"({len(paging['out'])} lanes paged out, {len(paging['in'])} in, "
+        f"{int(paging['fresh'])} fresh), medians of {FLEET_REPS} synced "
+        f"calls: paging {split['page_ms']:.6f} ms, select "
+        f"{split['select_ms']:.6f} ms, deliver_tick "
+        f"{split['deliver_tick_ms']:.6f} ms, feedback (observe_fleet + "
+        f"record) {split['feedback_ms']:.6f} ms; shares of the round: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in out["shares"].items())
+        + f", the rest (the round's Python: EDF pops, page-in bookkeeping, "
+        f"lane fill, result scatter) {out['rest_share']:.4f} [{smi}]")
+    if busy:
+        say(f"  the card over rounds {profiled.start}-{profiled.stop - 1} "
+            f"(torch.profiler), a round: busy {busy['busy_ms']:.6f} ms of "
+            f"{busy['host_ms']:.6f} ms on the host clock (idle share "
+            f"{busy['idle_share']:.4f}): alert_select "
+            f"{busy['select_ms']:.6f} ms, {busy['kernels']:.1f} other "
+            f"kernels {busy['kernels_ms']:.6f} ms, {busy['copies']:.1f} "
+            f"copies {busy['copies_ms']:.6f} ms [{smi}]")
+    elif card:
+        say("  the card's busy time: not measured (torch.profiler recorded "
+            "no device time)")
+    return out
+
+
+def erf_disagreement(device, n: int = 200_001) -> dict:
+    """Float64 ``torch.erf`` on ``device`` against the CPU's at ``n``
+    points of [-8, 8] (the Eq. 7 range): how many differ and by how many
+    ulp at most.  The kernel's ``erf`` is the card's, so these are the
+    points where the CPU's plain version may score a cell one bit away."""
+    import numpy as np
+    import torch
+
+    z = torch.linspace(-8.0, 8.0, n, dtype=torch.float64)
+    got = torch.erf(z.to(device)).cpu().numpy()
+    want = torch.erf(z).numpy()
+    ulp = np.abs(got - want) / np.spacing(np.abs(want))
+    out = {"points": n, "differ": int((got != want).sum()),
+           "max_ulp": float(ulp.max())}
+    say(f"  float64 torch.erf on the {device.type} against the CPU at {n} "
+        f"points of [-8, 8]: {out['differ']} differ, at most "
+        f"{out['max_ulp']:.3g} ulp")
+    return out
+
+
+def gateway_phase(device) -> dict:
+    """Phase 31: (a)-(d) on ``device``, and ``torch.erf`` on it against
+    the CPU; ``counts`` holds the launches of every gateway run on it."""
+    runs = []
+    return {"erf": erf_disagreement(device),
+            "goldens": gateway_goldens(device, runs),
+            "traffic": gateway_traffic(device, runs),
+            "faults": gateway_faults(device, runs),
+            "scale": gateway_scale(device, runs), "counts": runs}
 
 
 def attention_layers(cfg) -> int:
@@ -4416,6 +5007,10 @@ def main() -> int:
     phase.start(f"phase 30: a fleet of {FLEET_LANES} streams on the card")
     fleet = fleet_full(device)
     counted["phase 30"] = fleet.pop("counts")
+
+    phase.start("phase 31: the session gateway on the card")
+    gateway = gateway_phase(device)
+    counted["phase 31"] = gateway.pop("counts")
     phase.start(None)
     say(f"== done in {time.perf_counter() - t_start:.1f} s")
 
@@ -4436,7 +5031,7 @@ def main() -> int:
         "main_path_plain_ms": mp_plain,
         "main_path_bound_ms": mp_bound, "main_path_select_ms": select_ms,
         "version": SELECT_VERSION, "bitwise_cases": n_select_cases,
-        "fleet_goldens": fleet_golden, "fleet": fleet,
+        "fleet_goldens": fleet_golden, "fleet": fleet, "gateway": gateway,
         **{f: timing[f] for f in ("instruction_bound_ms",
                                   "fp64_instructions_per_cell",
                                   "fp64_instructions_per_cell_most",

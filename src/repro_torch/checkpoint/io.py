@@ -1,0 +1,173 @@
+"""Atomic checkpoints of nested trees of arrays (port of
+``repro.checkpoint.io``).
+
+A tree is nested dicts, lists and tuples whose leaves are numpy arrays,
+numpy or Python scalars, or tensors.  :func:`save` writes one
+``arrays.npz`` (leaves ``leaf_0``, ``leaf_1``, ...) and a
+``manifest.json`` that maps each leaf to its ``/``-joined path, in the
+order ``jax.tree_util`` visits leaves: dict keys sorted, sequence items by
+index, ``None`` an empty subtree.  So both packages write the same names
+and read each other's checkpoints.
+
+The write is torn-write safe: the new checkpoint is built in
+``<dir>.tmp``, the live one parked at ``<dir>.old``, the new one promoted
+with ``os.replace`` and only then ``.old`` removed, so a crash at any
+point leaves a complete checkpoint under ``<dir>`` or ``<dir>.old``.
+
+:func:`restore` gives each leaf back in the dtype of the ``like`` tree's
+leaf (float64 stays float64) as a tensor on that leaf's device.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from typing import Any
+
+import numpy as np
+import torch
+
+
+def _leaves(tree, path=()):
+    """``(path, leaf)`` pairs in ``jax.tree_util``'s order."""
+    if tree is None:
+        return
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _leaves(tree[key], path + (str(key),))
+    elif isinstance(tree, (list, tuple)):
+        for i, item in enumerate(tree):
+            yield from _leaves(item, path + (str(i),))
+    else:
+        yield "/".join(path), tree
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def save(directory: str, tree, step: int = 0, extra: dict | None = None
+         ) -> str:
+    """Atomically write ``tree`` under ``directory``.  Safe against a
+    crash at any point: the previous checkpoint survives as
+    ``directory`` or ``<directory>.old`` until the new one is fully
+    promoted.  Returns ``directory``."""
+    tmp = directory + ".tmp"
+    old = directory + ".old"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp, exist_ok=True)
+    arrays = {}
+    manifest = {"step": step, "extra": extra or {}, "leaves": []}
+    for i, (key, leaf) in enumerate(_leaves(tree)):
+        arr = _to_numpy(leaf)
+        name = f"leaf_{i}"
+        arrays[name] = arr
+        manifest["leaves"].append({
+            "name": name, "path": key,
+            "shape": list(arr.shape), "dtype": str(arr.dtype)})
+    np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+    # Never remove the live checkpoint before its replacement exists: park
+    # it at .old, promote tmp, then drop .old.
+    if os.path.exists(old):
+        shutil.rmtree(old)
+    if os.path.exists(directory):
+        os.replace(directory, old)
+    os.replace(tmp, directory)
+    if os.path.exists(old):
+        shutil.rmtree(old)
+    return directory
+
+
+def _resolve(directory: str) -> str:
+    """The live checkpoint dir: ``directory`` if present, else
+    ``<directory>.old`` (a save crashed between park and promote)."""
+    if os.path.exists(directory):
+        return directory
+    old = directory + ".old"
+    if os.path.exists(old):
+        return old
+    return directory
+
+
+def load_manifest(directory: str) -> dict:
+    """The checkpoint's manifest (step, extra, leaf layout), from
+    ``<directory>.old`` if a save was torn."""
+    with open(os.path.join(_resolve(directory), "manifest.json")) as f:
+        return json.load(f)
+
+
+def _like_leaf(arr: np.ndarray, leaf, key: str) -> torch.Tensor:
+    """``arr`` as a tensor shaped, typed and placed as ``leaf``."""
+    if isinstance(leaf, torch.Tensor):
+        dtype, device = leaf.dtype, leaf.device
+        shape = tuple(leaf.shape)
+    else:
+        ref = np.asarray(leaf)
+        dtype = torch.from_numpy(np.zeros(0, ref.dtype)).dtype
+        device, shape = torch.device("cpu"), ref.shape
+    if tuple(arr.shape) != shape:
+        raise ValueError(f"leaf {key}: checkpoint shape {arr.shape} != "
+                         f"model shape {shape}")
+    return torch.from_numpy(arr).to(device=device, dtype=dtype)
+
+
+def restore(directory: str, like) -> tuple[Any, int]:
+    """Restore into the structure of ``like`` (a tree of arrays,
+    scalars or tensors): each leaf comes back as a tensor of the like
+    leaf's shape and dtype on its device (a numpy leaf: the CPU).
+    Returns ``(tree, step)``."""
+    directory = _resolve(directory)
+    manifest = load_manifest(directory)
+    saved = {rec["path"]: rec["name"] for rec in manifest["leaves"]}
+    with np.load(os.path.join(directory, "arrays.npz")) as data:
+        def build(node, path):
+            if node is None:
+                return None
+            if isinstance(node, dict):
+                return {k: build(v, path + (str(k),))
+                        for k, v in node.items()}
+            if isinstance(node, (list, tuple)):
+                items = [build(v, path + (str(i),))
+                         for i, v in enumerate(node)]
+                return items if isinstance(node, list) else tuple(items)
+            key = "/".join(path)
+            if key not in saved:
+                raise KeyError(f"checkpoint missing leaf {key!r}")
+            return _like_leaf(data[saved[key]], node, key)
+
+        tree = build(like, ())
+    return tree, manifest["step"]
+
+
+def restore_tree(directory: str) -> tuple[dict, int]:
+    """Restore a checkpoint as a nested dict of numpy arrays WITHOUT a
+    ``like`` tree, rebuilt from the manifest's ``/``-joined paths (a
+    gateway checkpoint's queue length varies, so no like tree exists);
+    shapes and dtypes are the saved arrays'.  Returns
+    ``(nested_dict, step)``."""
+    directory = _resolve(directory)
+    manifest = load_manifest(directory)
+    tree: dict = {}
+    with np.load(os.path.join(directory, "arrays.npz")) as data:
+        for rec in manifest["leaves"]:
+            parts = rec["path"].split("/")
+            node = tree
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = data[rec["name"]]
+    return tree, manifest["step"]
+
+
+def latest_step(directory: str) -> int | None:
+    """Step recorded in the checkpoint under ``directory`` (or its
+    ``.old`` fallback); ``None`` when no checkpoint exists."""
+    try:
+        return load_manifest(directory)["step"]
+    except (FileNotFoundError, KeyError):
+        return None

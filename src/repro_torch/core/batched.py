@@ -416,9 +416,32 @@ class WindowedGoalBank:
             self.goal = g
         self._clear(sel)
 
-    def grow(self, n_streams: int) -> None:
-        """Extend the bank to ``n_streams`` lanes with fresh windows and a
-        zero goal (admission installs the real one)."""
+    _lane_state = (("goal", "goal"), ("buf", "_buf"), ("count", "_count"),
+                   ("pos", "_pos"))
+
+    def export_lanes(self, lanes) -> dict:
+        """Snapshot ``lanes``' window state as host numpy arrays (keys
+        ``goal``, ``buf``, ``count``, ``pos``, as the reference's): the
+        page-out half of session paging, bitwise round-trippable through
+        :meth:`import_lanes`."""
+        idx = torch.as_tensor(np.asarray(lanes, np.int64), device=self.device)
+        return {key: getattr(self, attr)[idx].cpu().numpy()
+                for key, attr in self._lane_state}
+
+    def import_lanes(self, lanes, state: dict) -> None:
+        """Restore an :meth:`export_lanes` snapshot into ``lanes`` (the
+        page-in half of session paging): same-shape indexed writes on the
+        device, bitwise lossless."""
+        idx = torch.as_tensor(np.asarray(lanes, np.int64), device=self.device)
+        for key, attr in self._lane_state:
+            t = getattr(self, attr).clone()
+            t[idx] = torch.as_tensor(np.asarray(state[key]), dtype=t.dtype,
+                                     device=self.device)
+            setattr(self, attr, t)
+
+    def grow(self, n_streams: int, goal_fill: float = 0.0) -> None:
+        """Extend the bank to ``n_streams`` lanes with fresh windows and
+        goal ``goal_fill`` (admission installs the real one)."""
         extra = int(n_streams) - self.goal.shape[0]
         if extra <= 0:
             return
@@ -428,7 +451,7 @@ class WindowedGoalBank:
                               dtype=x.dtype, device=self.device)
             return torch.cat([x, fill])
 
-        self.goal = pad(self.goal, 0.0)
+        self.goal = pad(self.goal, float(goal_fill))
         self._buf = pad(self._buf, 0.0)
         self._count = pad(self._count, 0)
         self._pos = pad(self._pos, 0)

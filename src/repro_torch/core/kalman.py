@@ -10,14 +10,18 @@ stream.  :class:`SlowdownFilterBank` and :class:`IdlePowerFilterBank` hold
 the same state for S streams as ``[S]`` float64 tensors on the device and
 apply the identical recurrences to every lane; :func:`observe_fleet` runs
 both banks' masked updates as one tick's feedback step.  Lane-pool
-operations (:meth:`reset_lanes`, :meth:`grow`) recycle or add lanes for
-churning fleets.  Bank updates replace the state tensors (no in-place
-writes), so a caller's earlier reference to ``bank.mu`` is never mutated.
+operations (:meth:`reset_lanes`, :meth:`grow`, :meth:`shrink`) recycle,
+add or drop lanes for churning fleets; :meth:`export_lanes` and
+:meth:`import_lanes` page a session's state out to the host and back.
+Bank updates replace the state tensors (no in-place writes), so a
+caller's earlier reference to ``bank.mu`` is never mutated.
+:class:`ScalarKalman` is the straggler monitor's generic filter.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -161,10 +165,35 @@ class _LaneBank:
                 raise ValueError(f"{what} must be positive")
         return torch.where(mask, self._vec(values), 1.0)
 
+    def _lane_index(self, lanes) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(lanes, np.int64),
+                               device=self.device)
+
+    def export_lanes(self, lanes) -> dict:
+        """Snapshot ``lanes``' full filter state as host numpy arrays, one
+        ``[len(lanes)]`` entry per ``_state_names`` tensor plus
+        ``n_updates`` (the reference's keys): the page-out half of session
+        paging.  One gather on the device and one copy back a tensor;
+        :meth:`import_lanes` restores the snapshot bitwise."""
+        idx = self._lane_index(lanes)
+        return {name: getattr(self, name)[idx].cpu().numpy()
+                for name in self._state_names + ("n_updates",)}
+
+    def import_lanes(self, lanes, state: dict) -> None:
+        """Restore an :meth:`export_lanes` snapshot into ``lanes``: the
+        page-in half of session paging, a same-shape indexed write of
+        each state tensor on the device (bitwise lossless)."""
+        idx = self._lane_index(lanes)
+        for name in self._state_names + ("n_updates",):
+            t = getattr(self, name).clone()
+            t[idx] = torch.as_tensor(np.asarray(state[name]), dtype=t.dtype,
+                                     device=self.device)
+            setattr(self, name, t)
+
     def reset_lanes(self, lanes) -> None:
         """Reinitialise ``lanes`` (host indices) to the filter priors:
         stream admission into a recycled lane, same ``[S]`` shape."""
-        idx = torch.as_tensor(np.asarray(lanes, np.int64), device=self.device)
+        idx = self._lane_index(lanes)
         for name, prior in zip(self._state_names, self._priors()):
             state = getattr(self, name).clone()
             state[idx] = prior
@@ -185,6 +214,12 @@ class _LaneBank:
         self.n_updates = torch.cat(
             [self.n_updates,
              torch.zeros(extra, dtype=torch.int64, device=self.device)])
+
+    def shrink(self, n_streams: int) -> None:
+        """Truncate capacity to the first ``n_streams`` lanes."""
+        s = int(n_streams)
+        for name in self._state_names + ("n_updates",):
+            setattr(self, name, getattr(self, name)[:s].clone())
 
 
 class SlowdownFilterBank(_LaneBank):
@@ -291,3 +326,30 @@ def observe_fleet(slow: SlowdownFilterBank, idle: IdlePowerFilterBank,
         *idle._step_args(idle_power, active_power, m))
     slow.n_updates = slow.n_updates + m
     idle.n_updates = idle.n_updates + m
+
+
+@dataclasses.dataclass
+class ScalarKalman:
+    """Generic scalar Kalman filter (random-walk model), used by the
+    straggler monitor of :mod:`repro_torch.runtime.straggler`: one filter
+    per host tracking that host's step-time ratio, the paper's xi
+    mechanism at pod scale."""
+
+    mean: float = 1.0
+    variance: float = 0.1
+    process_noise: float = 1e-3
+    meas_noise: float = 1e-2
+
+    def observe(self, value: float) -> float:
+        """One predict+update step on a scalar measurement; returns the
+        posterior mean."""
+        prior_var = self.variance + self.process_noise
+        gain = prior_var / (prior_var + self.meas_noise)
+        self.mean = self.mean + gain * (value - self.mean)
+        self.variance = (1.0 - gain) * prior_var
+        return self.mean
+
+    @property
+    def std(self) -> float:
+        """Posterior standard deviation (variance floored at 1e-12)."""
+        return math.sqrt(max(self.variance, 1e-12))

@@ -1,6 +1,8 @@
 """The fleet simulator's scenarios: the image family's profile table, its
-deadlines, the golden scenario of ``tests/golden_traces.json`` and a
-heterogeneous, churning fleet of tenants.
+deadlines, the golden scenarios of ``tests/golden_traces.json``, a
+heterogeneous, churning fleet of tenants, and the session gateway's
+workloads: its two goldens and the reference benchmark's recorded traffic
+cells.
 
 The port's own copy of the reference benchmarks' ``family_table("image")``
 and ``deadline_range``, number for number: latencies come from each
@@ -19,7 +21,10 @@ from repro_torch.core.power import PowerModel
 from repro_torch.core.profiles import (Candidate, ProfileTable,
                                        profile_from_roofline)
 from repro_torch.kernels.nested_matmul import nested_matmul_flops
-from repro_torch.serving.sim import ENVS, EnvironmentTrace, StreamSpec
+from repro_torch.serving.sim import (CPU_ENV, ENVS, MEMORY_ENV,
+                                     EnvironmentTrace, StreamSpec)
+from repro_torch.traffic import (FaultSchedule, LaneStraggler,
+                                 PoissonProcess, TenantSpec, build_sessions)
 
 # The image family (arch, task accuracy), one input of 512 tokens, the
 # power model and its 8 buckets, and q_fail.
@@ -35,6 +40,11 @@ N_POWER = 8
 # E_goal = 170 W * T_goal.
 GOLDEN_SEED = 1
 GOLDEN_BUDGET_W = 170.0
+# The reference benchmark's traffic cell: 1024 sessions over 256 lanes at
+# loads 0.5-24 of the rate that fills half the lanes, load i seeded
+# 5 + 7919 i (as its load sweep does).
+TRAFFIC_SESSIONS, TRAFFIC_LANES, TRAFFIC_SEED = 1024, 256, 5
+TRAFFIC_LOADS = (0.5, 2.0, 8.0, 24.0)
 
 
 def _cost(arch: str) -> tuple[float, float]:
@@ -99,3 +109,90 @@ def fleet_specs(table: ProfileTable, lanes: int) -> list[StreamSpec]:
                                  deadline_cv=0.1)
         specs.append(StreamSpec(trace, goal, cons, arrival=s % 100))
     return specs
+
+
+def golden_gateway_workload(table: ProfileTable):
+    """``tests/make_golden_traces.py``'s ``gateway_config``: 12 Eq. 4
+    sessions (Q_goal 0.78, CPU contention) and 12 Eq. 5 sessions (170 W,
+    memory contention) at twice the rate 8 lanes saturate, over 12 T_goal,
+    seed 1.  Returns ``(sessions, n_lanes, T_goal)``."""
+    deadline = float(golden_deadline(table, 5)[3])
+    n_lanes, per_tenant = 8, 12
+    rate = 2.0 * (n_lanes / deadline) / (2 * per_tenant)
+    mix = [TenantSpec("minE", Goal.MINIMIZE_ENERGY,
+                      Constraints(deadline=deadline, accuracy_goal=0.78),
+                      PoissonProcess(rate), n_sessions=per_tenant,
+                      phases=CPU_ENV),
+           TenantSpec("maxA", Goal.MAXIMIZE_ACCURACY,
+                      Constraints.from_power_budget(deadline,
+                                                    GOLDEN_BUDGET_W),
+                      PoissonProcess(rate), n_sessions=per_tenant,
+                      phases=MEMORY_ENV)]
+    return build_sessions(mix, 12 * deadline, seed=GOLDEN_SEED), n_lanes, \
+        deadline
+
+
+def straggler_workload(table: ProfileTable):
+    """``tests/make_golden_traces.py``'s ``straggler_config``: 8 Eq. 4
+    sessions on 8 lanes (no paging) over 40 T_goal, seed 7, lane 5 ramping
+    to 3x slow from round 10 over 5 rounds.  Returns ``(sessions, n_lanes,
+    T_goal, faults)``."""
+    deadline = float(golden_deadline(table, 5)[3])
+    n_lanes = 8
+    mix = [TenantSpec("t", Goal.MINIMIZE_ENERGY,
+                      Constraints(deadline=deadline, accuracy_goal=0.78),
+                      PoissonProcess(0.8 / deadline), n_sessions=n_lanes,
+                      phases=CPU_ENV)]
+    faults = FaultSchedule(n_lanes, [LaneStraggler(
+        lane=5, start=10 * deadline, magnitude=2.0, ramp_s=5 * deadline)],
+        seed=0)
+    return build_sessions(mix, 40 * deadline, seed=7), n_lanes, deadline, \
+        faults
+
+
+def traffic_mix(table: ProfileTable, n_sessions: int, n_lanes: int,
+                fill: float):
+    """One Eq. 4 tenant class (Q_goal 0.78, T_goal the fourth of the
+    table's five deadlines, CPU contention) of ``n_sessions`` Poisson
+    sessions whose rate fills ``fill`` of ``n_lanes`` lanes.  Returns
+    ``(mix, T_goal, constraints)``."""
+    dl = float(golden_deadline(table, 5)[3])
+    cons = Constraints(deadline=dl, accuracy_goal=0.78)
+    rate = fill * (n_lanes / dl) / n_sessions
+    return [TenantSpec("min-energy", Goal.MINIMIZE_ENERGY, cons,
+                       PoissonProcess(rate), n_sessions=n_sessions,
+                       phases=CPU_ENV)], dl, cons
+
+
+def traffic_sessions(table: ProfileTable, load: float,
+                     n_sessions: int = TRAFFIC_SESSIONS,
+                     n_lanes: int = TRAFFIC_LANES):
+    """The reference benchmark's traffic cell at ``load`` (one of
+    ``TRAFFIC_LOADS``) over 30 T_goal: ``(sessions, T_goal,
+    constraints)``."""
+    mix, dl, cons = traffic_mix(table, n_sessions, n_lanes, 0.5)
+    li = TRAFFIC_LOADS.index(load)
+    return build_sessions([t.scaled(load) for t in mix], 30 * dl,
+                          seed=TRAFFIC_SEED + 7919 * li), dl, cons
+
+
+def gateway_summary(res) -> dict:
+    """``tests/make_golden_traces.py``'s ``summarize_gateway`` of a
+    ``GatewayResult``."""
+    status = res.status
+    return {
+        "offered": int(status.size),
+        "served": int((status == 0).sum()),
+        "rejected_infeasible": int((status == 1).sum()),
+        "rejected_backpressure": int((status == 2).sum()),
+        "good": int(res.good.sum()),
+        "goodput_rps": res.goodput,
+        "energy_sum_j": float(res.energy[status == 0].sum()),
+        "p50_sojourn_s": res.percentile_sojourn(50),
+        "p99_sojourn_s": res.percentile_sojourn(99),
+        "served_miss_rate": res.served_miss_rate,
+        "n_rounds": res.n_rounds,
+        "pages_in": res.pages_in,
+        "pages_out": res.pages_out,
+        "horizon_s": res.horizon,
+    }

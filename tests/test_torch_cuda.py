@@ -1403,3 +1403,126 @@ def test_fleet_launches_alert_select_once_per_tick(cuda_device):
     before = ks.alert_select.launches
     fleet.run_alert(Goal.MINIMIZE_ENERGY, cons)
     assert ks.alert_select.launches - before == fleet.n_ticks
+
+
+# --------------------------------------------------------------------- #
+# The session gateway on the card                                        #
+# --------------------------------------------------------------------- #
+def test_gateway_on_card_reproduces_golden(cuda_device):
+    """``tests/golden_traces.json``'s ``gateway`` summary with ``==`` on
+    the CUDA ``alert_select``, one launch a served round."""
+    import json
+    import os
+
+    from repro_torch.serving.scenarios import (gateway_summary,
+                                               golden_gateway_workload,
+                                               golden_table)
+    from repro_torch.traffic import SessionGateway, generate_requests
+
+    with open(os.path.join(os.path.dirname(__file__),
+                           "golden_traces.json")) as f:
+        want = json.load(f)["gateway"]
+    table = golden_table()
+    sessions, n_lanes, dl = golden_gateway_workload(table)
+    gw = SessionGateway(table, n_lanes, tick=dl, max_queue=4 * n_lanes,
+                        device=cuda_device)
+    before = ks.alert_select.launches
+    res = gw.run(sessions, generate_requests(sessions))
+    assert gw.engine.backend == "cuda"
+    assert gateway_summary(res) == want
+    assert res.select_launches == res.n_rounds == \
+        ks.alert_select.launches - before
+
+
+def test_gateway_on_card_reproduces_straggler_golden(cuda_device):
+    import json
+    import os
+
+    from repro_torch.serving.scenarios import (golden_table,
+                                               straggler_workload)
+    from repro_torch.traffic import (KalmanLaneDetector, SessionGateway,
+                                     generate_requests)
+
+    with open(os.path.join(os.path.dirname(__file__),
+                           "golden_traces.json")) as f:
+        g = json.load(f)["straggler"]
+    table = golden_table()
+    sessions, n_lanes, dl, faults = straggler_workload(table)
+    det = KalmanLaneDetector(n_lanes)
+    SessionGateway(table, n_lanes, tick=dl, device=cuda_device).run(
+        sessions, generate_requests(sessions), faults=faults, detector=det)
+    lane = g["fault_lane"]
+    assert [int(x) for x in np.nonzero(det.tripped)[0]] == g["tripped_lanes"]
+    assert float(det.first_trip_time[lane]) == g["first_trip_time_s"]
+    assert det.detection_latency(lane, g["fault_start_rounds"] * dl) / dl \
+        == g["detection_latency_rounds"]
+
+
+def _gateway_overload(table):
+    """64 Eq. 4 sessions at ~8x the capacity of 16 lanes, tick T_goal/4."""
+    from repro_torch.serving.scenarios import traffic_mix
+    from repro_torch.traffic import build_sessions
+
+    mix, dl, _ = traffic_mix(table, 64, 16, 8.0)
+    return build_sessions(mix, 10 * dl, seed=11), dl
+
+
+@pytest.mark.parametrize("policy", ["alert", "static"])
+def test_gateway_overload_on_card_follows_cpu(cuda_device, policy):
+    """The card's run, every select held bitwise to the plain version on
+    the card (``chip_smoke.held_run``), against the CPU port's
+    (``chip_smoke.hold_to_cpu``): with the card's decisions injected the
+    CPU run is bitwise equal, and each pick the CPU's plain version makes
+    otherwise follows the pick contract; ``alert_select`` once a served
+    round under the controller, never under a fixed config."""
+    from chip_smoke import held_run, hold_to_cpu
+    from repro_torch.serving.scenarios import golden_table
+    from repro_torch.traffic import SessionGateway, generate_requests
+
+    table = golden_table()
+    sessions, dl = _gateway_overload(table)
+    kw = dict(policy=policy,
+              static_config=(2, 3) if policy == "static" else None)
+
+    def make(dev):
+        return SessionGateway(table, 16, tick=dl / 4, max_queue=64,
+                              device=dev)
+
+    def run(gw):
+        return gw.run(sessions, generate_requests(sessions), **kw)
+
+    got, log = held_run(make(cuda_device), run, [])
+    assert got.reject_rate > 0.05 and got.pages_in > 0
+    out = hold_to_cpu(make, run, got, log, f"overload {policy}")
+    assert out["selects"] == (got.n_rounds if policy == "alert" else 0)
+    if policy == "static":
+        assert out["bitwise"]
+    assert got.select_launches == (got.n_rounds if policy == "alert" else 0)
+
+
+def test_gateway_kill_resume_on_card_is_bitwise(cuda_device, tmp_path):
+    from repro_torch.runtime.ft import InjectedFailure
+    from repro_torch.serving.scenarios import golden_table
+    from repro_torch.traffic import (SessionGateway, generate_requests,
+                                     scenario)
+
+    table = golden_table()
+    sessions, dl = _gateway_overload(table)
+    fs = scenario("brownout", 16, start=3 * dl, horizon=10 * dl, seed=11)
+
+    def gw():
+        return SessionGateway(table, 16, tick=dl / 4, max_queue=64,
+                              device=cuda_device)
+
+    want = gw().run(sessions, generate_requests(sessions), faults=fs)
+    ck = str(tmp_path / "ck")
+    with pytest.raises(InjectedFailure):
+        gw().run(sessions, generate_requests(sessions), faults=fs,
+                 checkpoint_dir=ck, checkpoint_every=5, kill_at_round=17)
+    got = gw().resume(sessions, generate_requests(sessions),
+                      checkpoint_dir=ck, faults=fs)
+    for f in ("status", "start", "latency", "sojourn", "missed", "accuracy",
+              "energy", "model_index", "power_index"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    assert (got.n_rounds, got.pages_in, got.pages_out, got.horizon) == \
+        (want.n_rounds, want.pages_in, want.pages_out, want.horizon)

@@ -91,9 +91,10 @@ CHURN = [("cpu", 11, "MINIMIZE_ENERGY", 0, 0, dict(deadline_cv=0.1)),
 
 class Recording:
     """Every ``select`` of both packages' sims during a test, through
-    subclasses of the engine classes the two sim modules name."""
+    subclasses of the engine classes the two modules of ``modules`` (the
+    reference's, the port's; by default the sims) name."""
 
-    def __init__(self, monkeypatch, inject=False):
+    def __init__(self, monkeypatch, inject=False, modules=(js, ts)):
         self.ref, self.port = [], []
         rec = self
 
@@ -117,8 +118,8 @@ class Recording:
                 rec.port.append(out)
                 return out
 
-        monkeypatch.setattr(js, "BatchedAlertEngine", Ref)
-        monkeypatch.setattr(ts, "BatchedAlertEngine", Port)
+        monkeypatch.setattr(modules[0], "BatchedAlertEngine", Ref)
+        monkeypatch.setattr(modules[1], "BatchedAlertEngine", Port)
 
     def picks(self, side):
         runs = self.ref if side == "ref" else self.port
@@ -148,17 +149,25 @@ def assert_follows_reference(rec, got, want):
         if first == ticks:
             continue
         diverged.append(s)
-        r = rec.ref[first]
-        assert r["active"][s]
-        assert r["out"].relaxed_code[s] == jb.RELAXED_ACCURACY, (s, first)
-        eng = r["engine"]
-        t = np.maximum(r["deadline"][s:s + 1] - eng.overhead, 1e-9)
-        est = eng.estimate(r["mu"][s:s + 1], r["sigma"][s:s + 1],
-                           r["phi"][s:s + 1], t)
-        a = est.accuracy[0, jm[first, s], jp[first, s]]
-        b = est.accuracy[0, tm[first, s], tp[first, s]]
-        assert abs(a - b) <= 2 * np.spacing(max(abs(a), abs(b))), (a, b)
+        assert_pick_follows_contract(rec, first, s)
     return diverged
+
+
+def assert_pick_follows_contract(rec, n, s):
+    """Select call ``n``'s pick on lane ``s`` may differ from the
+    reference's only under the pick contract: an active
+    ``RELAXED_ACCURACY`` lane whose two picks' accuracies, as the
+    reference estimates them at its own inputs, lie within 2 ulp."""
+    r, p = rec.ref[n], rec.port[n]
+    assert r["active"][s]
+    assert r["out"].relaxed_code[s] == jb.RELAXED_ACCURACY, (s, n)
+    eng = r["engine"]
+    t = np.maximum(r["deadline"][s:s + 1] - eng.overhead, 1e-9)
+    est = eng.estimate(r["mu"][s:s + 1], r["sigma"][s:s + 1],
+                       r["phi"][s:s + 1], t)
+    a = est.accuracy[0, r["out"].model_index[s], r["out"].power_index[s]]
+    b = est.accuracy[0, p.model_index[s], p.power_index[s]]
+    assert abs(a - b) <= 2 * np.spacing(max(abs(a), abs(b))), (a, b)
 
 
 def assert_results_equal(got, want, fields=FIELDS + ("budget",)):
