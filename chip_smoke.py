@@ -337,6 +337,7 @@ H100_HBM_BYTES_S = 3.35e12
 
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/alert_select.cu"
 KERNEL_REPLACES = "src/repro/kernels/alert_select.py:164"
+KERNEL_CU = ROOT / KERNEL_SOURCE
 NM_SOURCE = "src/repro_torch/kernels/csrc/nested_matmul.cu"
 NM_REPLACES = "src/repro/kernels/nested_matmul.py:81"
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -788,14 +789,15 @@ def select_cases(device, sizes=(1, 7, 257, 4097),
 
 
 # One call of each FP64 function alert_select runs per cell, compiled
-# alone so its instructions can be counted in the SASS.
+# alone so its instructions can be counted in the SASS: the kernel's own
+# alert_erf and alert_exp (appended to its source, which the probe file
+# includes) and a division.
 FP64_PROBES = r"""
-#include <math.h>
 extern "C" __global__ void probe_erf(const double* x, double* y) {
-  y[threadIdx.x] = erf(x[threadIdx.x]);
+  y[threadIdx.x] = alert_erf(x[threadIdx.x]);
 }
 extern "C" __global__ void probe_exp(const double* x, double* y) {
-  y[threadIdx.x] = exp(x[threadIdx.x]);
+  y[threadIdx.x] = alert_exp(x[threadIdx.x]);
 }
 extern "C" __global__ void probe_div(const double* x, double* y) {
   y[threadIdx.x] = __ddiv_rn(x[threadIdx.x], x[threadIdx.x + 32]);
@@ -862,8 +864,9 @@ def sass_fp64_paths(body: str) -> tuple[int, int]:
 
 
 def fp64_instruction_counts() -> dict:
-    """FP64 instructions of ``erf``, ``exp`` and ``__ddiv_rn`` on sm_90a,
-    read from the SASS of one call of each (``nvcc -cubin``,
+    """FP64 instructions of ``alert_erf``, ``alert_exp`` (the kernel's,
+    from ``csrc/alert_select.cu``) and ``__ddiv_rn`` on sm_90a, read from
+    the SASS of one call of each (``nvcc -cubin``,
     ``cuobjdump -sass``): for each, the fewest and the most on a path of
     the inline code to ``EXIT`` (:func:`sass_fp64_paths`; the
     out-of-line slow path of the division does not count)."""
@@ -876,7 +879,7 @@ def fp64_instruction_counts() -> dict:
     with tempfile.TemporaryDirectory(dir=SRC / "repro_torch" / "kernels"
                                      / "_build") as tmp:
         src, cubin = Path(tmp) / "probe.cu", Path(tmp) / "probe.cubin"
-        src.write_text(FP64_PROBES)
+        src.write_text(f'#include "{KERNEL_CU}"\n' + FP64_PROBES)
         subprocess.run([str(nvcc), "-cubin", "-gencode",
                         "arch=compute_90a,code=sm_90a", "-O3", "-o",
                         str(cubin), str(src)], check=True,
@@ -3479,9 +3482,23 @@ class FleetRecorder:
         the copies' ms and count; ``host_ms``, the window's host time a
         tick, and ``idle_share``, the share of it the card was not busy.
         Empty where the profiler recorded no device time."""
-        out = {"select_ms": 0.0, "kernels_ms": 0.0, "kernels": 0,
-               "copies_ms": 0.0, "copies": 0}
-        for ev in self.prof.key_averages():
+        ticks = len(self.profiled)
+        out = {k: v / ticks for k, v in device_time(self.prof).items()}
+        if not out["busy_ms"]:
+            return {}
+        out["host_ms"] = self.window_s * 1e3 / ticks
+        out["idle_share"] = 1.0 - out["busy_ms"] / out["host_ms"]
+        return out
+
+
+def device_time(*profs) -> dict:
+    """The device work ``torch.profiler`` recorded in ``profs``:
+    ``alert_select``'s ms, the other kernels' ms and count, the copies' ms
+    and count, and ``busy_ms``, their sum."""
+    out = {"select_ms": 0.0, "kernels_ms": 0.0, "kernels": 0,
+           "copies_ms": 0.0, "copies": 0}
+    for prof in profs:
+        for ev in prof.key_averages():
             us = getattr(ev, "self_device_time_total", None)
             if us is None:
                 us = ev.self_cuda_time_total
@@ -3495,15 +3512,8 @@ class FleetRecorder:
             else:
                 out["kernels_ms"] += us / 1e3
                 out["kernels"] += ev.count
-        ticks = len(self.profiled)
-        out = {k: v / ticks for k, v in out.items()}
-        out["busy_ms"] = out["select_ms"] + out["kernels_ms"] + \
-            out["copies_ms"]
-        if not out["busy_ms"]:
-            return {}
-        out["host_ms"] = self.window_s * 1e3 / ticks
-        out["idle_share"] = 1.0 - out["busy_ms"] / out["host_ms"]
-        return out
+    out["busy_ms"] = out["select_ms"] + out["kernels_ms"] + out["copies_ms"]
+    return out
 
 
 def sync_ms(fn, sync, reps: int = FLEET_REPS) -> float:
@@ -3803,9 +3813,10 @@ def hold_to_cpu(make, run, got, log: dict, what: str) -> dict:
     otherwise than the card's kernel (a pick or a relaxed code), the pick
     contract must hold: an active ``RELAXED_ACCURACY`` lane on both whose
     two picks' accuracies, as the CPU estimates them at the common
-    inputs, lie within 2 ulp (float64 ``torch.erf`` differs between the
-    CPU and CUDA in the last bit).  ``bitwise``: no decision differed, so
-    the CPU's own run is the card's."""
+    inputs, lie within 2 ulp.  With the port's own ``erf`` on both
+    devices no decision differs; the contract stays as the check's
+    fallback.  ``bitwise``: no decision differed, so the CPU's own run is
+    the card's."""
     import numpy as np
     import torch
 
@@ -4233,20 +4244,29 @@ def gateway_scale(device, runs: list, n_sessions: int = SCALE_SESSIONS,
 def erf_disagreement(device, n: int = 200_001) -> dict:
     """Float64 ``torch.erf`` on ``device`` against the CPU's at ``n``
     points of [-8, 8] (the Eq. 7 range): how many differ and by how many
-    ulp at most.  The kernel's ``erf`` is the card's, so these are the
-    points where the CPU's plain version may score a cell one bit away."""
+    ulp at most; then the port's own ``erf`` (``kernels/alert_select.py``,
+    what the plain version and the kernel run), which must differ at no
+    point: it is one sequence of correctly rounded operations on both."""
     import numpy as np
     import torch
+
+    from repro_torch.kernels import alert_select as ks
 
     z = torch.linspace(-8.0, 8.0, n, dtype=torch.float64)
     got = torch.erf(z.to(device)).cpu().numpy()
     want = torch.erf(z).numpy()
     ulp = np.abs(got - want) / np.spacing(np.abs(want))
+    mine = ks.erf(z.to(device)).cpu().view(torch.int64)
+    port_differ = int((mine != ks.erf(z).view(torch.int64)).sum())
     out = {"points": n, "differ": int((got != want).sum()),
-           "max_ulp": float(ulp.max())}
+           "max_ulp": float(ulp.max()), "port_differ": port_differ}
     say(f"  float64 torch.erf on the {device.type} against the CPU at {n} "
         f"points of [-8, 8]: {out['differ']} differ, at most "
-        f"{out['max_ulp']:.3g} ulp")
+        f"{out['max_ulp']:.3g} ulp; the port's erf: {port_differ} differ")
+    if port_differ:
+        raise SmokeFailure(f"the port's erf differs between the "
+                           f"{device.type} and the CPU at {port_differ} "
+                           f"points")
     return out
 
 
@@ -4259,6 +4279,392 @@ def gateway_phase(device) -> dict:
             "traffic": gateway_traffic(device, runs),
             "faults": gateway_faults(device, runs),
             "scale": gateway_scale(device, runs), "counts": runs}
+
+
+# --------------------------------------------------------------------- #
+# phase 32: the megatick on the card                                     #
+# --------------------------------------------------------------------- #
+# (c)'s timed repetitions (the reference's bench_obs takes 3) and (b)'s.
+MT_OBS_REPS = 3
+MT_REPS = 2
+# (d) and (e): bench_traffic's cell at the megatick's tick (T_goal).
+MT_SWEEP_SCHEMES = ("alert", "oracle_static")
+
+
+def megatick_golden(device, runs: list) -> dict:
+    """Phase 32 (a): the gateway golden's workload through
+    ``MegatickGateway`` on ``device`` (chunks of 4 rounds, so the run
+    replays one graph three times and runs no pad round): the summary
+    must equal ``tests/golden_traces.json``'s ``gateway`` entry with
+    ``==``, with one ``alert_select`` launch a round."""
+    from repro_torch.serving.scenarios import (gateway_summary,
+                                               golden_gateway_workload,
+                                               golden_table)
+    from repro_torch.traffic import MegatickGateway, generate_requests
+
+    golden = json.loads((ROOT / "tests" / "golden_traces.json").read_text())
+    table = golden_table()
+    sessions, n_lanes, dl = golden_gateway_workload(table)
+    gw = MegatickGateway(table, n_lanes, tick=dl, max_queue=4 * n_lanes,
+                         chunk=4, device=device)
+    res = counted_run(lambda: gw.run(sessions, generate_requests(sessions)),
+                      runs)
+    got = gateway_summary(res)
+    if got != golden["gateway"]:
+        raise SmokeFailure(f"megatick golden: {got} != {golden['gateway']}")
+    check_select_launches(res, runs[-1], device, "megatick golden")
+    nodes = [len(graph_kernels(g)) for g in gw.chunk_graphs()] \
+        if device.type == "cuda" else []
+    say(f"  golden gateway through the megatick: equal to the fixture with "
+        f"==; {res.n_rounds} rounds, alert_select launched "
+        f"{res.select_launches} times; n_compiles {gw.n_compiles()}; "
+        f"kernel nodes of the 4-round graph {nodes}")
+    return {"summary": got, "select_launches": res.select_launches,
+            "n_compiles": list(gw.n_compiles()), "graph_kernel_nodes": nodes}
+
+
+def megatick_profiled(gw, run):
+    """``run(gw)`` with its chunk dispatches (the host's buffer fill,
+    copies in, replay, copies out) under ``torch.profiler``: ``(result,
+    device split)``, the split the card's busy ms (kernels and copies)
+    over the dispatches' host time (timed inside the profiler, without
+    its start and stop) and the idle share; empty where no device time
+    was recorded."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    base = gw._dispatch
+    window = [0.0]
+    profs = []
+
+    def dispatch(ch, plan, lo):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ys = base(ch, plan, lo)          # ends in a sync
+            window[0] += time.perf_counter() - t0
+        profs.append(prof)
+        return ys
+
+    gw._dispatch = dispatch
+    try:
+        res = run(gw)
+    finally:
+        del gw._dispatch
+    out = device_time(*profs)
+    if not out["busy_ms"]:
+        return res, {}
+    out["window_ms"] = window[0] * 1e3
+    out["idle_share"] = 1.0 - out["busy_ms"] / out["window_ms"]
+    out["dispatches"] = len(profs)
+    return res, out
+
+
+def megatick_scale(device, runs: list) -> dict:
+    """Phase 32 (b): the reference's ``bench_megatick`` cell at full size
+    (100,000 sessions over 4096 lanes, 48 rounds of T_goal, one chunk of
+    48): the megatick on ``device`` (its first run captures the graph,
+    then ``MT_REPS`` timed runs, the least kept), ``graphs=False`` on the
+    same device, the megatick on the CPU and the host gateway on the
+    device: every result bitwise equal to the graphed run's.  Prints
+    ``plan_s``, ``scan_s``, the rates, the graph's kernel nodes, the
+    card's busy time and idle share over a profiled run's replay and
+    ``n_compiles``."""
+    import torch
+
+    from repro_torch.serving.scenarios import (MEGATICK_LANES,
+                                               MEGATICK_ROUNDS,
+                                               MEGATICK_SEED,
+                                               MEGATICK_SESSIONS,
+                                               golden_table,
+                                               saturating_sessions)
+    from repro_torch.traffic import (MegatickGateway, SessionGateway,
+                                     generate_requests)
+
+    card = device.type == "cuda"
+    table = golden_table()
+    n_lanes, rounds = MEGATICK_LANES, MEGATICK_ROUNDS
+    t0 = time.perf_counter()
+    sessions, dl = saturating_sessions(table, MEGATICK_SESSIONS, n_lanes,
+                                       rounds, MEGATICK_SEED)
+    requests = generate_requests(sessions)
+    build_s = time.perf_counter() - t0
+
+    def make(dev, graphs=True):
+        return MegatickGateway(table, n_lanes, tick=dl,
+                               max_queue=4 * n_lanes, chunk=rounds,
+                               device=dev, graphs=graphs)
+
+    def run(g):
+        return g.run(sessions, requests)
+
+    mega = make(device)
+    t0 = time.perf_counter()
+    first = counted_run(lambda: run(mega), runs)
+    first_s = time.perf_counter() - t0
+    check_select_launches(first, runs[-1], device, "megatick first run")
+    plan_s = scan_s = float("inf")
+    for _ in range(MT_REPS):
+        res = counted_run(lambda: run(mega), runs)
+        check_select_launches(res, runs[-1], device, "megatick run")
+        same_gateway_result(res, first, "megatick run again")
+        plan_s = min(plan_s, mega.last_plan_s)
+        scan_s = min(scan_s, mega.last_scan_s)
+    busy = {}
+    if card:
+        res, busy = megatick_profiled(mega, run)
+        same_gateway_result(res, first, "megatick profiled run")
+    nodes = graph_kernels(mega.chunk_graphs()[0]) if card else []
+    n_select_nodes = sum("alert_select" in name for name, _ in nodes)
+    if card and n_select_nodes != rounds:
+        raise SmokeFailure(f"the megatick graph holds {n_select_nodes} "
+                           f"alert_select nodes for {rounds} rounds")
+    checks = {}
+    for name, g in (("graphs=False", make(device, graphs=False)),
+                    ("cpu", make(torch.device("cpu")))):
+        t0 = time.perf_counter()
+        got = counted_run(lambda: run(g), runs)
+        checks[name] = {"run_s": time.perf_counter() - t0,
+                        "scan_s": g.last_scan_s}
+        same_gateway_result(got, first, f"megatick {name}")
+        check_select_launches(got, runs[-1], g.device, f"megatick {name}")
+    host = SessionGateway(table, n_lanes, tick=dl, max_queue=4 * n_lanes,
+                          device=device)
+    t0 = time.perf_counter()
+    got = counted_run(lambda: run(host), runs)
+    host_s = time.perf_counter() - t0
+    same_gateway_result(got, first, "the host gateway")
+    check_select_launches(got, runs[-1], device, "the host gateway")
+    smi = nvidia_smi_line() if card else "cpu"
+    n = first.n_rounds
+    out = {"sessions": len(sessions), "lanes": n_lanes, "rounds": n,
+           "offered": first.offered, "served": int(first.served.sum()),
+           "pages_in": first.pages_in, "pages_out": first.pages_out,
+           "build_s": build_s, "first_run_s": first_s, "plan_s": plan_s,
+           "scan_s": scan_s, "round_ms": scan_s / n * 1e3,
+           "round_clock_rounds_per_s": n / scan_s,
+           "end_to_end_rounds_per_s": n / (plan_s + scan_s),
+           "host_s": host_s, "host_rounds_per_s": n / host_s,
+           "speedup_round_clock": host_s / scan_s,
+           "speedup_end_to_end": host_s / (plan_s + scan_s),
+           "graph_kernel_nodes": len(nodes),
+           "graph_select_nodes": n_select_nodes,
+           "n_compiles": list(mega.n_compiles()), "checks": checks,
+           "device": busy, "nvidia_smi": smi}
+    say(f"  bench_megatick: {len(sessions)} sessions over {n_lanes} lanes, "
+        f"{first.offered} requests, {out['served']} served in {n} rounds "
+        f"({first.pages_in} pages in, {first.pages_out} out); sessions "
+        f"built in {build_s:.3f} s; first run (capture) {first_s:.3f} s")
+    say(f"  plan_s {plan_s:.6f}, scan_s {scan_s:.6f} (least of {MT_REPS}): "
+        f"a round {out['round_ms']:.6f} ms on the round clock, "
+        f"{out['round_clock_rounds_per_s']:.3f} rounds/s, end to end "
+        f"{out['end_to_end_rounds_per_s']:.3f} rounds/s; the host gateway "
+        f"on the {device.type} {host_s:.3f} s, "
+        f"{out['host_rounds_per_s']:.3f} rounds/s (round clock "
+        f"{out['speedup_round_clock']:.2f}x, end to end "
+        f"{out['speedup_end_to_end']:.2f}x) [{smi}]")
+    say(f"  bitwise equal: two timed runs, graphs=False "
+        f"({checks['graphs=False']['run_s']:.3f} s), the CPU "
+        f"({checks['cpu']['run_s']:.3f} s), the host gateway; graph: "
+        f"{len(nodes)} kernel nodes, {n_select_nodes} alert_select; "
+        f"n_compiles {mega.n_compiles()}")
+    if busy:
+        say(f"  the card over the replay (torch.profiler, "
+            f"{busy['dispatches']} dispatch): busy {busy['busy_ms']:.6f} ms "
+            f"of {busy['window_ms']:.6f} ms on the host clock (idle share "
+            f"{busy['idle_share']:.4f}): alert_select "
+            f"{busy['select_ms']:.6f} ms, {busy['kernels']} other kernels "
+            f"{busy['kernels_ms']:.6f} ms, {busy['copies']} copies "
+            f"{busy['copies_ms']:.6f} ms [{smi}]")
+    elif card:
+        say("  the card's busy time: not measured (torch.profiler recorded "
+            "no device time)")
+    return out
+
+
+def megatick_obs(device, runs: list) -> dict:
+    """Phase 32 (c): the reference's ``bench_obs`` cell (20,000 sessions
+    over 1024 lanes, 24 rounds, one chunk of 24) through three megatick
+    gateways on ``device``: bare, a disabled recorder and a full one, each
+    run once (capture) and ``MT_OBS_REPS`` times more, interleaved.
+    Every result bitwise equal to the bare run; the ring has seen
+    ``(1 + reps) x rounds`` rounds; prints the least scan times and the
+    overhead ratios."""
+    from repro_torch.obs import FlightRecorder
+    from repro_torch.serving.scenarios import (OBS_LANES, OBS_ROUNDS,
+                                               OBS_SEED, OBS_SESSIONS,
+                                               golden_table,
+                                               saturating_sessions)
+    from repro_torch.traffic import MegatickGateway, generate_requests
+
+    table = golden_table()
+    sessions, dl = saturating_sessions(table, OBS_SESSIONS, OBS_LANES,
+                                       OBS_ROUNDS, OBS_SEED)
+    requests = generate_requests(sessions)
+    recorders = {"bare": None, "disabled": FlightRecorder(enabled=False),
+                 "instrumented": FlightRecorder()}
+    gws = {name: MegatickGateway(table, OBS_LANES, tick=dl,
+                                 max_queue=4 * OBS_LANES, chunk=OBS_ROUNDS,
+                                 device=device, obs=obs)
+           for name, obs in recorders.items()}
+    results = {}
+    scan_s = {name: float("inf") for name in gws}
+    for rep in range(1 + MT_OBS_REPS):
+        for name, gw in gws.items():
+            results[name] = counted_run(
+                lambda: gw.run(sessions, requests), runs)
+            check_select_launches(results[name], runs[-1], device,
+                                    f"bench_obs {name}")
+            if rep:
+                scan_s[name] = min(scan_s[name], gw.last_scan_s)
+    for name in ("disabled", "instrumented"):
+        same_gateway_result(results[name], results["bare"],
+                            f"bench_obs {name}")
+    ring = recorders["instrumented"].ring
+    n = results["bare"].n_rounds
+    if ring.n_seen != (1 + MT_OBS_REPS) * n:
+        raise SmokeFailure(f"bench_obs: the ring saw {ring.n_seen} rounds, "
+                           f"not {(1 + MT_OBS_REPS) * n}")
+    out = {"sessions": len(sessions), "lanes": OBS_LANES, "rounds": n,
+           "offered": results["bare"].offered, "scan_s": scan_s,
+           "overhead_ratio": scan_s["instrumented"] / scan_s["bare"],
+           "disabled_overhead_ratio": scan_s["disabled"] / scan_s["bare"],
+           "ring_rounds_seen": ring.n_seen,
+           "n_metrics": len(recorders["instrumented"].metrics),
+           "n_spans": len(recorders["instrumented"].spans),
+           "n_compiles": {k: list(g.n_compiles()) for k, g in gws.items()}}
+    say(f"  bench_obs: {len(sessions)} sessions over {OBS_LANES} lanes, "
+        f"{n} rounds; bare, disabled and instrumented bitwise equal; the "
+        f"ring saw {ring.n_seen} rounds; least scan_s of {MT_OBS_REPS}: "
+        + ", ".join(f"{k} {v:.6f}" for k, v in scan_s.items())
+        + f"; overhead ratio {out['overhead_ratio']:.4f} (disabled "
+        f"{out['disabled_overhead_ratio']:.4f})")
+    return out
+
+
+def megatick_faults(device, runs: list, load: float = GW_FAULT_LOAD) -> dict:
+    """Phase 32 (d): ``bench_traffic``'s workload at ``load`` at the
+    megatick's tick (T_goal) under ``scenario("device_loss")`` and
+    ``scenario("brownout")``, through the megatick and the host gateway on
+    ``device``: bitwise equal."""
+    from repro_torch.serving.scenarios import (TRAFFIC_LANES, golden_table,
+                                               traffic_sessions)
+    from repro_torch.traffic import (MegatickGateway, SessionGateway,
+                                     generate_requests, scenario)
+
+    table = golden_table()
+    lanes = TRAFFIC_LANES
+    sessions, dl, _ = traffic_sessions(table, load)
+    # 30 T_goal at tick T_goal: 30 rounds, one chunk, no pad round.
+    mega = MegatickGateway(table, lanes, tick=dl, max_queue=4 * lanes,
+                           chunk=30, device=device)
+    host = SessionGateway(table, lanes, tick=dl, max_queue=4 * lanes,
+                          device=device)
+    out = {}
+    for kind in ("device_loss", "brownout"):
+        fs = scenario(kind, lanes, start=4 * dl, horizon=30 * dl, seed=11,
+                      n_devices=4)
+        got = counted_run(lambda: mega.run(
+            sessions, generate_requests(sessions), faults=fs), runs)
+        check_select_launches(got, runs[-1], device, f"megatick {kind}",
+                              rounds=-(-got.n_rounds // 30) * 30)
+        want = counted_run(lambda: host.run(
+            sessions, generate_requests(sessions), faults=fs), runs)
+        same_gateway_result(got, want, f"megatick {kind} against the host "
+                            f"gateway")
+        out[kind] = gateway_row(got)
+        say(f"  {kind} at load {load}, tick T_goal: megatick bitwise equal "
+            f"to the host gateway: {out[kind]}")
+    return out
+
+
+def megatick_sweep(device, runs: list) -> dict:
+    """Phase 32 (e): ``sweep_loads`` over ``bench_traffic``'s cell (1024
+    sessions over 256 lanes, loads 0.5, 2, 8 and 24, 30 T_goal, seed 5)
+    at tick T_goal, ``alert`` and ``oracle_static``, with
+    ``gateway="megatick"`` and ``gateway="host"`` on ``device``: the
+    records equal float for float but for the ``gateway`` tag and the
+    program count, which stays flat, one program a scheme.  The sweep's
+    megatick runs the default chunk, so its ``alert_select`` launches are
+    its rounds padded to a chunk multiple (the pad rounds run with every
+    lane dead)."""
+    import inspect
+
+    from repro_torch.traffic import MegatickGateway
+    from repro_torch.serving.scenarios import (TRAFFIC_LANES, TRAFFIC_LOADS,
+                                               TRAFFIC_SEED,
+                                               TRAFFIC_SESSIONS,
+                                               golden_table, traffic_mix)
+    from repro_torch.traffic import sweep_loads
+
+    table = golden_table()
+    mix, dl, _ = traffic_mix(table, TRAFFIC_SESSIONS, TRAFFIC_LANES, 0.5)
+    kw = dict(n_lanes=TRAFFIC_LANES, horizon=30 * dl, seed=TRAFFIC_SEED,
+              max_queue=4 * TRAFFIC_LANES, tick=dl,
+              schemes=MT_SWEEP_SCHEMES, device=device)
+    rows, secs = {}, {}
+    for gateway in ("megatick", "host"):
+        t0 = time.perf_counter()
+        rows[gateway] = counted_run(lambda: sweep_loads(
+            table, mix, TRAFFIC_LOADS, gateway=gateway, **kw), runs)
+        secs[gateway] = time.perf_counter() - t0
+        chunk = inspect.signature(MegatickGateway).parameters[
+            "chunk"].default if gateway == "megatick" else 1
+        served = sum(-(-r["schemes"]["alert"]["n_rounds"] // chunk) * chunk
+                     for r in rows[gateway])
+        want = served if device.type == "cuda" else 0
+        if runs[-1]["alert_select"] != want:
+            raise SmokeFailure(f"sweep {gateway}: alert_select launched "
+                               f"{runs[-1]['alert_select']} times over "
+                               f"{served} alert rounds run")
+
+    def strip(rs):
+        return [{**r, "schemes": {s: {k: v for k, v in rec.items()
+                                      if k not in ("gateway", "n_compiles")}
+                                  for s, rec in r["schemes"].items()}}
+                for r in rs]
+
+    if strip(rows["megatick"]) != strip(rows["host"]):
+        raise SmokeFailure("sweep: the megatick's records differ from the "
+                           "host gateway's")
+    compiles = {s: [r["schemes"][s]["n_compiles"] for r in rows["megatick"]]
+                for s in MT_SWEEP_SCHEMES}
+    for s, c in compiles.items():
+        if any(x != [0, 1] for x in c):
+            raise SmokeFailure(f"sweep {s}: n_compiles {c}, not flat at "
+                               f"[0, 1]")
+    out = {"loads": list(TRAFFIC_LOADS), "seconds": secs,
+           "n_compiles": compiles,
+           "rows": {str(r["load"]): {s: {k: r["schemes"][s][k] for k in (
+               "goodput_rps", "served_miss_rate", "p99_sojourn_s",
+               "energy_per_good_j", "n_rounds")} for s in MT_SWEEP_SCHEMES}
+               for r in rows["megatick"]}}
+    say(f"  sweep_loads at loads {list(TRAFFIC_LOADS)} (tick T_goal): "
+        f"megatick records equal to the host gateway's float for float; "
+        f"n_compiles {compiles}; megatick {secs['megatick']:.3f} s, host "
+        f"{secs['host']:.3f} s")
+    for load, rec in out["rows"].items():
+        say(f"    load {load}: " + "; ".join(
+            f"{s} " + ", ".join(f"{k} {v:.6g}" for k, v in r.items())
+            for s, r in rec.items()))
+    return out
+
+
+def megatick_phase(device) -> dict:
+    """Phase 32: (a)-(e) on ``device``; ``counts`` holds the launches of
+    every run.  (f), the pick-contract fallback, is not needed: the port's
+    erf and exp give the same bits on the CPU and the card, so the CPU is
+    held to the card bitwise."""
+    runs = []
+    out = {"golden": megatick_golden(device, runs),
+           "scale": megatick_scale(device, runs),
+           "obs": megatick_obs(device, runs),
+           "faults": megatick_faults(device, runs),
+           "sweep": megatick_sweep(device, runs), "counts": runs}
+    say("  (f) the pick-contract fallback is not used: the port's erf and "
+        "exp are bitwise equal on the CPU and the card (phase 31), so (b)'s "
+        "CPU run is held to the card bitwise")
+    return out
 
 
 def attention_layers(cfg) -> int:
@@ -5011,6 +5417,10 @@ def main() -> int:
     phase.start("phase 31: the session gateway on the card")
     gateway = gateway_phase(device)
     counted["phase 31"] = gateway.pop("counts")
+
+    phase.start("phase 32: the megatick on the card")
+    megatick = megatick_phase(device)
+    counted["phase 32"] = megatick.pop("counts")
     phase.start(None)
     say(f"== done in {time.perf_counter() - t_start:.1f} s")
 
@@ -5032,6 +5442,7 @@ def main() -> int:
         "main_path_bound_ms": mp_bound, "main_path_select_ms": select_ms,
         "version": SELECT_VERSION, "bitwise_cases": n_select_cases,
         "fleet_goldens": fleet_golden, "fleet": fleet, "gateway": gateway,
+        "megatick": megatick,
         **{f: timing[f] for f in ("instruction_bound_ms",
                                   "fp64_instructions_per_cell",
                                   "fp64_instructions_per_cell_most",

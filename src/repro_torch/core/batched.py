@@ -327,6 +327,33 @@ class BatchedAlertEngine:
                              predicted_energy=f64[2], feasible=ints[2] != 0,
                              relaxed_code=ints[3])
 
+    def select_step_impl(self):
+        """The pick-only heterogeneous select over ``[S]`` device tensors,
+        for a caller's own round body (the megatick): ``(mu, sigma, phi,
+        deadline, accuracy_goal, energy_goal, goal_kind, active) -> (i, j,
+        lat, acc, energy, feasible, relaxed)`` with :meth:`select`'s
+        semantics at ``predictions=False``, sigma floored at 1e-6 as
+        :meth:`select` floors it.  Float inputs are float64 tensors on the
+        engine's device, ``goal_kind`` and ``active`` integer or bool
+        tensors there; the outputs stay on the device (views of the
+        kernel's two buffers: nothing is copied to the host and nothing
+        syncs, so the call can be captured in a CUDA graph)."""
+        kernel = self._kernel
+
+        def step(mu, sd, phi, deadline, acc_goal, en_goal, gk, act):
+            """One pick-only select on device tensors."""
+            ints, f64 = kernel.alert_select_packed(
+                mu, torch.clamp_min(sd, 1e-6), phi, deadline, acc_goal,
+                en_goal, gk.to(torch.int32), act.to(torch.int32),
+                latency=self._latency, run_power=self._run_power,
+                weights=self._weights, q_fail=self._q_fail,
+                overhead=self.overhead,
+                paper_faithful_energy=self.paper_faithful_energy,
+                predictions=False)
+            return kernel.unpack(ints, f64)
+
+        return step
+
 
 # --------------------------------------------------------------------- #
 # Windowed accuracy goals                                                #
@@ -363,6 +390,32 @@ def pairwise_sum_cols(cols):
     n2 = n // 2
     n2 -= n2 % 8
     return pairwise_sum_cols(cols[:n2]) + pairwise_sum_cols(cols[n2:])
+
+
+def _goal_record_step(buf, pos, count, delivered, m, depth):
+    """Masked ring-buffer push on ``[S]`` tensors (``buf`` ``[S, depth]``,
+    written in place): masked-in lanes store ``delivered`` at ``pos`` and
+    advance.  Returns ``(buf, pos, count)``; :meth:`WindowedGoalBank.
+    record` and the megatick's round body run it."""
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    buf[rows, pos] = torch.where(m, delivered, buf[rows, pos])
+    pos = torch.where(m, (pos + 1) % depth, pos)
+    count = torch.where(m, torch.clamp_max(count + 1, depth), count)
+    return buf, pos, count
+
+
+def goal_current_step_hostsum(goal, buf, count, window):
+    """The compensation rule (paper fn.3) on tensors, the window summed in
+    numpy's pairwise order (:func:`pairwise_sum_cols`): per-stream
+    effective Q_goal, the raw goal where the window is empty.  Bitwise the
+    reference's function of the same name (whose runtime zero only guards
+    XLA's multiply-add contraction, which PyTorch's separate ops never
+    do); :meth:`WindowedGoalBank.current_goal` and the megatick run it."""
+    total = pairwise_sum_cols([buf[:, c] for c in range(buf.shape[1])])
+    need = goal * window - total
+    remaining = window - count
+    per_input = need - (remaining - 1) * goal
+    return torch.where(count == 0, goal, per_input)
 
 
 class WindowedGoalBank:
@@ -466,21 +519,13 @@ class WindowedGoalBank:
             if mask is None else torch.as_tensor(mask, dtype=torch.bool,
                                                  device=self.device)
         d = torch.as_tensor(delivered, dtype=F64, device=self.device)
-        rows = torch.arange(s, device=self.device)
-        self._buf[rows, self._pos] = torch.where(m, d,
-                                                 self._buf[rows, self._pos])
-        self._pos = torch.where(m, (self._pos + 1) % self._depth, self._pos)
-        self._count = torch.where(
-            m, torch.clamp_max(self._count + 1, self._depth), self._count)
+        self._buf, self._pos, self._count = _goal_record_step(
+            self._buf, self._pos, self._count, d, m, self._depth)
 
     def current_goal(self) -> torch.Tensor:
         """Per-stream effective Q_goal after window compensation (paper
         fn.3); lanes with an empty window return their raw goal."""
         if self._depth == 0:
             return self.goal.clone()
-        total = pairwise_sum_cols([self._buf[:, c]
-                                   for c in range(self._buf.shape[1])])
-        need = self.goal * self.window - total
-        remaining = self.window - self._count
-        per_input = need - (remaining - 1) * self.goal
-        return torch.where(self._count == 0, self.goal, per_input)
+        return goal_current_step_hostsum(self.goal, self._buf, self._count,
+                                         self.window)

@@ -132,6 +132,19 @@ def _idle_bank_step(phi, var, idle, active, mask, s, v):
     return torch.where(mask, phi_new, phi), torch.where(mask, var_new, var)
 
 
+def fused_fleet_step(mu, sigma, gain, q, obs, prof, miss, mask,
+                     q0, alpha, r, miss_inflation,
+                     phi, var, idle, active, s_noise, v_noise):
+    """Both banks' masked recurrences (Eq. 6 and Eq. 8) on ``[S]``
+    tensors, for a caller that runs the feedback inside its own round
+    body (the megatick): per lane the same ops as :func:`observe_fleet`.
+    Returns ``(mu, sigma, gain, q, phi, var)``."""
+    slow = _slowdown_bank_step(mu, sigma, gain, q, obs, prof, miss, mask,
+                               q0, alpha, r, miss_inflation)
+    return slow + _idle_bank_step(phi, var, idle, active, mask, s_noise,
+                                  v_noise)
+
+
 class _LaneBank:
     """Shared lane-pool plumbing: ``_state_names`` lists the ``[S]``
     float64 state tensors, ``_priors()`` their reset values."""
@@ -247,6 +260,13 @@ class SlowdownFilterBank(_LaneBank):
     def _priors(self) -> tuple:
         return (self.mu0, self.sigma0, self.gain0, self.process_noise_floor)
 
+    def step_params(self) -> tuple:
+        """The scalar hyperparameters of this bank's Eq. 6 recurrence, in
+        the order :func:`fused_fleet_step` takes them after the slow-down
+        state and observations: ``(Q0, alpha, R, miss_inflation)``."""
+        return (self.process_noise_floor, self.alpha, self.meas_noise,
+                self.miss_inflation)
+
     def _step_args(self, observed_latency, profiled_latency,
                    deadline_missed, m):
         miss = torch.zeros_like(m) if deadline_missed is None \
@@ -295,6 +315,12 @@ class IdlePowerFilterBank(_LaneBank):
     def _priors(self) -> tuple:
         return (self.phi0, self.variance0)
 
+    def step_params(self) -> tuple:
+        """The scalar hyperparameters of this bank's Eq. 8 recurrence, in
+        the order :func:`fused_fleet_step` takes them after the idle-power
+        state and observations: ``(S, V)``."""
+        return (self.process_noise, self.meas_noise)
+
     def _step_args(self, idle_power, active_power, m):
         active = self._masked_positive(active_power, m, "active_power")
         return (self.phi, self.variance, self._vec(idle_power), active, m,
@@ -319,11 +345,13 @@ def observe_fleet(slow: SlowdownFilterBank, idle: IdlePowerFilterBank,
     if slow.device != idle.device:
         raise ValueError("observe_fleet needs both banks on one device")
     m = slow._mask(mask)
-    (slow.mu, slow.sigma, slow.gain, slow.process_noise) = \
-        _slowdown_bank_step(*slow._step_args(
-            observed_latency, profiled_latency, deadline_missed, m))
-    idle.phi, idle.variance = _idle_bank_step(
-        *idle._step_args(idle_power, active_power, m))
+    phi, var, idle_w, active, _, s_noise, v_noise = idle._step_args(
+        idle_power, active_power, m)
+    (slow.mu, slow.sigma, slow.gain, slow.process_noise, idle.phi,
+     idle.variance) = fused_fleet_step(
+        *slow._step_args(observed_latency, profiled_latency,
+                         deadline_missed, m),
+        phi, var, idle_w, active, s_noise, v_noise)
     slow.n_updates = slow.n_updates + m
     idle.n_updates = idle.n_updates + m
 

@@ -146,6 +146,26 @@ class ProfileTable:
                     n_levels=cache.n_levels[idx])
         return sub
 
+    def power_subset(self, indices: Sequence[int]) -> "ProfileTable":
+        """Restrict the table to power-cap columns ``indices`` (the
+        application-only baseline pins the system-default column).  The
+        candidates, and so the staircases, are untouched: a cached
+        staircase is carried over column-sliced, never rebuilt."""
+        idx = list(indices)
+        sub = ProfileTable(
+            candidates=list(self.candidates),
+            power_caps=self.power_caps[idx],
+            latency=self.latency[:, idx],
+            run_power=self.run_power[:, idx],
+            q_fail=self.q_fail,
+        )
+        cache = getattr(self, "_staircase_cache", None)
+        if cache is not None:
+            sub._staircase_cache = StaircaseTensors(
+                lvl_lat=cache.lvl_lat[:, :, idx], lvl_acc=cache.lvl_acc,
+                lvl_valid=cache.lvl_valid, n_levels=cache.n_levels)
+        return sub
+
 
 def roofline_latency(flops: float, bytes_hbm: float, speed_fraction: float,
                      peak_flops: float, hbm_bw: float) -> float:

@@ -17,7 +17,11 @@ argmin over the K*L cells, and optionally gathers the pick's predictions.
   (the staircase contraction is an explicit multiply-add loop over ``u``
   in ascending order, constant divisors are device tensors so no op
   turns a division into a reciprocal multiply), so on the card the two
-  round at the same places.
+  round at the same places.  Its ``erf`` and ``exp`` are this module's
+  (fdlibm's, as correctly rounded elementwise ops), not ``torch.erf`` /
+  ``torch.exp``, whose float64 results differ between the CPU and CUDA in
+  the last bit: the plain version on the CPU, on the card and the kernel
+  give the same bits.
 
 The kernel writes one int32 ``[4, S]`` and one float64 ``[3, S]`` buffer
 (:func:`alert_select_packed`); :func:`alert_select` returns views of them
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import struct
 
 import torch
 
@@ -49,6 +54,164 @@ BYTES_PER_LANE = 6 * 8 + 2 * 4 + 3 * 8 + 4 * 4
 
 
 # --------------------------------------------------------------------- #
+# erf and exp, one IEEE sequence on every device                         #
+# --------------------------------------------------------------------- #
+# fdlibm's s_erf.c and e_exp.c (both within 1 ulp), written as correctly
+# rounded double additions, subtractions, multiplications and divisions,
+# comparisons, selects and exact bit operations.  The kernel's
+# alert_erf / alert_exp (csrc/alert_select.cu) run the same sequence with
+# __dadd_rn and friends, so the CPU, the card's plain version and the
+# kernel round at the same places.  The branches run on every element and
+# a select keeps the right one.
+def _bits(word: int) -> float:
+    """The double whose IEEE bits are ``word``."""
+    return struct.unpack("<d", struct.pack("<Q", word))[0]
+
+
+_ERX = _bits(0x3FEB0AC160000000)
+_EFX = _bits(0x3FC06EBA8214DB69)
+_EFX8 = _bits(0x3FF06EBA8214DB69)
+_PP = [_bits(w) for w in (0x3FC06EBA8214DB68, 0xBFD4CD7D691CB913,
+                          0xBF9D2A51DBD7194F, 0xBF77A291236668E4,
+                          0xBEF8EAD6120016AC)]
+_QQ = [_bits(w) for w in (0x3FD97779CDDADC09, 0x3FB0A54C5536CEBA,
+                          0x3F74D022C4D36B0F, 0x3F215DC9221C1A10,
+                          0xBED09C4342A26120)]
+_PA = [_bits(w) for w in (0xBF6359B8BEF77538, 0x3FDA8D00AD92B34D,
+                          0xBFD7D240FBB8C3F1, 0x3FD45FCA805120E4,
+                          0xBFBC63983D3E28EC, 0x3FA22A36599795EB,
+                          0xBF61BF380A96073F)]
+_QA = [_bits(w) for w in (0x3FBB3E6618EEE323, 0x3FE14AF092EB6F33,
+                          0x3FB2635CD99FE9A7, 0x3FC02660E763351F,
+                          0x3F8BEDC26B51DD1C, 0x3F888B545735151D)]
+_RA = [_bits(w) for w in (0xBF843412600D6435, 0xBFE63416E4BA7360,
+                          0xC0251E0441B0E726, 0xC04F300AE4CBA38D,
+                          0xC0644CB184282266, 0xC067135CEBCCABB2,
+                          0xC054526557E4D2F2, 0xC023A0EFC69AC25C)]
+_SA = [_bits(w) for w in (0x4033A6B9BD707687, 0x4061350C526AE721,
+                          0x407B290DD58A1A71, 0x40842B1921EC2868,
+                          0x407AD02157700314, 0x405B28A3EE48AE2C,
+                          0x401A47EF8E484A93, 0xBFAEEFF2EE749A62)]
+_RB = [_bits(w) for w in (0xBF84341239E86F4A, 0xBFE993BA70C285DE,
+                          0xC031C209555F995A, 0xC064145D43C5ED98,
+                          0xC083EC881375F228, 0xC09004616A2E5992,
+                          0xC07E384E9BDC383F)]
+_SB = [_bits(w) for w in (0x403E568B261D5190, 0x40745CAE221B9F0A,
+                          0x409802EB189D5118, 0x40A8FFB7688C246A,
+                          0x40A3F219CEDF3BE6, 0x407DA874E79FE763,
+                          0xC03670E242712D62)]
+_LN2_HI = _bits(0x3FE62E42FEE00000)
+_LN2_LO = _bits(0x3DEA39EF35793C76)
+_INV_LN2 = _bits(0x3FF71547652B82FE)
+_EXP_P = [_bits(w) for w in (0x3FC555555555553E, 0xBF66C16C16BEBD93,
+                             0x3F11566AAF25DE2C, 0xBEBBBD41C5D26BF1,
+                             0x3E66376972BEA4D0)]
+_O_THRESHOLD = _bits(0x40862E42FEFA39EF)
+_U_THRESHOLD = _bits(0xC0874910D52D3051)
+
+
+def _hi_word(x):
+    """The high 32 bits of ``|x|`` as int64 (fdlibm's ``__HI(x) &
+    0x7fffffff``)."""
+    return (x.contiguous().view(torch.int64) >> 32) & 0x7FFFFFFF
+
+
+def _poly(s, coeffs):
+    """``c0 + s*(c1 + s*(c2 + ... + s*cn))``, fdlibm's nesting."""
+    acc = coeffs[-1]
+    for c in reversed(coeffs[:-1]):
+        acc = c + s * acc
+    return acc
+
+
+def _pow2(k):
+    """``2**k`` exactly, for int64 ``k`` in [-1022, 1023], from its
+    bits."""
+    return ((k + 1023) << 52).view(torch.float64)
+
+
+def exp(x):
+    """Float64 ``exp`` of every element of ``x``: fdlibm's ``e_exp.c``
+    (within 1 ulp), the same bits on the CPU and the card."""
+    one = torch.ones((), dtype=F64, device=x.device)
+    hx = _hi_word(x)
+    neg = x < 0.0
+    nan = x != x
+    over = x > _O_THRESHOLD
+    under = x < _U_THRESHOLD
+    r = torch.where(nan | over | under, 0.0, x)
+    sgn = torch.where(neg, -one, one)
+    # Argument reduction: x = k ln2 + (hi - lo), |hi - lo| <= ln2 / 2.
+    near = hx < 0x3FF0A2B2                       # |x| < 1.5 ln2
+    k_far = torch.trunc(_INV_LN2 * r + sgn * 0.5)
+    t = torch.where(near, sgn, k_far)
+    hi = torch.where(near, r - sgn * _LN2_HI,
+                     r - t * _LN2_HI)             # t * ln2_hi is exact
+    lo = torch.where(near, sgn * _LN2_LO, t * _LN2_LO)
+    reduce = hx > 0x3FD62E42                     # |x| > ln2 / 2
+    k = torch.where(reduce, t, 0.0).to(torch.int64)
+    xr = torch.where(reduce, hi - lo, r)
+    tt = xr * xr
+    c = xr - tt * _poly(tt, _EXP_P)
+    y0 = 1.0 - (torch.div(xr * c, c - 2.0) - xr)
+    y1 = 1.0 - ((lo - torch.div(xr * c, 2.0 - c)) - hi)
+    # y1 * 2**k: exact in two power-of-two steps while the result is
+    # normal; below that one rounding, by 2**-1000, as fdlibm does.
+    half = torch.clamp(k, -1021, 1024) >> 1
+    y1 = torch.where(k >= -1021,
+                     y1 * _pow2(half) * _pow2(torch.clamp(k, -1021, 1024)
+                                              - half),
+                     y1 * _pow2(torch.clamp_min(k + 1000, -1021))
+                     * _pow2(torch.full_like(k, -1000)))
+    y = torch.where(reduce, y1, y0)
+    y = torch.where(hx < 0x3E300000, one + r, y)  # |x| < 2**-28
+    y = torch.where(under, 0.0, y)
+    y = torch.where(over, math.inf, y)
+    return torch.where(nan, x, y)
+
+
+def erf(x):
+    """Float64 ``erf`` of every element of ``x``: fdlibm's ``s_erf.c``
+    (within 1 ulp), its tail's ``exp`` as :func:`exp`, the same bits on
+    the CPU and the card."""
+    one = torch.ones((), dtype=F64, device=x.device)
+    ix = _hi_word(x)
+    ax = torch.abs(x)
+    neg = x < 0.0
+    # |x| < 0.84375
+    z = x * x
+    r = _poly(z, _PP)
+    s = 1.0 + z * _poly(z, _QQ)
+    small = x + x * torch.div(r, s)
+    tiny = torch.where(ix < 0x00800000, 0.125 * (8.0 * x + _EFX8 * x),
+                       x + _EFX * x)
+    small = torch.where(ix < 0x3E300000, tiny, small)
+    # 0.84375 <= |x| < 1.25
+    s1 = ax - 1.0
+    p = _poly(s1, _PA)
+    q = 1.0 + s1 * _poly(s1, _QA)
+    pq = torch.div(p, q)
+    mid = torch.where(neg, -_ERX - pq, _ERX + pq)
+    # 1.25 <= |x| < 6: erfc from R/S and two exps
+    big = (ix >= 0x3FF40000) & (ix < 0x40180000)
+    xt = torch.where(big, ax, 2.0)
+    st = torch.div(one, xt * xt)
+    near = ix < 0x4006DB6E                      # |x| < 1/0.35
+    rr = torch.where(near, _poly(st, _RA), _poly(st, _RB))
+    ss = 1.0 + st * torch.where(near, _poly(st, _SA), _poly(st, _SB))
+    zt = (xt.contiguous().view(torch.int64)
+          & ~0xFFFFFFFF).view(torch.float64)   # low word cleared
+    e = exp(-zt * zt - 0.5625) * exp((zt - xt) * (zt + xt)
+                                     + torch.div(rr, ss))
+    tail = torch.where(neg, torch.div(e, xt) - 1.0, 1.0 - torch.div(e, xt))
+    out = torch.where(ix < 0x3FEB0000, small,
+                      torch.where(ix < 0x3FF40000, mid, tail))
+    out = torch.where(ix >= 0x40180000, torch.where(neg, -one, one),
+                      out)
+    return torch.where(x != x, x, out)
+
+
+# --------------------------------------------------------------------- #
 # Plain version                                                          #
 # --------------------------------------------------------------------- #
 def estimate_grid(mu, sd, phi, t, *, latency, run_power, weights, q_fail,
@@ -62,7 +225,7 @@ def estimate_grid(mu, sd, phi, t, *, latency, run_power, weights, q_fail,
     lat_mean = mu[:, None, None] * lat
     lat_std = torch.clamp_min(sd[:, None, None] * lat, 1e-12)
     z = (t_ - lat_mean) / lat_std
-    f = 0.5 * (1.0 + torch.erf(z / sqrt2))
+    f = 0.5 * (1.0 + erf(z / sqrt2))
     # Eq. 10: q_fail + sum_u W[k, u] * F[s, u, l], u ascending.
     acc_sum = weights[:, 0, None] * f[:, 0:1, :]
     for u in range(1, weights.shape[1]):
@@ -72,7 +235,7 @@ def estimate_grid(mu, sd, phi, t, *, latency, run_power, weights, q_fail,
     if paper_faithful_energy:
         t_run = torch.minimum(lat_mean, t_)
     else:
-        pdf = torch.exp(-0.5 * (z * z)) * _INV_SQRT_2PI
+        pdf = exp(-0.5 * (z * z)) * _INV_SQRT_2PI
         t_run = lat_mean * f + t_ * (1.0 - f) - lat_std * pdf
         t_run = torch.minimum(torch.clamp_min(t_run, 0.0), t_)
     phi_ = phi[:, None, None]

@@ -38,8 +38,9 @@
 //
 // Rounding: every add / sub / mul / div of this file goes through
 // __dadd_rn / __dsub_rn / __dmul_rn / __ddiv_rn, which are never merged
-// into a fused multiply-add, erf / exp are CUDA's double functions, and
-// the Eq. 10 sum runs over u in ascending order.  The plain PyTorch
+// into a fused multiply-add, erf / exp are alert_erf / alert_exp below
+// (fdlibm's, written with those operations), and the Eq. 10 sum runs over
+// u in ascending order.  The plain PyTorch
 // version performs the same operations one elementwise op at a time, so
 // the two round at the same places and agree bit for bit.
 
@@ -67,6 +68,206 @@ __device__ __forceinline__ double min_nan(double a, double b) {
   if (a != a) return a;
   if (b != b) return b;
   return a < b ? a : b;
+}
+
+// erf and exp: fdlibm's s_erf.c and e_exp.c (both within 1 ulp), op for
+// op the sequence of erf / exp in kernels/alert_select.py, every operation
+// correctly rounded, so the kernel, the plain version on the card and the
+// plain version on the CPU give the same bits.  fdlibm's constants, as
+// hexadecimal literals; polynomials c0 + s*(c1 + s*(... + s*cn)).
+#define ERF_ERX 0x1.b0ac160000000p-1
+#define ERF_EFX 0x1.06eba8214db69p-3
+#define ERF_EFX8 0x1.06eba8214db69p+0
+#define EXP_LN2_HI 0x1.62e42fee00000p-1
+#define EXP_LN2_LO 0x1.a39ef35793c76p-33
+#define EXP_INV_LN2 0x1.71547652b82fep+0
+#define EXP_O_THRESHOLD 0x1.62e42fefa39efp+9
+#define EXP_U_THRESHOLD -0x1.74910d52d3051p+9
+
+__device__ __forceinline__ double erf_pp(double s) {
+  double a = -0x1.8ead6120016acp-16;
+  a = __dadd_rn(-0x1.7a291236668e4p-8, __dmul_rn(s, a));
+  a = __dadd_rn(-0x1.d2a51dbd7194fp-6, __dmul_rn(s, a));
+  a = __dadd_rn(-0x1.4cd7d691cb913p-2, __dmul_rn(s, a));
+  a = __dadd_rn(0x1.06eba8214db68p-3, __dmul_rn(s, a));
+  return a;
+}
+
+__device__ __forceinline__ double erf_qq(double s) {
+  double a = -0x1.09c4342a26120p-18;
+  a = __dadd_rn(0x1.15dc9221c1a10p-13, __dmul_rn(s, a));
+  a = __dadd_rn(0x1.4d022c4d36b0fp-8, __dmul_rn(s, a));
+  a = __dadd_rn(0x1.0a54c5536cebap-4, __dmul_rn(s, a));
+  a = __dadd_rn(0x1.97779cddadc09p-2, __dmul_rn(s, a));
+  return a;
+}
+
+__device__ __forceinline__ double erf_pa(double s) {
+  double a = -0x1.1bf380a96073fp-9;
+  a = __dadd_rn(0x1.22a36599795ebp-5, __dmul_rn(s, a));
+  a = __dadd_rn(-0x1.c63983d3e28ecp-4, __dmul_rn(s, a));
+  a = __dadd_rn(0x1.45fca805120e4p-2, __dmul_rn(s, a));
+  a = __dadd_rn(-0x1.7d240fbb8c3f1p-2, __dmul_rn(s, a));
+  a = __dadd_rn(0x1.a8d00ad92b34dp-2, __dmul_rn(s, a));
+  a = __dadd_rn(-0x1.359b8bef77538p-9, __dmul_rn(s, a));
+  return a;
+}
+
+__device__ __forceinline__ double erf_qa(double s) {
+  double a = 0x1.88b545735151dp-7;
+  a = __dadd_rn(0x1.bedc26b51dd1cp-7, __dmul_rn(s, a));
+  a = __dadd_rn(0x1.02660e763351fp-3, __dmul_rn(s, a));
+  a = __dadd_rn(0x1.2635cd99fe9a7p-4, __dmul_rn(s, a));
+  a = __dadd_rn(0x1.14af092eb6f33p-1, __dmul_rn(s, a));
+  a = __dadd_rn(0x1.b3e6618eee323p-4, __dmul_rn(s, a));
+  return a;
+}
+
+__device__ __forceinline__ double erf_ra(double s) {
+  double a = -0x1.3a0efc69ac25cp+3;
+  a = __dadd_rn(-0x1.4526557e4d2f2p+6, __dmul_rn(s, a));
+  a = __dadd_rn(-0x1.7135cebccabb2p+7, __dmul_rn(s, a));
+  a = __dadd_rn(-0x1.44cb184282266p+7, __dmul_rn(s, a));
+  a = __dadd_rn(-0x1.f300ae4cba38dp+5, __dmul_rn(s, a));
+  a = __dadd_rn(-0x1.51e0441b0e726p+3, __dmul_rn(s, a));
+  a = __dadd_rn(-0x1.63416e4ba7360p-1, __dmul_rn(s, a));
+  a = __dadd_rn(-0x1.43412600d6435p-7, __dmul_rn(s, a));
+  return a;
+}
+
+__device__ __forceinline__ double erf_sa(double s) {
+  double a = -0x1.eeff2ee749a62p-5;
+  a = __dadd_rn(0x1.a47ef8e484a93p+2, __dmul_rn(s, a));
+  a = __dadd_rn(0x1.b28a3ee48ae2cp+6, __dmul_rn(s, a));
+  a = __dadd_rn(0x1.ad02157700314p+8, __dmul_rn(s, a));
+  a = __dadd_rn(0x1.42b1921ec2868p+9, __dmul_rn(s, a));
+  a = __dadd_rn(0x1.b290dd58a1a71p+8, __dmul_rn(s, a));
+  a = __dadd_rn(0x1.1350c526ae721p+7, __dmul_rn(s, a));
+  a = __dadd_rn(0x1.3a6b9bd707687p+4, __dmul_rn(s, a));
+  return a;
+}
+
+__device__ __forceinline__ double erf_rb(double s) {
+  double a = -0x1.e384e9bdc383fp+8;
+  a = __dadd_rn(-0x1.004616a2e5992p+10, __dmul_rn(s, a));
+  a = __dadd_rn(-0x1.3ec881375f228p+9, __dmul_rn(s, a));
+  a = __dadd_rn(-0x1.4145d43c5ed98p+7, __dmul_rn(s, a));
+  a = __dadd_rn(-0x1.1c209555f995ap+4, __dmul_rn(s, a));
+  a = __dadd_rn(-0x1.993ba70c285dep-1, __dmul_rn(s, a));
+  a = __dadd_rn(-0x1.4341239e86f4ap-7, __dmul_rn(s, a));
+  return a;
+}
+
+__device__ __forceinline__ double erf_sb(double s) {
+  double a = -0x1.670e242712d62p+4;
+  a = __dadd_rn(0x1.da874e79fe763p+8, __dmul_rn(s, a));
+  a = __dadd_rn(0x1.3f219cedf3be6p+11, __dmul_rn(s, a));
+  a = __dadd_rn(0x1.8ffb7688c246ap+11, __dmul_rn(s, a));
+  a = __dadd_rn(0x1.802eb189d5118p+10, __dmul_rn(s, a));
+  a = __dadd_rn(0x1.45cae221b9f0ap+8, __dmul_rn(s, a));
+  a = __dadd_rn(0x1.e568b261d5190p+4, __dmul_rn(s, a));
+  return a;
+}
+
+__device__ __forceinline__ double exp_p(double s) {
+  double a = 0x1.6376972bea4d0p-25;
+  a = __dadd_rn(-0x1.bbd41c5d26bf1p-20, __dmul_rn(s, a));
+  a = __dadd_rn(0x1.1566aaf25de2cp-14, __dmul_rn(s, a));
+  a = __dadd_rn(-0x1.6c16c16bebd93p-9, __dmul_rn(s, a));
+  a = __dadd_rn(0x1.555555555553ep-3, __dmul_rn(s, a));
+  return a;
+}
+
+// The high 32 bits of |x| (fdlibm's __HI(x) & 0x7fffffff).
+__device__ __forceinline__ int hi_word(double x) {
+  return __double2hiint(x) & 0x7fffffff;
+}
+
+// 2**n exactly, for n in [-1022, 1023], from its bits.
+__device__ __forceinline__ double pow2(int n) {
+  return __longlong_as_double(static_cast<long long>(n + 1023) << 52);
+}
+
+__device__ __forceinline__ double alert_exp(double x) {
+  if (x != x) return x;
+  if (x > EXP_O_THRESHOLD) return INFINITY;
+  if (x < EXP_U_THRESHOLD) return 0.0;
+  const int hx = hi_word(x);
+  const double sgn = x < 0.0 ? -1.0 : 1.0;
+  if (hx <= 0x3fd62e42) {  // |x| <= ln2 / 2: no reduction
+    if (hx < 0x3e300000) return __dadd_rn(1.0, x);
+    const double tt = __dmul_rn(x, x);
+    const double c = __dsub_rn(x, __dmul_rn(tt, exp_p(tt)));
+    return __dsub_rn(
+        1.0, __dsub_rn(__ddiv_rn(__dmul_rn(x, c), __dsub_rn(c, 2.0)), x));
+  }
+  // x = k ln2 + (hi - lo), |hi - lo| <= ln2 / 2; t * ln2_hi is exact.
+  double t, hi, lo;
+  if (hx < 0x3ff0a2b2) {  // |x| < 1.5 ln2
+    t = sgn;
+    hi = __dsub_rn(x, __dmul_rn(sgn, EXP_LN2_HI));
+    lo = __dmul_rn(sgn, EXP_LN2_LO);
+  } else {
+    t = trunc(__dadd_rn(__dmul_rn(EXP_INV_LN2, x), __dmul_rn(sgn, 0.5)));
+    hi = __dsub_rn(x, __dmul_rn(t, EXP_LN2_HI));
+    lo = __dmul_rn(t, EXP_LN2_LO);
+  }
+  const int k = static_cast<int>(t);
+  const double r = __dsub_rn(hi, lo);
+  const double tt = __dmul_rn(r, r);
+  const double c = __dsub_rn(r, __dmul_rn(tt, exp_p(tt)));
+  const double y = __dsub_rn(
+      1.0, __dsub_rn(__dsub_rn(lo, __ddiv_rn(__dmul_rn(r, c),
+                                             __dsub_rn(2.0, c))),
+                     hi));
+  // y * 2**k: exact in two power-of-two steps while the result is normal;
+  // below that one rounding, by 2**-1000.
+  if (k >= -1021) {
+    const int half = k >> 1;
+    return __dmul_rn(__dmul_rn(y, pow2(half)), pow2(k - half));
+  }
+  return __dmul_rn(__dmul_rn(y, pow2(k + 1000)), pow2(-1000));
+}
+
+__device__ __forceinline__ double alert_erf(double x) {
+  if (x != x) return x;
+  const int ix = hi_word(x);
+  const bool neg = x < 0.0;
+  if (ix >= 0x40180000) return neg ? -1.0 : 1.0;  // |x| >= 6
+  if (ix < 0x3feb0000) {                          // |x| < 0.84375
+    if (ix < 0x3e300000) {                        // |x| < 2**-28
+      if (ix < 0x00800000)
+        return __dmul_rn(0.125, __dadd_rn(__dmul_rn(8.0, x),
+                                          __dmul_rn(ERF_EFX8, x)));
+      return __dadd_rn(x, __dmul_rn(ERF_EFX, x));
+    }
+    const double z = __dmul_rn(x, x);
+    const double s = __dadd_rn(1.0, __dmul_rn(z, erf_qq(z)));
+    return __dadd_rn(x, __dmul_rn(x, __ddiv_rn(erf_pp(z), s)));
+  }
+  const double ax = fabs(x);
+  if (ix < 0x3ff40000) {                          // |x| < 1.25
+    const double s = __dsub_rn(ax, 1.0);
+    const double q = __dadd_rn(1.0, __dmul_rn(s, erf_qa(s)));
+    const double pq = __ddiv_rn(erf_pa(s), q);
+    return neg ? __dsub_rn(-ERF_ERX, pq) : __dadd_rn(ERF_ERX, pq);
+  }
+  const double s = __ddiv_rn(1.0, __dmul_rn(ax, ax));
+  double rr, ss;
+  if (ix < 0x4006db6e) {                          // |x| < 1 / 0.35
+    rr = erf_ra(s);
+    ss = __dadd_rn(1.0, __dmul_rn(s, erf_sa(s)));
+  } else {
+    rr = erf_rb(s);
+    ss = __dadd_rn(1.0, __dmul_rn(s, erf_sb(s)));
+  }
+  const double z = __hiloint2double(__double2hiint(ax), 0);
+  const double e = __dmul_rn(
+      alert_exp(__dsub_rn(__dmul_rn(-z, z), 0.5625)),
+      alert_exp(__dadd_rn(__dmul_rn(__dsub_rn(z, ax), __dadd_rn(z, ax)),
+                          __ddiv_rn(rr, ss))));
+  return neg ? __dsub_rn(__ddiv_rn(e, ax), 1.0)
+             : __dsub_rn(1.0, __ddiv_rn(e, ax));
 }
 
 struct Lanes {
@@ -126,7 +327,8 @@ __global__ void __launch_bounds__(ALERT_THREADS) alert_select_kernel(
       const double lm = __dmul_rn(mu, s_lat[c]);
       const double ls = max_nan(__dmul_rn(sd, s_lat[c]), 1e-12);
       const double z = __ddiv_rn(__dsub_rn(te, lm), ls);
-      F[c] = __dmul_rn(0.5, __dadd_rn(1.0, erf(__ddiv_rn(z, sqrt2))));
+      F[c] = __dmul_rn(0.5,
+                       __dadd_rn(1.0, alert_erf(__ddiv_rn(z, sqrt2))));
     }
   }
   __syncwarp();
@@ -154,7 +356,7 @@ __global__ void __launch_bounds__(ALERT_THREADS) alert_select_kernel(
         const double ls = max_nan(__dmul_rn(sd, s_lat[c]), 1e-12);
         const double z = __ddiv_rn(__dsub_rn(te, lm), ls);
         const double pdf = __dmul_rn(
-            exp(__dmul_rn(-0.5, __dmul_rn(z, z))), inv_sqrt_2pi);
+            alert_exp(__dmul_rn(-0.5, __dmul_rn(z, z))), inv_sqrt_2pi);
         const double f = F[c];
         t_run = __dsub_rn(
             __dadd_rn(__dmul_rn(lm, f), __dmul_rn(te, __dsub_rn(1.0, f))),

@@ -1,8 +1,8 @@
 """The fleet simulator's scenarios: the image family's profile table, its
 deadlines, the golden scenarios of ``tests/golden_traces.json``, a
 heterogeneous, churning fleet of tenants, and the session gateway's
-workloads: its two goldens and the reference benchmark's recorded traffic
-cells.
+workloads: its two goldens, the reference benchmark's recorded traffic
+cells and its megatick and flight-recorder cells.
 
 The port's own copy of the reference benchmarks' ``family_table("image")``
 and ``deadline_range``, number for number: latencies come from each
@@ -45,6 +45,13 @@ GOLDEN_BUDGET_W = 170.0
 # 5 + 7919 i (as its load sweep does).
 TRAFFIC_SESSIONS, TRAFFIC_LANES, TRAFFIC_SEED = 1024, 256, 5
 TRAFFIC_LOADS = (0.5, 2.0, 8.0, 24.0)
+# The reference benchmark's megatick cell (bench_megatick): 100,000
+# sessions over 4096 lanes at the rate that fills them, 48 rounds of
+# T_goal, seed 9; and its flight-recorder cell (bench_obs): 20,000
+# sessions over 1024 lanes, 24 rounds, seed 11.
+MEGATICK_SESSIONS, MEGATICK_LANES, MEGATICK_ROUNDS, MEGATICK_SEED = \
+    100_000, 4096, 48, 9
+OBS_SESSIONS, OBS_LANES, OBS_ROUNDS, OBS_SEED = 20_000, 1024, 24, 11
 
 
 def _cost(arch: str) -> tuple[float, float]:
@@ -174,6 +181,17 @@ def traffic_sessions(table: ProfileTable, load: float,
     li = TRAFFIC_LOADS.index(load)
     return build_sessions([t.scaled(load) for t in mix], 30 * dl,
                           seed=TRAFFIC_SEED + 7919 * li), dl, cons
+
+
+def saturating_sessions(table: ProfileTable, n_sessions: int, n_lanes: int,
+                        rounds: int, seed: int):
+    """The reference benchmarks' megatick workloads (``bench_megatick``,
+    ``bench_obs``): ``n_sessions`` Eq. 4 sessions at the rate that fills
+    ``n_lanes`` lanes, over ``rounds`` T_goal, from ``seed``.  Returns
+    ``(sessions, T_goal)``; the megatick runs them at ``tick = T_goal``
+    with ``max_queue = 4 * n_lanes``."""
+    mix, dl, _ = traffic_mix(table, n_sessions, n_lanes, 1.0)
+    return build_sessions(mix, rounds * dl, seed=seed), dl
 
 
 def gateway_summary(res) -> dict:

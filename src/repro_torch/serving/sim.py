@@ -411,7 +411,9 @@ def deliver_step(i_glob, j_act, scale, dvec, phi_true, *,
 
     ``i_glob``/``j_act``/``scale``/``dvec`` are the ``[S]`` lane inputs;
     the keyword arrays are the table's constants (numpy, or tensors
-    already on the device, which are not copied).  ``profiled_pick`` (the
+    already on the device, which are not copied: with device tensors
+    throughout, the step makes no host copy and can be captured in a CUDA
+    graph).  ``profiled_pick`` (the
     controller's pick's profiled latency) seeds the censored feedback;
     None means the executed config's (the gateway case).  A missed
     deadline whose staircase still completed level k yields the
@@ -448,8 +450,10 @@ def deliver_step(i_glob, j_act, scale, dvec, phi_true, *,
     levels = torch.arange(m, device=dev)
     last_done = torch.where(completed, levels, -1).amax(dim=1)
     last_done = torch.where(any_done, last_done, m - 1)
+    # q_fail as a scalar operand: no host-to-device copy, so the step can
+    # be captured in a CUDA graph.
     acc = torch.where(any_done, lvl_acc_km[i_glob, last_done],
-                      torch.tensor(q_fail, dtype=F64, device=dev))
+                      float(q_fail))
     run_t = torch.minimum(lat, dvec)
     p = run_power_kl[i_glob, j_act]
     energy = (p * run_t + f_zero) + \

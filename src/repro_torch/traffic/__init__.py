@@ -1,9 +1,12 @@
 """Request-level traffic (port of ``repro.traffic``): seeded open-loop
 workloads (:mod:`~repro_torch.traffic.workloads`), replayable fault
 schedules with Kalman-bank straggler detection
-(:mod:`~repro_torch.traffic.faults`), and the session gateway that
+(:mod:`~repro_torch.traffic.faults`), the session gateway that
 multiplexes many sessions onto one engine's lanes through session paging,
-EDF admission and checkpointed resume (:mod:`~repro_torch.traffic.gateway`).
+EDF admission and checkpointed resume (:mod:`~repro_torch.traffic.gateway`),
+its round clock on the device, one CUDA graph a chunk of rounds
+(:mod:`~repro_torch.traffic.megatick`), and the offered-load sweep
+(:mod:`~repro_torch.traffic.loadsweep`).
 """
 
 from repro_torch.traffic.faults import (FAULT_KINDS, Brownout, DeviceLoss,
@@ -11,6 +14,10 @@ from repro_torch.traffic.faults import (FAULT_KINDS, Brownout, DeviceLoss,
                                         KalmanLaneDetector, LaneStraggler,
                                         scenario)
 from repro_torch.traffic.gateway import GatewayResult, SessionGateway
+from repro_torch.traffic.loadsweep import (app_only_table,
+                                           hindsight_static_config,
+                                           sweep_loads, sys_only_table)
+from repro_torch.traffic.megatick import MegatickGateway
 from repro_torch.traffic.workloads import (ArrivalProcess, DiurnalProcess,
                                            FlashCrowdProcess, MMPPProcess,
                                            PoissonProcess, Session,
@@ -22,7 +29,8 @@ __all__ = [
     "ArrivalProcess", "PoissonProcess", "MMPPProcess", "DiurnalProcess",
     "FlashCrowdProcess", "TenantSpec", "Session", "TrafficRequest",
     "build_sessions", "generate_requests", "SessionGateway",
-    "GatewayResult", "FaultSchedule", "LaneStraggler", "DeviceLoss",
+    "GatewayResult", "MegatickGateway", "hindsight_static_config",
+    "sweep_loads", "app_only_table", "sys_only_table", "FaultSchedule", "LaneStraggler", "DeviceLoss",
     "DVFSDrift", "Brownout", "KalmanLaneDetector", "scenario",
     "FAULT_KINDS",
 ]

@@ -242,6 +242,9 @@ class KalmanLaneDetector:
     alarm_sigma: float = 3.0
     min_ratio: float = 1.3
     persistent_after: int = 3
+    # Optional flight recorder (repro_torch.obs.FlightRecorder): trips
+    # become a counter and instant events; thresholds never read it.
+    obs: object = None
 
     def __post_init__(self):
         self.alarm_counts = np.zeros(self.n_lanes, dtype=np.int64)
@@ -272,6 +275,12 @@ class KalmanLaneDetector:
                            & ~self.tripped)[0]
         self.tripped[newly] = True
         self.first_trip_time[newly] = now
+        if newly.size and self.obs is not None \
+                and getattr(self.obs, "enabled", False):
+            self.obs.metrics.counter("detector_trips").inc(newly.size)
+            self.obs.spans.event(
+                "detector_trip", cat="fault",
+                lanes=[int(x) for x in newly], now_s=float(now))
         return newly
 
     def recommendation(self, lane: int) -> str:

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+from contextlib import nullcontext
 from typing import Sequence
 
 import numpy as np
@@ -68,6 +69,47 @@ REJECTED_BACKPRESSURE = 2   # bounded queue was full at arrival
 # sid/index/arrival are rebuilt from the workload at resume).
 _CKPT_OUT_FIELDS = ("status", "start", "latency", "sojourn", "missed",
                     "accuracy", "energy", "model_index", "power_index")
+
+
+def _resolve_obs(obs):
+    """An attached and enabled flight recorder, else None: ``obs=None``
+    and ``FlightRecorder(enabled=False)`` both take the bare path, so
+    every instrumentation site is one pointer check."""
+    return obs if (obs is not None and getattr(obs, "enabled", False)) \
+        else None
+
+
+def _obs_record_result(metrics, out: "GatewayResult", *, gateway: str,
+                       policy: str) -> None:
+    """Fold one finished run's :class:`GatewayResult` into the registry:
+    disposition counters, paging totals and the headline SLO and energy
+    gauges, one catalog for both gateways."""
+    lab = dict(gateway=gateway, policy=policy)
+    metrics.counter("requests_offered", **lab).inc(out.offered)
+    metrics.counter("requests_served", **lab).inc(int(out.served.sum()))
+    metrics.counter("requests_rejected_infeasible", **lab).inc(
+        int((out.status == REJECTED_INFEASIBLE).sum()))
+    metrics.counter("requests_rejected_backpressure", **lab).inc(
+        int((out.status == REJECTED_BACKPRESSURE).sum()))
+    metrics.counter("requests_good", **lab).inc(int(out.good.sum()))
+    metrics.counter("deadline_misses", **lab).inc(
+        int(out.missed[out.served].sum()))
+    metrics.counter("energy_served_j", **lab).inc(
+        float(out.energy[out.served].sum()))
+    metrics.counter("rounds_served", **lab).inc(out.n_rounds)
+    metrics.counter("pages_in", **lab).inc(out.pages_in)
+    metrics.counter("pages_out", **lab).inc(out.pages_out)
+    metrics.gauge("slo_miss_rate", **lab).set(out.slo_miss_rate)
+    metrics.gauge("served_miss_rate", **lab).set(out.served_miss_rate)
+    metrics.gauge("reject_rate", **lab).set(out.reject_rate)
+    metrics.gauge("goodput_rps", **lab).set(out.goodput)
+    eg = out.energy_per_good
+    metrics.gauge("energy_per_good_j", **lab).set(
+        eg if np.isfinite(eg) else 0.0)
+    metrics.gauge("n_compiles_estimate", gateway=gateway).set(
+        out.n_compiles[0])
+    metrics.gauge("n_compiles_select", gateway=gateway).set(
+        out.n_compiles[1])
 
 
 @dataclasses.dataclass
@@ -101,7 +143,12 @@ class GatewayResult:
     client observes.  ``select_launches`` is how much
     ``alert_select.launches`` rose during the call that returned this
     result: on the card one a round the call served under
-    ``policy="alert"``, else 0.
+    ``policy="alert"`` (for the megatick, one a round its clock ran: the
+    last chunk's pad rounds too), else 0.  ``n_compiles`` stands for the
+    reference's ``(estimate, select)`` compile count: ``(0, 0)`` for the
+    host gateway, whose kernel is built ahead of the run; the megatick's
+    second entry counts its chunk programs (on the card, captured CUDA
+    graphs).
     """
 
     sid: np.ndarray
@@ -121,6 +168,7 @@ class GatewayResult:
     pages_in: int = 0
     pages_out: int = 0
     select_launches: int = 0
+    n_compiles: tuple = (0, 0)
 
     @property
     def offered(self) -> int:
@@ -200,6 +248,9 @@ class SessionGateway:
     ``policy="alert"`` drives the full controller; ``policy="static"``
     executes one fixed ``(model, power)`` config through the identical
     clock, queue and delivery path (the hindsight-static baseline).
+    ``obs`` takes a :class:`~repro_torch.obs.FlightRecorder`: spans,
+    metrics, events and the telemetry ring, a pure observer (every result
+    is bitwise the same with or without it).
     """
 
     def __init__(self, table: ProfileTable, n_lanes: int, *,
@@ -207,9 +258,11 @@ class SessionGateway:
                  tick: float | None = None,
                  max_queue: int | None = None,
                  min_feasible_latency: float | None = None,
-                 accuracy_window: int = 10, device=None):
+                 accuracy_window: int = 10, device=None, obs=None):
         self.table = table
         self.device = resolve_device(device)
+        self.obs = obs
+        self._ob = _resolve_obs(obs)
         self.n_lanes = int(n_lanes)
         self.phi_true = float(phi_true)
         self.tick = tick
@@ -424,7 +477,9 @@ class SessionGateway:
         queue = DeadlineBatcher(batch_size=self.n_lanes,
                                 min_feasible_latency=
                                 self.min_feasible_latency,
-                                max_queue=self.max_queue)
+                                max_queue=self.max_queue,
+                                metrics=self._ob.metrics
+                                if self._ob else None)
         return _RunState(requests=requests, sess=sess, tick=float(tick),
                          queue=queue, out=out)
 
@@ -485,7 +540,9 @@ class SessionGateway:
         same."""
         rs = self._init_run(sessions, requests, policy=policy,
                             static_config=static_config, faults=faults)
-        self._load_checkpoint(rs, checkpoint_dir)
+        with self._ob.spans.span("checkpoint_restore", cat="checkpoint") \
+                if self._ob else nullcontext():
+            self._load_checkpoint(rs, checkpoint_dir)
         return self._drive(rs, policy, static_config, faults, detector,
                            checkpoint_dir, checkpoint_every,
                            kill_at_round)
@@ -501,6 +558,9 @@ class SessionGateway:
             rs.requests, rs.sess, rs.tick, rs.queue, rs.out
         n = len(requests)
         launches0 = select_kernel.alert_select.launches
+        ob = self._ob
+        q_depth = ob.metrics.histogram("queue_depth", gateway="host") \
+            if ob else None
         while rs.ri < n or len(queue):
             if kill_at_round is not None and rs.iters == kill_at_round:
                 raise InjectedFailure(
@@ -522,6 +582,14 @@ class SessionGateway:
                     ev = [int(ln) for ln in np.nonzero(newly_dead)[0]
                           if self._resident[ln] >= 0]
                     self._evict_lanes(ev)
+                    if ob:
+                        lanes = [int(x) for x in np.nonzero(newly_dead)[0]]
+                        ob.metrics.counter("quarantine_events",
+                                           gateway="host").inc()
+                        ob.metrics.counter("lanes_quarantined",
+                                           gateway="host").inc(len(lanes))
+                        ob.spans.event("quarantine", cat="fault",
+                                       lanes=lanes, now_s=float(now))
                 self._dead = dead_now
                 fmul = faults.slow_at(now)
             # --- arrivals due by this round (backpressure at submit) ---
@@ -530,6 +598,8 @@ class SessionGateway:
                 if not queue.submit(req):
                     out.status[req._row] = REJECTED_BACKPRESSURE
                 rs.ri += 1
+            if q_depth is not None:
+                q_depth.observe(len(queue))
             # --- EDF pop onto the lanes free this round, at most one
             # request per session (a session is sequential: its later
             # requests wait behind it).  A run of blocked same-session
@@ -562,21 +632,29 @@ class SessionGateway:
                 out.status[req._row] = REJECTED_INFEASIBLE
                 out.start[req._row] = now
             if batch:
-                rs.last_completion = max(
-                    rs.last_completion, self._serve_round(
-                        batch, sess, now, rs.round_k, policy,
-                        static_config, out, fmul, detector))
+                with ob.spans.span("serve_round", cat="gateway",
+                                   round_k=rs.round_k, batch=len(batch)) \
+                        if ob else nullcontext():
+                    rs.last_completion = max(
+                        rs.last_completion, self._serve_round(
+                            batch, sess, now, rs.round_k, policy,
+                            static_config, out, fmul, detector))
                 rs.n_rounds += 1
             rs.round_k += 1
             rs.iters += 1
             if checkpoint_dir is not None and \
                     rs.iters % max(checkpoint_every, 1) == 0:
-                self._save_checkpoint(rs, checkpoint_dir)
+                with ob.spans.span("checkpoint_write", cat="checkpoint",
+                                   iters=rs.iters) if ob else nullcontext():
+                    self._save_checkpoint(rs, checkpoint_dir)
         out.horizon = max(rs.last_completion,
                           float(out.arrival[-1]) if n else 0.0)
         out.n_rounds = rs.n_rounds
         out.pages_in, out.pages_out = self.pages_in, self.pages_out
         out.select_launches = select_kernel.alert_select.launches - launches0
+        if ob:
+            _obs_record_result(ob.metrics, out, gateway="host",
+                               policy=policy)
         return out
 
     # -------------------------------------------------------------- #
@@ -701,7 +779,11 @@ class SessionGateway:
         lanes with one masked engine call (or the fixed static config),
         deliver through the host tick delivery, absorb feedback.  Returns
         the round's last completion time."""
-        lanes = self._page_in([r.sid for r in batch], sess, round_k, now)
+        ob = self._ob
+        with ob.spans.span("page_in", cat="paging", round_k=round_k) \
+                if ob else nullcontext():
+            lanes = self._page_in([r.sid for r in batch], sess, round_k,
+                                  now)
         act = np.zeros(self.n_lanes, bool)
         dvec = np.ones(self.n_lanes)
         e_goal = np.zeros(self.n_lanes)
@@ -728,6 +810,7 @@ class SessionGateway:
                 active=act, predictions=False)
             i_pick, j_pick = b.model_index, b.power_index
         else:
+            b = None
             i_pick = np.full(self.n_lanes, static_config[0],
                              dtype=np.int64)
             j_pick = np.full(self.n_lanes, static_config[1],
@@ -735,6 +818,10 @@ class SessionGateway:
         d = deliver_tick(self.table, self._st, i_pick, j_pick, scale,
                          dvec, self.phi_true, self._is_anytime,
                          self.table.latency[i_pick, j_pick])
+        # The Eq. 6 prior before the update, read only for the innovation
+        # histogram (a host copy; the bank is not touched).
+        mu_prev = self.slow.mu.cpu().numpy() \
+            if (ob is not None and policy == "alert") else None
         if policy == "alert":
             observe_fleet(self.slow, self.idle, d.observed, d.profiled,
                           deadline_missed=d.miss_flag,
@@ -746,8 +833,32 @@ class SessionGateway:
             if detector is not None:
                 # Detection reads the Eq. 7 posterior AFTER the round's
                 # update, through host copies; selection never sees it.
-                detector.observe(self.slow.mu.cpu().numpy(),
-                                 self.slow.sigma.cpu().numpy(), act, now)
+                newly = detector.observe(self.slow.mu.cpu().numpy(),
+                                         self.slow.sigma.cpu().numpy(), act,
+                                         now)
+                if ob is not None and newly.size:
+                    ob.metrics.counter("fault_trips",
+                                       gateway="host").inc(newly.size)
+                    ob.spans.event("fault_trip", cat="fault",
+                                   lanes=[int(x) for x in newly],
+                                   now_s=float(now))
+        if ob is not None:
+            if mu_prev is not None:
+                # |z - mu_prior|, z = observed / profiled: the innovation
+                # the Kalman gain weighs this round.
+                z = d.observed / d.profiled
+                ob.metrics.histogram(
+                    "kalman_innovation", gateway="host").observe_many(
+                    np.abs(z - mu_prev)[act])
+            feas = (b.feasible & act) if b is not None else act
+            relaxed = ((b.relaxed_code != 0) & act) if b is not None \
+                else np.zeros_like(act)
+            ob.ring.push_rounds(
+                now_s=[now], n_active=[int(act.sum())],
+                n_feasible=[int(feas.sum())],
+                n_relaxed=[int(relaxed.sum())],
+                energy_j=[float(d.energy[act].sum())],
+                n_missed=[int(d.missed[act].sum())])
         last = now
         for req, lane in zip(batch, lanes):
             rid = req._row

@@ -1109,9 +1109,10 @@ def test_graphed_decode_leaves_no_trace_between_requests(cuda_device):
 def test_alert_select_erf_sweep_is_bitwise(cuda_device, paper_faithful):
     """Lanes whose Eq. 7 argument ``z / sqrt2`` at one cell sweeps
     [-6, 6] in steps of 1.8e-4 (erf is +-1 to the last bit beyond), the
-    other cells at other ``z``: the kernel (nvcc's double ``erf``) and
-    the plain version (torch's) give the same picks, feasibility, relax
-    codes and predicted accuracies, bit for bit."""
+    other cells at other ``z``: the kernel (its ``alert_erf`` /
+    ``alert_exp``) and the plain version (the module's ``erf`` / ``exp``)
+    on the card, and the plain version on the CPU, give the same picks,
+    feasibility, relax codes and predictions, bit for bit."""
     eng = _engine(cuda_device, paper_faithful)
     s = 65536
     lat0 = float(eng.table.latency[3, 5])
@@ -1131,19 +1132,42 @@ def test_alert_select_erf_sweep_is_bitwise(cuda_device, paper_faithful):
     kw = _consts(eng, paper_faithful_energy=paper_faithful, predictions=True)
     got = ks.alert_select(*args, **kw)
     torch.cuda.synchronize()
-    want = ks.alert_select_plain(*args, **kw)
+    cpu_kw = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+              for k, v in kw.items()}
     names = ("model_index", "power_index", "predicted_latency",
              "predicted_accuracy", "predicted_energy", "feasible",
              "relaxed_code")
-    for name, a, b in zip(names, got, want):
-        if not torch.equal(a, b):
-            bad = torch.nonzero(a != b).flatten()[:8].tolist()
-            ulp = ""
-            if a.dtype == torch.float64:
-                gap = (a.view(torch.int64) - b.view(torch.int64)).abs()
-                ulp = f", worst {int(gap.max())} ulp"
-            pytest.fail(f"{name} differs on {int((a != b).sum())} lanes "
-                        f"(first {bad}{ulp})")
+    for where, want in (
+            ("the card", ks.alert_select_plain(*args, **kw)),
+            ("the CPU", ks.alert_select_plain(*[a.cpu() for a in args],
+                                              **cpu_kw))):
+        for name, a, b in zip(names, got, want):
+            a = a.cpu()
+            b = b.cpu()
+            if not torch.equal(a, b):
+                bad = torch.nonzero(a != b).flatten()[:8].tolist()
+                ulp = ""
+                if a.dtype == torch.float64:
+                    gap = (a.view(torch.int64) - b.view(torch.int64)).abs()
+                    ulp = f", worst {int(gap.max())} ulp"
+                pytest.fail(f"{name} differs from the plain version on "
+                            f"{where} on {int((a != b).sum())} lanes "
+                            f"(first {bad}{ulp})")
+
+
+@pytest.mark.parametrize("fn,lo,hi", [("erf", -8.0, 8.0),
+                                      ("exp", -745.5, 5.0)])
+def test_port_erf_exp_bitwise_cpu_and_card(cuda_device, fn, lo, hi):
+    """The module's ``erf`` at 200,001 points of [-8, 8] and ``exp`` over
+    [-745.5, 5] (the range the plain version feeds it): the CPU and the
+    card give the same bits at every point (float64 ``torch.erf`` does
+    not)."""
+    f = getattr(ks, fn)
+    x = torch.linspace(lo, hi, 200_001, dtype=torch.float64)
+    a = f(x)
+    b = f(x.to(cuda_device)).cpu()
+    differ = int((a.view(torch.int64) != b.view(torch.int64)).sum())
+    assert differ == 0, f"{differ} points differ"
 
 
 
@@ -1526,3 +1550,46 @@ def test_gateway_kill_resume_on_card_is_bitwise(cuda_device, tmp_path):
         assert np.array_equal(getattr(got, f), getattr(want, f)), f
     assert (got.n_rounds, got.pages_in, got.pages_out, got.horizon) == \
         (want.n_rounds, want.pages_in, want.pages_out, want.horizon)
+
+
+# --------------------------------------------------------------------- #
+# The megatick: a graphed chunk against the eager one and the CPU         #
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("policy", ["alert", "static"])
+def test_megatick_graph_equals_eager_and_cpu(cuda_device, policy):
+    """The gateway golden's workload through the megatick on the card: the
+    replayed CUDA graph (chunks of 4 rounds: three replays, no pad round),
+    the same chunk run eagerly with ``graphs=False``, and the CPU give
+    bitwise equal results; one graph a policy, one ``alert_select``
+    launch a served round under ``alert``."""
+    from repro_torch.serving.scenarios import (golden_gateway_workload,
+                                               golden_table)
+    from repro_torch.traffic import MegatickGateway, generate_requests
+
+    table = golden_table()
+    sessions, n_lanes, dl = golden_gateway_workload(table)
+    kw = dict(policy="static", static_config=(2, 3)) \
+        if policy == "static" else {}
+    res = {}
+    for name, dev, graphs in (("graph", cuda_device, True),
+                              ("eager", cuda_device, False),
+                              ("cpu", torch.device("cpu"), True)):
+        gw = MegatickGateway(table, n_lanes, tick=dl, max_queue=4 * n_lanes,
+                             chunk=4, device=dev, graphs=graphs)
+        res[name] = gw.run(sessions, generate_requests(sessions), **kw)
+        assert gw.n_compiles() == (0, 1)
+        assert len(gw.chunk_graphs()) == (name == "graph")
+    want = res["graph"].n_rounds if policy == "alert" else 0
+    assert res["graph"].select_launches == res["eager"].select_launches \
+        == want and res["cpu"].select_launches == 0
+    fields = ("status", "start", "latency", "sojourn", "missed", "accuracy",
+              "energy", "model_index", "power_index")
+    for name in ("eager", "cpu"):
+        for f in fields:
+            np.testing.assert_array_equal(getattr(res[name], f),
+                                          getattr(res["graph"], f),
+                                          err_msg=f"{name} {f}")
+        assert (res[name].n_rounds, res[name].pages_in,
+                res[name].pages_out) == (res["graph"].n_rounds,
+                                         res["graph"].pages_in,
+                                         res["graph"].pages_out)
