@@ -300,12 +300,39 @@ Phases (each prints its own lines; any mismatch exits nonzero):
     and never under the fixed config.  Also prints at how many of 200,001
     points of [-8, 8] float64 ``torch.erf`` on the card differs from the
     CPU's.
-32. the last lines: one JSON object per kernel (``launches``: the sum
+32. the megatick (``MegatickGateway``: the gateway's round clock as one
+    CUDA graph a chunk over ``alert_select``): (a) the golden workload
+    with ``==``; (b) ``bench_megatick``'s 100,000 sessions over 4,096
+    lanes, timed, bitwise against the host gateway, ``graphs=False`` and
+    the CPU; (c) ``bench_obs`` bare, with the recorder disabled and
+    instrumented, bitwise; (d) both faults; (e) the load sweep.
+33. training (the joint anytime train step) and the trained weights
+    served: (a) ``alert-anytime-120m`` at full width and depth (bf16
+    params, float32 moments, ``blocks``/``ref``, remat "full") trained
+    ``TRAIN_STEPS`` = 30 steps on 8 x 1024 synthetic tokens through the
+    launcher's ``train`` and its ``Supervisor`` (a checkpoint every 10
+    steps): the median step (CUDA events), tokens/s, TFLOP/s (counted from
+    the live blocks) against 989, ``max_memory_allocated``; every loss
+    finite and the mean of the last five below the first; (b) the trained
+    weights, detached, with ``nest_backend="kernel"`` and
+    ``attn_backend="kernel"``: each level's graphed prefill logits against
+    ``train_logits(level=k)`` within ``TRAIN_SERVE_TOL`` of the largest
+    logit, then 4 ticks of ``FleetAlertServer`` over 8 streams with the
+    held-out accuracies (``alert_select``, ``nested_matmul``,
+    ``flash_attention``, ``decode_attention``); (c)
+    ``examples/serve_alert_torch.py`` with its defaults, its checks
+    holding; (d) 3 float32 train steps of the reduced anytime LM,
+    ``qwen2.5-14b``, ``olmoe-1b-7b`` (routed ids equal), ``jamba-v0.1-52b``
+    and ``whisper-tiny`` on the card against the CPU (``params_close``),
+    and the reduced ``rwkv6-3b`` refusing mode "train"; (e) the reduced
+    anytime LM killed at step 7 and resumed from its step-6 checkpoint,
+    bitwise the uninterrupted run, under deterministic algorithms.
+34. the last lines: one JSON object per kernel (``launches``: the sum
     over every ``serve`` run, graphed and eager, of phases 4, 7, 10, 13,
-    15-17, 19, 20, 22, 23 and 27, over phase 26's two runs and over the
-    fleet and gateway runs of phases 29-31; ``launches_by_run`` by
-    phase), the ``nvidia-smi`` line, and ``{"ok": true, "device":
-    {...}}``.
+    15-17, 19, 20, 22, 23 and 27, over phase 26's two runs, over the
+    fleet and gateway runs of phases 29-32 and over phase 33's serve run
+    and example; ``launches_by_run`` by phase), the ``nvidia-smi`` line,
+    and ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds.
 """
@@ -317,6 +344,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -4667,6 +4695,533 @@ def megatick_phase(device) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# phase 33: training                                                    #
+# --------------------------------------------------------------------- #
+# (a): alert-anytime-120m at full width and depth, bf16 params, float32
+# moments, the joint anytime loss over 8 x 1024 synthetic tokens a step.
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 30, 8, 1024
+TRAIN_LR, TRAIN_CKPT_EVERY = 3e-3, 10
+# (b): the trained weights served graphed on the kernels must give each
+# level's logits of train_logits (blocks projections, ref attention, both
+# bf16) on the same prompts within this share of the level's largest
+# logit, 4 bf16 ulps of it: the two paths round activations to bf16 at
+# other places (flash_attention's P, the fused projections' outputs)
+# over 12 layers (under one ulp of it seen, run a1 of PERF.md).
+TRAIN_SERVE_TOL = 2.0 ** -5
+# (d): the reduced families trained 3 steps in float32 on the card and on
+# the CPU; (e): kill at step 7 and resume from the step-6 checkpoint.
+TRAIN_ARCHS = ("alert-anytime-120m", "qwen2.5-14b", "olmoe-1b-7b",
+               "jamba-v0.1-52b", "whisper-tiny")
+RESUME_STEPS, RESUME_FAIL_AT, RESUME_CKPT_EVERY = 10, 7, 3
+BF16_PEAK_FLOPS = 989e12
+
+
+def train_step_flops(cfg, batch: int, seq: int) -> float:
+    """Operations of one joint anytime train step of the width-nested
+    ``cfg`` under full remat, counted from the work the step runs: each
+    projection's live stripe blocks (``nested_matmul_flops``, the
+    ``blocks`` backend's products), the ``ref`` attention's full S x T
+    scores and values (its mask skips no work), and every level's
+    unembedding.  The layers run three times forward (the forward and the
+    backward's recompute, then twice that for the backward's two
+    products), the unembeddings once forward and twice backward."""
+    from repro_torch.core.nesting import StripeSpec
+    from repro_torch.kernels.nested_matmul import nested_matmul_flops
+    from repro_torch.models.attention import head_stripe_specs
+    from repro_torch.models.mlp import mlp_stripe_specs
+
+    m = batch * seq
+    d_spec, q_spec, kv_spec = head_stripe_specs(cfg)
+    _, f_spec = mlp_stripe_specs(cfg)
+    proj = (nested_matmul_flops(m, d_spec, q_spec)
+            + 2 * nested_matmul_flops(m, d_spec, kv_spec)
+            + nested_matmul_flops(m, q_spec, d_spec)
+            + 2 * nested_matmul_flops(m, d_spec, f_spec)
+            + nested_matmul_flops(m, f_spec, d_spec))
+    attn = 4 * batch * seq * seq * cfg.n_heads * cfg.head_dim
+    layers = cfg.n_layers * (proj + attn)
+    spec = StripeSpec.pow2(cfg.d_model, cfg.nest_levels)
+    unembed = sum(2 * m * spec.width(k) * cfg.vocab
+                  for k in range(1, cfg.nest_levels + 1))
+    return float(4 * layers + 3 * unembed)
+
+
+def params_close(got, want, lr: float, steps: int, what: str) -> dict:
+    """Two runs' parameters after ``steps`` AdamW steps at peak rate
+    ``lr``: at most 0.05 % of the elements more than 2e-6 apart, and every
+    one within ``2 * lr * steps``.  AdamW moves an element by about ``lr *
+    g / (|g| + eps)``, so where a gradient is rounding noise (a key bias,
+    which softmax leaves without a gradient; an embedding row few tokens
+    hit) the runs step by noise, up to ``lr`` each way a step; and the
+    card's embedding backward adds with atomics, so that noise changes
+    from run to run (the CPU tests, deterministic, hold the port to the
+    reference to 0.1 lr)."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    n = off = 0
+    worst = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise SmokeFailure(f"{what}: a parameter's dtype or shape "
+                               f"differs")
+        d = (a.double().cpu() - b.double().cpu()).abs()
+        worst = max(worst, float(d.max()))
+        off += int((d > 2e-6).sum())
+        n += d.numel()
+    if worst > 2 * lr * steps or off > 5e-4 * n:
+        raise SmokeFailure(f"{what}: params differ by up to {worst:.3e} "
+                           f"(bound {2 * lr * steps:.1e}), {off} of {n} "
+                           f"beyond 2e-6 (at most {int(5e-4 * n)})")
+    return {"max_abs_diff": worst, "beyond_2e-6": off, "elements": n}
+
+
+def train_full(device, cfg=None, steps: int = TRAIN_STEPS,
+               batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ) -> dict:
+    """Phase 33 (a): ``cfg`` (default ``alert-anytime-120m`` at full width
+    and depth, bf16) trained ``steps`` steps through the launcher's
+    :func:`~repro_torch.launch.train.train` (the ``Supervisor``, a
+    checkpoint every ``TRAIN_CKPT_EVERY`` steps into a temporary
+    directory, removed after) with the joint anytime loss on
+    ``SyntheticLM(cfg.vocab, seq, batch)``, ``AdamW(cosine_schedule(
+    3e-3, warmup=steps // 10, total=steps))``, remat "full",
+    ``blocks``/``ref``.
+    Prints the median step (CUDA events), tokens/s, TFLOP/s against 989,
+    ``max_memory_allocated`` and the losses; fails on a loss that is not
+    finite or a mean of the last five not below the first."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.alert_anytime import CONFIG
+    from repro_torch.launch.train import train
+
+    cfg = CONFIG if cfg is None else cfg
+    card = device.type == "cuda"
+    if card:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    ckpt = tempfile.mkdtemp(prefix="train_ckpt_")
+    t0 = time.perf_counter()
+    try:
+        run = train(cfg, steps=steps, batch=batch, seq=seq, lr=TRAIN_LR,
+                    anytime=True, ckpt_dir=os.path.join(ckpt, "ck"),
+                    ckpt_every=TRAIN_CKPT_EVERY, device=device)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) if card else None
+    losses = run.losses
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise SmokeFailure(f"training: {len(losses)} losses for {steps} "
+                           f"steps, or one not finite: {losses}")
+    last5 = statistics.fmean(losses[-5:])
+    if not last5 < losses[0]:
+        raise SmokeFailure(f"training: the loss did not fall ({losses[0]} "
+                           f"at the first step, {last5} over the last 5)")
+    med = statistics.median(run.step_ms)
+    flops = train_step_flops(cfg, batch, seq)
+    n_params = sum(p.numel() for p in param_tensors(run.state.params))
+    out = {"model": cfg.name, "params": n_params, "dtype": cfg.dtype,
+           "steps": steps, "batch": batch, "seq": seq,
+           "median_step_ms": med, "first_step_ms": run.step_ms[0],
+           "step_ms": run.step_ms, "tokens_per_s": batch * seq / med * 1e3,
+           "flops_per_step": flops, "tflop_s": flops / med / 1e9,
+           "share_of_989": flops / med / 1e9 / (BF16_PEAK_FLOPS / 1e12),
+           "max_memory_allocated_gb": None if peak is None else peak / 1e9,
+           "loss_first": losses[0], "loss_last5_mean": last5,
+           "losses": losses, "wall_s": wall,
+           "checkpoints": steps // TRAIN_CKPT_EVERY + 1}
+    say(f"  {cfg.name} trained {steps} steps ({n_params} parameters, "
+        f"{cfg.dtype}, float32 moments, remat {cfg.remat_policy}, B={batch} "
+        f"x S={seq}): median step {med:.3f} ms (CUDA events; first "
+        f"{run.step_ms[0]:.3f}), {out['tokens_per_s']:.0f} tokens/s, "
+        f"{flops / 1e12:.3f} TFLOP a step: {out['tflop_s']:.2f} TFLOP/s "
+        f"({out['share_of_989']:.4f} of 989); max_memory_allocated "
+        + (f"{peak / 1e9:.3f} GB" if peak is not None else "not measured")
+        + f"; loss {losses[0]:.4f} at the first step, {last5:.4f} over the "
+          f"last five; {wall:.1f} s with {out['checkpoints']} checkpoints")
+    if card:
+        out["breakdown"] = train_step_breakdown(cfg, run, steps)
+    out["state"], out["model_api"], out["data"] = run.state, run.model, \
+        run.data
+    return out
+
+
+def train_step_breakdown(cfg, run, step_index: int) -> dict:
+    """One more joint anytime step from ``run``'s state (its result
+    dropped) under ``torch.profiler`` (CPU and CUDA activity): the
+    step's time between CUDA events, the card's busy time by kind of
+    kernel (cuBLAS products, softmax, the rest) and its idle share, and
+    the five kernels with the most device time.  The profiler slows the
+    host, so the idle share is an upper bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.train import batch_fn
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.step import make_anytime_loss_fn, make_train_step
+
+    step = make_train_step(run.model, cfg, AdamW(lr=TRAIN_LR),
+                           loss_fn=make_anytime_loss_fn(run.model, cfg))
+    batch = batch_fn(run.data, run.state.params["embed"].device)(step_index)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        a.record()
+        new_state, _ = step(run.state, batch)
+        b.record()
+        torch.cuda.synchronize()
+    del new_state
+    kinds = {"matmul (cuBLAS)": 0.0, "softmax": 0.0, "other": 0.0}
+    per_kernel = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if not us or ev.key.startswith(("aten::", "cuda")):
+            continue
+        kind = "matmul (cuBLAS)" if any(
+            p in ev.key for p in KERNEL_KINDS[0][1]) else "softmax" \
+            if "softmax" in ev.key.lower() else "other"
+        kinds[kind] += us / 1e3
+        per_kernel.append((us / 1e3, ev.count, ev.key[:80]))
+    busy = sum(kinds.values())
+    step_ms = a.elapsed_time(b)
+    top = sorted(per_kernel, reverse=True)[:5]
+    out = {"step_ms_profiled": step_ms, "busy_ms": busy,
+           "idle_share": 1 - busy / step_ms, "by_kind_ms": kinds,
+           "kernels": len(per_kernel),
+           "launches": sum(c for _, c, _ in per_kernel),
+           "top": [{"ms": t, "count": c, "name": n} for t, c, n in top]}
+    say(f"  one more step under torch.profiler: {step_ms:.3f} ms, the card "
+        f"busy {busy:.3f} ms (idle {out['idle_share']:.4f}, an upper "
+        f"bound: the profiler slows the host): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in kinds.items())
+        + f" ms; {out['launches']} kernel launches; the most time: "
+        + "; ".join(f"{n} x{c} {t:.3f} ms" for t, c, n in top))
+    return out
+
+
+def level_accuracies(model, params, data, device, batches: int = 2,
+                     first: int = 10_000) -> list[float]:
+    """Each level's token accuracy over ``batches`` held-out batches of
+    ``data`` (steps ``first`` on), with ``train_logits(level=k)``."""
+    import torch
+
+    from repro_torch.launch.train import batch_fn
+    from repro_torch.train.losses import token_accuracy
+
+    batch_at = batch_fn(data, device)
+    cfg = model.cfg
+    accs = [0.0] * cfg.nest_levels
+    with torch.no_grad():
+        for b in range(batches):
+            evalb = batch_at(first + b)
+            for k in range(1, cfg.nest_levels + 1):
+                logits, _ = model.train_logits(params, evalb, level=k)
+                accs[k - 1] += float(token_accuracy(
+                    logits, evalb["labels"])) / batches
+    return accs
+
+
+def served_logits_vs_train(device, model, params, prompts,
+                           tol: float = TRAIN_SERVE_TOL) -> dict:
+    """Phase 33 (b): for each level, the serving prefill forward
+    (``nest_backend="kernel"``, ``attn_backend="kernel"``) captured in a
+    CUDA graph on the card and replayed, against ``model.train_logits
+    (level=k)`` (``blocks``/``ref``) on the same ``prompts``: within
+    ``tol`` of the level's largest logit, and the last position's argmax
+    counted where it agrees."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    cfg = model.cfg.replace(nest_backend="kernel", attn_backend="kernel")
+    out = {}
+    with torch.inference_mode():
+        static = prompts.clone()
+        for k in range(1, cfg.nest_levels + 1):
+            want, _ = model.train_logits(params, {"tokens": prompts},
+                                         level=k)
+
+            def fwd(k=k):
+                return tfm.lm_apply(params, cfg, static, mode="prefill",
+                                    level=k).logits
+
+            if device.type == "cuda":
+                side = torch.cuda.Stream(device)
+                side.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(side):
+                    fwd()
+                torch.cuda.current_stream(device).wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    got = fwd()
+                graph.replay()
+                torch.cuda.synchronize(device)
+            else:
+                got = fwd()
+            err = float((got.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            same = float((got[:, -1].argmax(-1) == want[:, -1].argmax(-1))
+                         .float().mean())
+            out[f"level_{k}"] = {"max_abs_diff": err, "max_abs_logit": scale,
+                                 "last_argmax_agree": same}
+            if not err <= tol * scale:
+                raise SmokeFailure(f"level {k}: the served logits differ "
+                                   f"from train_logits by {err:.4e}, past "
+                                   f"{tol} x {scale:.4e}")
+    say("  served (kernels, graphed prefill) vs train_logits (blocks/ref), "
+        "bf16, B=%d S=%d: " % tuple(prompts.shape) + "; ".join(
+            f"L{k[-1]} max diff {v['max_abs_diff']:.4e} of "
+            f"{v['max_abs_logit']:.3f}, argmax {v['last_argmax_agree']:.2f}"
+            for k, v in out.items()) + f" (tolerance {tol} of the largest)")
+    return out
+
+
+def kernel_counts(reset: bool = False) -> dict:
+    """The four model kernels' and ``alert_select``'s launch counters (set
+    to 0 first with ``reset``)."""
+    from repro_torch.kernels import alert_select as ks
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import nested_matmul as nm
+    from repro_torch.kernels import rwkv_scan as rs
+
+    fns = {"alert_select": ks.alert_select,
+           "nested_matmul": nm.nested_matmul,
+           "flash_attention": fa.flash_attention,
+           "decode_attention": da.decode_attention,
+           "rwkv_scan": rs.rwkv_scan}
+    if reset:
+        for f in fns.values():
+            f.launches = 0
+    return {name: f.launches for name, f in fns.items()}
+
+
+def example_run(device, train_steps: int = 200, requests: int = 60) -> dict:
+    """Phase 33 (c): ``examples/serve_alert_torch.py`` with its defaults
+    (its two checks raise); the kernels' launches counted over the run."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "serve_alert_torch", ROOT / "examples" / "serve_alert_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    kernel_counts(reset=True)              # this run starts here
+    t0 = time.perf_counter()
+    out = mod.main(["--train-steps", str(train_steps), "--requests",
+                    str(requests), "--device", str(device)])
+    counts = kernel_counts()               # and ends here
+    out["counts"], out["wall_s"] = counts, time.perf_counter() - t0
+    if device.type == "cuda" and not all(
+            counts[k] for k in ("alert_select", "nested_matmul",
+                                "flash_attention", "decode_attention")):
+        raise SmokeFailure(f"serve_alert_torch: a kernel never launched: "
+                           f"{counts}")
+    say(f"  serve_alert_torch: loss {out['losses'][0]:.3f} -> "
+        f"{out['losses'][-1]:.3f} in {train_steps} steps, accuracies "
+        f"{[round(a, 3) for a in out['accuracies']]}, mean level loose / "
+        f"tight {out['mean_level'][0]:.2f} / {out['mean_level'][1]:.2f}, "
+        f"launches {counts}, {out['wall_s']:.1f} s")
+    return out
+
+
+def train_batches(cfg, steps: int, batch: int = 4, seq: int = 16) -> list:
+    """``steps`` synthetic batches (numpy); an encoder-decoder's carry
+    seeded frames ``[batch, 10, d]``."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import SyntheticLM
+
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, global_batch=batch)
+    out = []
+    for i in range(steps):
+        b = data.batch_at(i)
+        if cfg.encoder_layers:
+            b["frames"] = np.random.default_rng(i).standard_normal(
+                (batch, 10, cfg.d_model)).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def train_cpu_vs_card(device, archs=TRAIN_ARCHS, steps: int = 3) -> dict:
+    """Phase 33 (d): each reduced config of ``archs`` in float32, the same
+    seed-0 weights, ``steps`` train steps (the joint anytime loss for the
+    anytime LM) on the card and on the CPU, the parameters held by
+    :func:`params_close`; olmoe's routed expert ids equal in every call.
+    The reduced ``rwkv6-3b`` must refuse mode "train"."""
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.step import (init_train_state,
+                                        make_anytime_loss_fn,
+                                        make_train_step)
+
+    cpu = torch.device("cpu")
+    out = {}
+    for arch in archs:
+        cfg = get_reduced(arch).replace(dtype="float32")
+        model = build_model(cfg)
+        batches = train_batches(cfg, steps)
+        states, routes = [], []
+        for dev in (cpu, device):
+            opt = AdamW(lr=cosine_schedule(TRAIN_LR, 1, steps))
+            params = copy_params(model.init(torch.Generator().manual_seed(0),
+                                            device=cpu), dev)
+            state = init_train_state(model, cfg, opt, params=params)
+            step = make_train_step(model, cfg, opt, loss_fn=(
+                make_anytime_loss_fn(model, cfg) if cfg.nest_levels > 1
+                else None))
+            with recording_routes() as seen:
+                for b in batches:
+                    state, _ = step(state, {k: torch.from_numpy(v).to(dev)
+                                            for k, v in b.items()})
+            states.append(state)
+            routes.append([r.cpu() for r in seen])
+        if len(routes[0]) != len(routes[1]) or not all(
+                torch.equal(a, b) for a, b in zip(*routes)):
+            raise SmokeFailure(f"{arch}: routed expert ids differ between "
+                               f"the CPU and the card")
+        out[arch] = params_close(states[1].params, states[0].params,
+                                 TRAIN_LR, steps, f"{arch} card vs CPU")
+        out[arch]["route_calls"] = len(routes[0])
+        say(f"  {arch} reduced, float32, {steps} train steps: card vs CPU "
+            f"params max diff {out[arch]['max_abs_diff']:.3e}, "
+            f"{out[arch]['beyond_2e-6']} of {out[arch]['elements']} beyond "
+            f"2e-6" + (f", routed ids equal in {len(routes[0])} calls"
+                       if routes[0] else ""))
+    rwkv = get_reduced("rwkv6-3b").replace(dtype="float32")
+    model = build_model(rwkv)
+    b = train_batches(rwkv, 1)[0]
+    try:
+        model.train_logits(model.init(device=device),
+                           {k: torch.from_numpy(v).to(device)
+                            for k, v in b.items()})
+    except ValueError as exc:
+        if "RWKV training is not ported" not in str(exc):
+            raise
+        out["rwkv6-3b"] = str(exc)
+    else:
+        raise SmokeFailure("rwkv6-3b: mode 'train' ran")
+    say(f"  rwkv6-3b reduced refuses mode 'train': {out['rwkv6-3b']}")
+    return out
+
+
+def train_resume(device) -> dict:
+    """Phase 33 (e): the reduced anytime LM (bf16) trained
+    ``RESUME_STEPS`` steps through the launcher, once whole and once
+    crashed at step ``RESUME_FAIL_AT`` with a checkpoint every
+    ``RESUME_CKPT_EVERY`` steps, under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` (the
+    embedding's backward accumulates with atomics otherwise; cuBLAS's
+    workspace is fixed by ``CUBLAS_WORKSPACE_CONFIG``, set before it
+    starts): the end states bitwise equal."""
+    import shutil
+    import tempfile
+    import warnings
+
+    import torch
+
+    from repro_torch.configs.alert_anytime import reduced
+    from repro_torch.launch.train import train
+    from repro_torch.tree import tree_leaves
+
+    cfg = reduced()
+    tmp = tempfile.mkdtemp(prefix="resume_ckpt_")
+    before = torch.are_deterministic_algorithms_enabled()
+    runs = []
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for name, fail in (("whole", None), ("crashed", RESUME_FAIL_AT)):
+                runs.append(train(cfg, steps=RESUME_STEPS, batch=4, seq=32,
+                                  lr=8e-3, anytime=True,
+                                  ckpt_dir=os.path.join(tmp, name),
+                                  ckpt_every=RESUME_CKPT_EVERY,
+                                  fail_at=fail, device=device,
+                                  log_every=0))
+    finally:
+        torch.use_deterministic_algorithms(before)
+        shutil.rmtree(tmp, ignore_errors=True)
+    nondet = sorted({str(w.message).split("\n")[0][:120] for w in caught
+                     if "deterministic" in str(w.message)})
+    whole, crashed = runs
+    leaves = list(zip(tree_leaves(whole.state), tree_leaves(crashed.state)))
+    equal = all(torch.equal(a, b) for a, b in leaves)
+    rerun = len(crashed.losses) - len(whole.losses)
+    say(f"  reduced anytime LM (bf16), crash at step {RESUME_FAIL_AT}, "
+        f"checkpoint every {RESUME_CKPT_EVERY}: {rerun} steps rerun, end "
+        f"state {'bitwise equal' if equal else 'NOT equal'} to the "
+        f"uninterrupted run's over {len(leaves)} leaves; ops without a "
+        f"deterministic CUDA version: {nondet or 'none'}")
+    if not equal or crashed.end != whole.end or \
+            crashed.losses[-3:] != whole.losses[-3:]:
+        raise SmokeFailure("kill and resume on the card is not bitwise the "
+                           "uninterrupted run")
+    return {"bitwise": equal, "rerun_steps": rerun,
+            "nondeterministic_ops": nondet}
+
+
+def training_phase(device, full_cfg=None, steps: int = TRAIN_STEPS,
+                   seq: int = TRAIN_SEQ, example_steps: int = 200) -> dict:
+    """Phase 33, (a)-(e), on ``device``; ``counts`` holds the launches of
+    (b)'s fleet run and of (c)."""
+    import torch
+
+    from repro_torch.tree import tree_map
+
+    out = {}
+    say("  (a) full-width training")
+    a = train_full(device, full_cfg, steps=steps, seq=seq)
+    state, model, data = a.pop("state"), a.pop("model_api"), \
+        a.pop("data")
+    out["train"] = a
+    say("  (b) the trained weights served on the kernels")
+    params = tree_map(lambda t: t.detach(), state.params)
+    del state
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    accs = level_accuracies(model, params, data, device)
+    say(f"  held-out accuracies by level: {[round(x, 5) for x in accs]}")
+    prompts = torch.from_numpy(data.batch_at(20_000)["tokens"][:4, :8]).to(
+        device)
+    out["served_vs_train"] = served_logits_vs_train(device, model, params,
+                                                    prompts)
+    serve_cfg = model.cfg.replace(nest_backend="kernel",
+                                  attn_backend="kernel")
+    run = serve(device, serve_cfg, params=params, level_accuracies=accs,
+                expect_kernel=device.type == "cuda")
+    out["serve"] = {"accuracies": accs, "tick_s": run["tick_s"],
+                    "alert_select_launches": run["launches"]}
+    counts = [run_counts(run)]
+    del run, params
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    say("  (c) examples/serve_alert_torch.py")
+    ex = example_run(device, train_steps=example_steps)
+    counts.append(ex.pop("counts"))
+    out["example"] = {k: ex[k] for k in ("losses", "accuracies",
+                                         "mean_level", "wall_s")}
+    out["example"]["losses"] = [ex["losses"][0], ex["losses"][-1]]
+    say("  (d) reduced families, card vs CPU")
+    out["cpu_vs_card"] = train_cpu_vs_card(device)
+    say("  (e) kill and resume")
+    out["resume"] = train_resume(device)
+    out["counts"] = counts
+    return out
+
+
 def attention_layers(cfg) -> int:
     """The layers of ``cfg`` that hold attention (``"attn"`` or
     ``"attn_local"``), each one ``flash_attention`` launch a prefill
@@ -4704,12 +5259,13 @@ def tenants(table):
 
 def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
           gen_tokens=4, expect_kernel=True, params=None,
-          graphs=True) -> dict:
-    """Phases 4, 7, 10, 13, 15-17, 19, 20, 22, 23 and 27: the fleet server
-    over ``cfg`` on ``device``, its engine replaying one CUDA graph per level
-    and prompt length (``graphs``; False runs the same steps eagerly, the
-    yardstick),
-    with ``params`` or weights drawn from a seed-0 generator.  Every
+          graphs=True, level_accuracies=None) -> dict:
+    """Phases 4, 7, 10, 13, 15-17, 19, 20, 22, 23, 27 and 33: the fleet
+    server over ``cfg`` on ``device``, its engine replaying one CUDA graph
+    per level and prompt length (``graphs``; False runs the same steps
+    eagerly, the yardstick),
+    with ``params`` or weights drawn from a seed-0 generator, and
+    ``level_accuracies`` (default ``LEVEL_ACCURACIES``) for its table.  Every
     launch counter starts at 0 here and is read after the last tick.  With ``expect_kernel`` the scoring kernel must launch
     once per tick.  On the card, with ``cfg.nest_backend == "kernel"``,
     ``nested_matmul`` must launch 7 * n_layers times per forward pass (one
@@ -4756,9 +5312,10 @@ def serve(device, cfg, n_streams=8, batch_size=4, prompt_len=8,
         cfg.attn_backend == "kernel" and card) else 0
     rwkv_per_forward = cfg.n_layers if (cfg.rwkv and card) else 0
     t0 = time.perf_counter()
+    if level_accuracies is None:
+        level_accuracies = LEVEL_ACCURACIES[:cfg.nest_levels]
     srv = FleetAlertServer(engine, params,
-                           level_accuracies=LEVEL_ACCURACIES[
-                               :cfg.nest_levels],
+                           level_accuracies=level_accuracies,
                            goal=Goal.MINIMIZE_ENERGY, n_streams=n_streams,
                            prompt_len=prompt_len, gen_tokens=gen_tokens,
                            start_active=False)
@@ -5126,6 +5683,10 @@ def attention_entry(name, version, source, replaces, launches, cases,
 def main() -> int:
     import argparse
 
+    # Phase 33 (e) runs under deterministic algorithms, whose cuBLAS needs
+    # a fixed workspace, read when cuBLAS starts (this is Hopper's default
+    # size, so no other phase changes).
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     ap = argparse.ArgumentParser(description="Drive the port on one GPU "
@@ -5421,6 +5982,10 @@ def main() -> int:
     phase.start("phase 32: the megatick on the card")
     megatick = megatick_phase(device)
     counted["phase 32"] = megatick.pop("counts")
+
+    phase.start("phase 33: training, then the trained weights served")
+    training = training_phase(device)
+    counted["phase 33"] = training.pop("counts")
     phase.start(None)
     say(f"== done in {time.perf_counter() - t_start:.1f} s")
 
@@ -5442,7 +6007,7 @@ def main() -> int:
         "main_path_bound_ms": mp_bound, "main_path_select_ms": select_ms,
         "version": SELECT_VERSION, "bitwise_cases": n_select_cases,
         "fleet_goldens": fleet_golden, "fleet": fleet, "gateway": gateway,
-        "megatick": megatick,
+        "megatick": megatick, "training": training,
         **{f: timing[f] for f in ("instruction_bound_ms",
                                   "fp64_instructions_per_cell",
                                   "fp64_instructions_per_cell_most",

@@ -6,8 +6,16 @@ numpy or Python scalars, or tensors.  :func:`save` writes one
 ``arrays.npz`` (leaves ``leaf_0``, ``leaf_1``, ...) and a
 ``manifest.json`` that maps each leaf to its ``/``-joined path, in the
 order ``jax.tree_util`` visits leaves: dict keys sorted, sequence items by
-index, ``None`` an empty subtree.  So both packages write the same names
-and read each other's checkpoints.
+index, a ``NamedTuple``'s fields by name as ``.<field>`` (a train state's
+``.params/...``), ``None`` an empty subtree.  So both packages write the
+same names and read each other's checkpoints.
+
+A bfloat16 leaf is written by its bits: numpy has no bfloat16, so the
+array holds the 16-bit patterns as numpy's 2-byte void type ``V2`` (the
+bytes the reference's npz holds for an ``ml_dtypes`` bfloat16 leaf) and
+the manifest records ``"bfloat16"``.  A plain ``uint16`` array would be
+read back by value by any reader that casts (16320 is not 1.5), which
+``V2`` refuses.  :func:`restore` gives the bits back exactly.
 
 The write is torn-write safe: the new checkpoint is built in
 ``<dir>.tmp``, the live one parked at ``<dir>.old``, the new one promoted
@@ -28,25 +36,32 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.tree import children, is_namedtuple
+
 
 def _leaves(tree, path=()):
     """``(path, leaf)`` pairs in ``jax.tree_util``'s order."""
     if tree is None:
         return
-    if isinstance(tree, dict):
-        for key in sorted(tree):
-            yield from _leaves(tree[key], path + (str(key),))
-    elif isinstance(tree, (list, tuple)):
-        for i, item in enumerate(tree):
-            yield from _leaves(item, path + (str(i),))
+    if isinstance(tree, (dict, list, tuple)):
+        for name, child in children(tree):
+            yield from _leaves(child, path + (name,))
     else:
         yield "/".join(path), tree
 
 
 def _to_numpy(leaf) -> np.ndarray:
+    """The leaf as a numpy array; a bfloat16 one (a tensor, or an
+    ``ml_dtypes`` array) as its bits in ``V2``."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view("V2")
+        return leaf.numpy()
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        return arr.view("V2")
+    return arr
 
 
 def save(directory: str, tree, step: int = 0, extra: dict | None = None
@@ -67,8 +82,9 @@ def save(directory: str, tree, step: int = 0, extra: dict | None = None
         name = f"leaf_{i}"
         arrays[name] = arr
         manifest["leaves"].append({
-            "name": name, "path": key,
-            "shape": list(arr.shape), "dtype": str(arr.dtype)})
+            "name": name, "path": key, "shape": list(arr.shape),
+            "dtype": "bfloat16" if arr.dtype == np.dtype("V2")
+            else str(arr.dtype)})
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1)
@@ -102,44 +118,58 @@ def load_manifest(directory: str) -> dict:
         return json.load(f)
 
 
-def _like_leaf(arr: np.ndarray, leaf, key: str) -> torch.Tensor:
+def _saved_tensor(arr: np.ndarray, saved_dtype: str) -> torch.Tensor:
+    """A saved array as a CPU tensor; the bits of a ``"bfloat16"`` leaf
+    (``V2`` or ``uint16``) as bfloat16."""
+    if saved_dtype == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _like_leaf(arr: torch.Tensor, leaf, key: str) -> torch.Tensor:
     """``arr`` as a tensor shaped, typed and placed as ``leaf``."""
     if isinstance(leaf, torch.Tensor):
         dtype, device = leaf.dtype, leaf.device
         shape = tuple(leaf.shape)
     else:
         ref = np.asarray(leaf)
-        dtype = torch.from_numpy(np.zeros(0, ref.dtype)).dtype
+        dtype = torch.bfloat16 if ref.dtype.name == "bfloat16" else \
+            torch.from_numpy(np.zeros(0, ref.dtype)).dtype
         device, shape = torch.device("cpu"), ref.shape
     if tuple(arr.shape) != shape:
-        raise ValueError(f"leaf {key}: checkpoint shape {arr.shape} != "
-                         f"model shape {shape}")
-    return torch.from_numpy(arr).to(device=device, dtype=dtype)
+        raise ValueError(f"leaf {key}: checkpoint shape {tuple(arr.shape)} "
+                         f"!= model shape {shape}")
+    return arr.to(device=device, dtype=dtype)
 
 
 def restore(directory: str, like) -> tuple[Any, int]:
     """Restore into the structure of ``like`` (a tree of arrays,
-    scalars or tensors): each leaf comes back as a tensor of the like
-    leaf's shape and dtype on its device (a numpy leaf: the CPU).
+    scalars or tensors; dicts, lists, tuples and ``NamedTuple``s, each
+    rebuilt as its own type): each leaf comes back as a tensor of the
+    like leaf's shape and dtype on its device (a numpy leaf: the CPU).
     Returns ``(tree, step)``."""
     directory = _resolve(directory)
     manifest = load_manifest(directory)
-    saved = {rec["path"]: rec["name"] for rec in manifest["leaves"]}
+    saved = {rec["path"]: rec for rec in manifest["leaves"]}
     with np.load(os.path.join(directory, "arrays.npz")) as data:
         def build(node, path):
             if node is None:
                 return None
-            if isinstance(node, dict):
-                return {k: build(v, path + (str(k),))
-                        for k, v in node.items()}
-            if isinstance(node, (list, tuple)):
-                items = [build(v, path + (str(i),))
-                         for i, v in enumerate(node)]
-                return items if isinstance(node, list) else tuple(items)
+            if isinstance(node, (dict, list, tuple)):
+                items = {name: build(child, path + (name,))
+                         for name, child in children(node)}
+                if isinstance(node, dict):
+                    return {k: items[str(k)] for k in node}
+                if is_namedtuple(node):
+                    return type(node)(*items.values())
+                return list(items.values()) if isinstance(node, list) \
+                    else tuple(items.values())
             key = "/".join(path)
             if key not in saved:
                 raise KeyError(f"checkpoint missing leaf {key!r}")
-            return _like_leaf(data[saved[key]], node, key)
+            rec = saved[key]
+            return _like_leaf(_saved_tensor(data[rec["name"]],
+                                            rec["dtype"]), node, key)
 
         tree = build(like, ())
     return tree, manifest["step"]

@@ -48,6 +48,8 @@ class ModelConfig:
     moe_every: int = 1                   # MoE FFN at layers i % moe_every
     moe_offset: int = 0                  #   == moe_offset
     capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01      # the MoE aux loss's weight in
+    #                                      the training loss
     attn_every: int = 0                  # hybrid: attention at layers
     attn_offset: int = 4                 #   i % attn_every == attn_offset,
     #                                      Mamba elsewhere; 0 = all attention
@@ -73,6 +75,11 @@ class ModelConfig:
     nest_backend: str = "blocks"         # blocks | masked | kernel
     moe_dispatch: str = "onehot"         # onehot (GShard) | gather (sorted
     #                                      index dispatch)
+    remat: bool = True                   # training recomputes each layer
+    #                                      in the backward pass
+    remat_policy: str = "full"           # full | save_dots (keep matmul
+    #                                      outputs, recompute the rest)
+    loss_chunk: int = 0                  # 0 = unchunked cross-entropy
 
     def __post_init__(self):
         if self.family not in FAMILIES:
@@ -99,6 +106,9 @@ class ModelConfig:
         if self.attn_backend not in ("ref", "kernel"):
             raise ValueError(f"attn_backend must be 'ref' or 'kernel', not "
                              f"{self.attn_backend!r}")
+        if self.remat_policy not in ("full", "save_dots"):
+            raise ValueError(f"remat_policy must be 'full' or 'save_dots', "
+                             f"not {self.remat_policy!r}")
 
     @property
     def mamba_d_inner(self) -> int:

@@ -8,7 +8,15 @@ full network is the standalone level-k subnetwork.  Pre-norm nesting
 prefix, so normalisation never lets an early stripe see a later one.
 
 Matrices keep the reference's ``[in, out]`` layout and are applied as
-``x @ W``.  The ``blocks`` backend multiplies only the live blocks; the
+``x @ W``.
+
+Training (paper Section 4.3): :func:`joint_anytime_loss` weighs the
+per-level losses of one forward pass, so one backward trains every level;
+greedy stage-wise training puts all weight on one level
+(:func:`greedy_stage_weights`) and freezes the earlier stripes
+(:func:`freeze_prefix`).  Depth nesting (:class:`DepthSpec`,
+:func:`depth_nested_apply`) interlaces layer subsets, each deeper level
+doubling the layers run.  The ``blocks`` backend multiplies only the live blocks; the
 ``masked`` backend is the dense oracle with the dropped blocks zeroed;
 the ``kernel`` backend runs the hand-written ``nested_matmul`` kernel.
 """
@@ -17,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -221,3 +230,103 @@ def prefix_rmsnorm(h: torch.Tensor, gamma: torch.Tensor, spec: StripeSpec,
     hk = h[..., :d]
     var = torch.mean(hk.float().square(), dim=-1, keepdim=True)
     return (hk * torch.rsqrt(var + eps).to(h.dtype)) * gamma[:d]
+
+
+def slice_linear_to_level(w: torch.Tensor, in_spec: StripeSpec,
+                          out_spec: StripeSpec, level: int) -> torch.Tensor:
+    """Weights of the standalone level-k subnetwork: the triangular
+    prefix."""
+    return w[:in_spec.width(min(level, in_spec.levels)),
+             :out_spec.width(level)]
+
+
+def freeze_prefix(w: torch.Tensor, in_spec: StripeSpec, out_spec: StripeSpec,
+                  level: int) -> torch.Tensor:
+    """Greedy training (paper Section 4.3): the block wholly inside levels
+    below ``level`` is detached, so stage-k training leaves the earlier
+    stripes' weights without a gradient (the reference's
+    ``stop_gradient``)."""
+    if level <= 1:
+        return w
+    di = in_spec.width(min(level - 1, in_spec.levels))
+    do = out_spec.width(level - 1)
+    top = torch.cat([w[:di, :do].detach(), w[:di, do:]], dim=1)
+    return torch.cat([top, w[di:, :]], dim=0)
+
+
+def joint_anytime_loss(per_level_losses: Sequence[torch.Tensor],
+                       weights: Sequence[float] | None = None
+                       ) -> torch.Tensor:
+    """Weighted sum of the per-level losses (uniform by default), summed
+    in level order; one backward pass trains every level."""
+    k = len(per_level_losses)
+    if weights is None:
+        weights = [1.0 / k] * k
+    if len(weights) != k:
+        raise ValueError("len(weights) != number of levels")
+    return torch.as_tensor(sum(w * l for w, l in zip(weights,
+                                                      per_level_losses)))
+
+
+def greedy_stage_weights(stage: int, levels: int) -> list[float]:
+    """One-hot level weighting of greedy stage ``stage`` (1-based)."""
+    return [1.0 if k == stage - 1 else 0.0 for k in range(levels)]
+
+
+@dataclasses.dataclass(frozen=True)
+class DepthSpec:
+    """Interlaced depth-nesting plan over ``n_layers`` with ``levels``
+    levels (paper Section 4.2.2, Fig. 8): level k runs the layers ``j``
+    with ``j % 2^(K-k) == 0``, so each deeper level fills in the
+    midpoints of the one before."""
+
+    n_layers: int
+    levels: int
+
+    def level_of_layer(self, j: int) -> int:
+        """Nesting level (1-based) of 0-based layer ``j``: the smallest k
+        whose grid ``j % 2^(K-k) == 0`` holds it."""
+        for k in range(1, self.levels + 1):
+            if j % 2 ** (self.levels - k) == 0:
+                return k
+        return self.levels
+
+    def layers_of_level(self, level: int) -> list[int]:
+        """Every layer run at ``level`` (levels <= ``level``)."""
+        s = 2 ** (self.levels - level)
+        return [j for j in range(self.n_layers) if j % s == 0]
+
+    def skip_sources(self, j: int) -> list[int]:
+        """Predecessors of layer ``j`` at power-of-2 distances whose level
+        is at most ``j``'s; ``-1`` is the input."""
+        lj = self.level_of_layer(j)
+        srcs = []
+        d = 1
+        while j - d >= -1:
+            src = j - d
+            if src == -1 or self.level_of_layer(src) <= lj:
+                srcs.append(src)
+            d *= 2
+        return srcs
+
+
+def depth_nested_apply(layer_fns: Sequence[Callable[[torch.Tensor],
+                                                    torch.Tensor]],
+                       x: torch.Tensor, spec: DepthSpec,
+                       level: int | None = None) -> list[torch.Tensor]:
+    """Run a depth-nested stack: ``layer_fns[j]`` maps the sum of its skip
+    sources (in :meth:`DepthSpec.skip_sources` order) to its output.
+    Returns the state after the last layer of each level up to ``level``
+    (paper Eq. 10); a shallower level's activations do not depend on
+    whether deeper levels run."""
+    k = spec.levels if level is None else level
+    buf: dict[int, torch.Tensor] = {-1: x}
+    level_layers = {lv: spec.layers_of_level(lv) for lv in range(1, k + 1)}
+    run = sorted({j for lv in range(1, k + 1) for j in level_layers[lv]})
+    for j in run:
+        srcs = [s for s in spec.skip_sources(j) if s in buf]
+        agg = buf[srcs[0]]
+        for s in srcs[1:]:
+            agg = agg + buf[s]
+        buf[j] = layer_fns[j](agg)
+    return [buf[level_layers[lv][-1]] for lv in range(1, k + 1)]

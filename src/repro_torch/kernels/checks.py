@@ -31,6 +31,22 @@ def check_rows(name: str, *tensors: torch.Tensor) -> None:
                              f"{t.stride()} at {t.data_ptr():#x}")
 
 
+def no_backward(name: str, *tensors) -> None:
+    """Refuse a call that autograd would record: the kernels have no
+    backward (the JAX package's Pallas kernels have none either), and a
+    kernel's output made with ``torch.empty`` carries no ``grad_fn``, so a
+    train step through it would drop its gradients without a word.  The
+    check runs on both devices, so a CPU test catches any train path that
+    reaches a kernel's wrapper."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.is_floating_point()
+            and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward, as the JAX package's "
+                           f"kernel has none: call it with gradients off "
+                           f"(torch.no_grad or torch.inference_mode), or "
+                           f"train on the blocks/ref paths")
+
+
 _SM_COUNT: dict[int, int] = {}
 
 

@@ -37,7 +37,8 @@ import numbers
 import numpy as np
 import torch
 
-from repro_torch.kernels.checks import DTYPE_CODE, check_rows, sm_count
+from repro_torch.kernels.checks import (DTYPE_CODE, check_rows, no_backward,
+                                       sm_count)
 from repro_torch.kernels.flash_attention import check_head_dim
 
 
@@ -286,8 +287,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The inputs are read through their strides (unit stride on ``hd``,
     16-byte aligned rows).  CPU tensors run :func:`decode_attention_plain`;
     CUDA tensors launch the kernel (and count the call once, though a
-    split call is two CUDA launches) or raise.
+    split call is two CUDA launches) or raise.  Either way it raises
+    while autograd would record the call
+    (:func:`~repro_torch.kernels.checks.no_backward`).
     """
+    no_backward("decode_attention", q, k, v)
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, cache_len, window=window)

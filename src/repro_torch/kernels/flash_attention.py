@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.checks import DTYPE_CODE, check_rows
+from repro_torch.kernels.checks import DTYPE_CODE, check_rows, no_backward
 
 MAX_HEAD_DIM = 256
 
@@ -167,7 +167,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     The inputs are read through their strides (unit stride on ``hd``,
     16-byte aligned rows).  CPU tensors run :func:`flash_attention_plain`;
     CUDA tensors launch the kernel (and count the launch) or raise.
+    Either way it raises while autograd would record the call
+    (:func:`~repro_torch.kernels.checks.no_backward`).
     """
+    no_backward("flash_attention", q, k, v)
     _check(q, k, v, window, softcap)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,

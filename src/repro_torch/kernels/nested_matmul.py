@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.nesting import StripeSpec
-from repro_torch.kernels.checks import DTYPE_CODE, sm_count
+from repro_torch.kernels.checks import DTYPE_CODE, no_backward, sm_count
 
 _MAX_LEVELS = 8          # NM_MAX_LEVELS of the source
 TILE_N = 64              # NM3_BN: output columns of a v3 tile
@@ -219,8 +219,10 @@ def nested_matmul(x: torch.Tensor, w: torch.Tensor, in_spec: StripeSpec,
     ``x`` may be a level prefix and ``w`` the full weight: both are read
     through their row strides.  CPU tensors run
     :func:`nested_matmul_plain`; CUDA tensors launch the kernel (and count
-    the launch) or raise.
+    the launch) or raise.  Either way it raises while autograd would
+    record the call (:func:`~repro_torch.kernels.checks.no_backward`).
     """
+    no_backward("nested_matmul", x, w)
     lvl = out_spec.levels if level is None else level
     if x.device.type == "cpu":
         return nested_matmul_plain(x, w, in_spec, out_spec, lvl)

@@ -32,7 +32,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.checks import DTYPE_CODE, check_rows, sm_count
+from repro_torch.kernels.checks import (DTYPE_CODE, check_rows, no_backward,
+                                       sm_count)
 
 HEAD_DIMS = (16, 32, 64)
 # The split plan's target: blocks of one wave per SM (a v3 block holds at
@@ -219,8 +220,10 @@ def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     16-byte aligned rows), so views of ``[B,S,H*hd]`` work.  CPU tensors
     run :func:`rwkv_scan_plain`; CUDA tensors launch the kernel in the
     segments of :func:`rwkv_scan_plan` (one to three kernels, counted as
-    one launch) or raise.
+    one launch) or raise.  Either way it raises while autograd would
+    record the call (:func:`~repro_torch.kernels.checks.no_backward`).
     """
+    no_backward("rwkv_scan", r, k, v, w, u, s0)
     _check(r, k, v, w, u, s0)
     if r.device.type == "cpu":
         return rwkv_scan_plain(r, k, v, w, u, s0)

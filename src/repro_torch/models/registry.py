@@ -4,11 +4,14 @@ the decoder-only LMs of models/transformer.py and, where
 ``build_model(cfg)`` ->
 
     model.init(generator=None, device=None)   -> params
+    model.train_logits(params, batch, level=None, all_levels=False)
+                                              -> (logits, aux_loss)
     model.prefill(params, batch)              -> (logits, caches)
     model.decode_step(params, batch, caches)  -> (logits, caches)
     model.init_caches(batch_size, max_len)    -> caches
 
-``batch`` is a dict with ``tokens [B, S]``, for decode ``cache_len``, and
+``batch`` is a dict with ``tokens [B, S]``, for decode ``cache_len``, for
+training ``labels [B, S]`` (read by the losses, not here), and
 for a ``vlm`` model optionally ``pos3d [3, B, S]`` (M-RoPE's position
 streams; without them its attention runs plain RoPE, as text-only serving
 does), and for an encoder-decoder's prefill ``frames [B, T, d]`` (the
@@ -32,6 +35,7 @@ from repro_torch.models import whisper as wsp
 class Model:
     cfg: ModelConfig
     init: Callable[..., dict]
+    train_logits: Callable[..., tuple[Any, Any]]
     prefill: Callable[..., tuple[Any, Any]]
     decode_step: Callable[..., tuple[Any, Any]]
     init_caches: Callable[..., Any]
@@ -47,6 +51,12 @@ def build_model(cfg: ModelConfig) -> Model:
 
 
 def _build_lm(cfg: ModelConfig) -> Model:
+    def train_logits(params, batch, level=None, all_levels=False):
+        out = tfm.lm_apply(params, cfg, batch["tokens"], mode="train",
+                           pos3d=batch.get("pos3d"), level=level,
+                           all_levels=all_levels)
+        return out.logits, out.aux_loss
+
     def prefill(params, batch):
         out = tfm.lm_apply(params, cfg, batch["tokens"], mode="prefill",
                            pos3d=batch.get("pos3d"))
@@ -62,6 +72,7 @@ def _build_lm(cfg: ModelConfig) -> Model:
         cfg=cfg,
         init=lambda generator=None, device=None: tfm.init_lm(
             cfg, generator=generator, device=device),
+        train_logits=train_logits,
         prefill=prefill,
         decode_step=decode_step,
         init_caches=lambda b, s, device=None: tfm.init_caches(
@@ -70,6 +81,12 @@ def _build_lm(cfg: ModelConfig) -> Model:
 
 
 def _build_encdec(cfg: ModelConfig) -> Model:
+    def train_logits(params, batch, level=None, all_levels=False):
+        # an encoder-decoder has no nesting: level and all_levels are
+        # ignored, as in the reference
+        out = wsp.encdec_train(params, cfg, batch["frames"], batch["tokens"])
+        return out.logits, out.aux_loss
+
     def prefill(params, batch):
         ckv = wsp.cross_kv(params, cfg, wsp.encode(params, cfg,
                                                    batch["frames"]))
@@ -95,6 +112,7 @@ def _build_encdec(cfg: ModelConfig) -> Model:
         cfg=cfg,
         init=lambda generator=None, device=None: wsp.init_encdec(
             cfg, generator=generator, device=device),
+        train_logits=train_logits,
         prefill=prefill,
         decode_step=decode_step,
         init_caches=init_caches,

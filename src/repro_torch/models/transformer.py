@@ -20,13 +20,23 @@ expert stacks of a ``"moe"`` layer (:mod:`repro_torch.models.moe`);
 runs the nested attention and SwiGLU, and ``level`` selects the level-k
 prefix subnetwork: the whole pipeline runs on the ``d_k`` prefix of the
 residual stream.  A model without nesting runs the dense blocks.
+
+``lm_apply(mode="train")`` is the training forward: no caches, every
+level's logits from one pass (``all_levels``), the MoE aux loss summed,
+each layer recomputed in the backward pass under ``cfg.remat``
+(:func:`remat`).  It runs no kernel (none has a backward): the
+``blocks``/``masked`` projections and ``ref`` attention, as the
+reference trains.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.nesting import StripeSpec, prefix_rmsnorm
@@ -44,8 +54,9 @@ Cache = KVCache | mamba_mod.MambaState | rwkv_mod.RwkvState
 
 
 class LMOutput(NamedTuple):
-    logits: torch.Tensor
-    caches: list[Cache]
+    logits: torch.Tensor | list[torch.Tensor]
+    caches: list[Cache] | None
+    aux_loss: torch.Tensor | None = None   # a train forward's MoE aux loss
 
 
 def init_layer(cfg: ModelConfig, mixer: str, ffn: str,
@@ -101,35 +112,43 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     return caches
 
 
-def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig,
-         ffn: str) -> torch.Tensor:
-    """The residual stream after the FFN of a layer without nesting: the
-    MoE FFN of a ``"moe"`` layer, else the dense SwiGLU."""
+def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig, ffn: str,
+         with_aux: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The residual stream after the FFN of a layer without nesting (the
+    MoE FFN of a ``"moe"`` layer, else the dense SwiGLU) and the MoE aux
+    loss (None unless ``with_aux``; 0 for a dense layer)."""
     if ffn == "moe":
-        return x + moe_mod.moe(lp["ffn"], x, cfg, with_aux=False)[0]
-    return x + mlp_mod.mlp(lp["ffn"], x, cfg)
+        out, aux = moe_mod.moe(lp["ffn"], x, cfg, with_aux=with_aux)
+        return x + out, aux
+    aux = torch.zeros((), dtype=torch.float32, device=x.device) \
+        if with_aux else None
+    return x + mlp_mod.mlp(lp["ffn"], x, cfg), aux
 
 
 def apply_layer(lp: dict, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ModelConfig, mixer: str, ffn: str, *, cache=None,
                 cache_len=None, level: int | None = None,
-                pos3d: torch.Tensor | None = None):
+                pos3d: torch.Tensor | None = None, with_aux: bool = False):
     """One pre-norm block: attention (M-RoPE at ``pos3d`` where the config
     has ``m_rope``) or Mamba, then SwiGLU (nested when ``nest_levels >
     1``; an ``"attn_local"`` layer with its sliding window) or the MoE FFN
     of a ``"moe"`` layer; or the RWKV time mix + channel mix.  Returns
-    ``(x, new_cache)``; a MoE layer's aux loss is not computed (the
-    reference's ``jit`` drops it from a serving forward as dead code)."""
+    ``(x, new_cache, aux)``: a MoE layer's aux loss only ``with_aux`` (a
+    train step; the reference's ``jit`` drops it from a serving forward as
+    dead code), else None; 0 for a layer without MoE."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device) \
+        if with_aux else None
     if mixer == "mamba":
         m, new_cache = mamba_mod.mamba(lp["mixer"], x, cfg, state=cache)
-        return _ffn(lp, x + m, cfg, ffn), new_cache
+        x, aux = _ffn(lp, x + m, cfg, ffn, with_aux)
+        return x, new_cache, aux
     if mixer == "rwkv":
         t, wkv, tail_t = rwkv_mod.rwkv_time_mix(lp["mixer"], x, cfg,
                                                 state=cache)
         x = x + t
         c, tail_c = rwkv_mod.rwkv_channel_mix(lp["mixer"], x, cfg,
                                               state=cache)
-        return x + c, rwkv_mod.RwkvState(wkv, tail_t, tail_c)
+        return x + c, rwkv_mod.RwkvState(wkv, tail_t, tail_c), zero
     window = cfg.sliding_window if mixer == "attn_local" else None
     if cfg.nest_levels > 1:
         a, new_cache = attn_mod.nested_attention(
@@ -137,12 +156,13 @@ def apply_layer(lp: dict, x: torch.Tensor, positions: torch.Tensor,
             cache=cache, cache_len=cache_len)
         x = x + a
         return x + mlp_mod.nested_mlp(lp["ffn"], x, cfg, level=level), \
-            new_cache
+            new_cache, zero
     a, new_cache = attn_mod.attention(lp["mixer"], x, positions, cfg,
                                       window=window, cache=cache,
                                       cache_len=cache_len,
                                       positions_3d=pos3d)
-    return _ffn(lp, x + a, cfg, ffn), new_cache
+    x, aux = _ffn(lp, x + a, cfg, ffn, with_aux)
+    return x, new_cache, aux
 
 
 def token_positions(b: int, s: int, device,
@@ -159,14 +179,64 @@ def token_positions(b: int, s: int, device,
                       device=device)
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy="save_dots"``: keep
+    the outputs of products without a batch dim (``mm``, ``addmm``, the
+    reference's ``dots_with_no_batch_dims_saveable``), recompute the
+    rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, recomputed in the backward pass (activation
+    checkpointing, ``use_reentrant=False``) when ``cfg.remat`` is set and
+    autograd is recording; ``cfg.remat_policy == "save_dots"`` keeps the
+    products' outputs.  The values are those of ``fn(*args)``."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn(*args)
+    kw = {}
+    if cfg.remat_policy == "save_dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Refuse a train forward that would reach a kernel: the kernels have
+    no backward (nor have the reference's), so training runs the
+    ``blocks``/``masked`` projections and ``ref`` attention, as the
+    reference trains; and an RWKV layer's only recurrence on the card is
+    ``rwkv_scan``."""
+    if cfg.nest_backend == "kernel" or cfg.attn_backend == "kernel":
+        raise ValueError(
+            f"mode 'train' runs no kernel (they have no backward): use "
+            f"nest_backend 'blocks' or 'masked' and attn_backend 'ref', not "
+            f"{cfg.nest_backend!r} / {cfg.attn_backend!r}")
+    if cfg.rwkv:
+        raise ValueError("mode 'train': RWKV training is not ported (its "
+                         "recurrence on the card is rwkv_scan, which has no "
+                         "backward)")
+
+
 def lm_apply(params: dict, cfg: ModelConfig, tokens: torch.Tensor | None,
              *, mode: str = "prefill", caches: list | None = None,
              cache_len: int | torch.Tensor | None = None,
              level: int | None = None, pos3d: torch.Tensor | None = None,
-             embeds: torch.Tensor | None = None) -> LMOutput:
+             embeds: torch.Tensor | None = None, all_levels: bool = False,
+             return_hidden: bool = False) -> LMOutput:
     """Forward pass at nesting ``level`` (default: the deepest; a model
     without nesting takes ``None``).
 
+    * ``mode='train'``: no caches in or out; every MoE layer's aux loss
+      is summed in layer order into ``aux_loss`` (float32), and with
+      ``cfg.remat`` each layer is recomputed in the backward pass
+      (:func:`remat`).  ``all_levels=True`` returns a list with one
+      logits tensor per level from the one forward (the nesting
+      property); ``return_hidden=True`` returns the final-normed hidden
+      states in place of logits (the chunked loss projects them).  A
+      kernel backend or an RWKV layer raises (:func:`check_trainable`).
     * ``mode='prefill'``: ``tokens [B, S]``, no caches in; the per-layer
       k/v of the prompt (or the Mamba and RWKV states after it) come back
       (the serving engine merges them into its decode buffers).
@@ -182,12 +252,15 @@ def lm_apply(params: dict, cfg: ModelConfig, tokens: torch.Tensor | None,
     ``embeds [B, S, d]`` stand in for the token embeddings (the vision
     frontend's path; ``tokens`` may then be None), as in the reference.
     With ``cfg.prefill_last_only`` a prefill returns the last position's
-    logits only.
+    logits only.  A serving forward's ``aux_loss`` is None.
 
     Returns ``[B, S, V]`` logits of the chosen level.
     """
-    if mode not in ("prefill", "decode"):
+    if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
+    train = mode == "train"
+    if train:
+        check_trainable(cfg)
     b, s = tokens.shape if embeds is None else embeds.shape[:2]
     dev = tokens.device if embeds is None else embeds.device
     decode = mode == "decode"
@@ -200,20 +273,40 @@ def lm_apply(params: dict, cfg: ModelConfig, tokens: torch.Tensor | None,
         if k < cfg.nest_levels:
             x = x[..., :d_spec.width(k)]
     new_caches = []
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev) \
+        if train else None
     plan = cfg.layer_plan()
     for i, lp in enumerate(params["layers"]):
-        x, nc = apply_layer(lp, x, positions, cfg, *plan[i],
-                            cache=caches[i] if decode else None,
-                            cache_len=cache_len if decode else None,
-                            level=level, pos3d=pos3d)
+        if train:
+            def layer(lp_, x_, kinds=plan[i]):
+                x_, _, aux = apply_layer(lp_, x_, positions, cfg, *kinds,
+                                         level=level, pos3d=pos3d,
+                                         with_aux=True)
+                return x_, aux
+
+            x, aux = remat(cfg, layer, lp, x)
+            aux_total = aux_total + aux
+            continue
+        x, nc, _ = apply_layer(lp, x, positions, cfg, *plan[i],
+                               cache=caches[i] if decode else None,
+                               cache_len=cache_len if decode else None,
+                               level=level, pos3d=pos3d)
         new_caches.append(nc)
-    if not decode and cfg.prefill_last_only:
+    if mode == "prefill" and cfg.prefill_last_only:
         x = x[:, -1:, :]
+    out_caches = None if train else new_caches
+    if return_hidden:
+        return LMOutput(rms_norm(x, params["final_norm"], cfg.norm_eps),
+                        out_caches, aux_total)
     unembed = params.get("unembed")
     if unembed is None:
         unembed = params["embed"].T
     if not nested:
         h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return LMOutput(h @ unembed, new_caches)
-    hk = prefix_rmsnorm(x, params["final_norm"], d_spec, k, cfg.norm_eps)
-    return LMOutput(hk @ unembed[:d_spec.width(k), :], new_caches)
+        return LMOutput(h @ unembed, out_caches, aux_total)
+    levels = range(1, cfg.nest_levels + 1) if all_levels else [k]
+    logits = [prefix_rmsnorm(x, params["final_norm"], d_spec, lv,
+                             cfg.norm_eps) @ unembed[:d_spec.width(lv), :]
+              for lv in levels]
+    return LMOutput(logits if all_levels else logits[0], out_caches,
+                    aux_total)

@@ -36,7 +36,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import embed_init, rms_norm
-from repro_torch.models.transformer import LMOutput, token_positions
+from repro_torch.models.transformer import (LMOutput, check_trainable,
+                                            remat, token_positions)
 
 
 def init_encdec(cfg: ModelConfig, generator: torch.Generator | None = None,
@@ -76,15 +77,21 @@ def encode(params: dict, cfg: ModelConfig,
            frames: torch.Tensor) -> torch.Tensor:
     """``frames [B, T, d]`` (the stubbed frontend's embeddings) through the
     bidirectional encoder: RoPE at ``0..T-1``, no causal mask, then the
-    encoder's final norm.  Returns ``[B, T, d]``."""
+    encoder's final norm.  With ``cfg.remat`` each layer is recomputed in
+    the backward pass while autograd records, as the reference remats its
+    encoder.  Returns ``[B, T, d]``."""
     b, t, _ = frames.shape
     positions = token_positions(b, t, frames.device, None)
-    x = frames
-    for lp in params["encoder"]:
+
+    def layer(lp, x):
         a, _ = attn_mod.attention(lp["attn"], x, positions, cfg,
                                   causal=False)
         x = x + a
-        x = x + mlp_mod.mlp(lp["ffn"], x, cfg)
+        return x + mlp_mod.mlp(lp["ffn"], x, cfg)
+
+    x = frames
+    for lp in params["encoder"]:
+        x = remat(cfg, layer, lp, x)
     return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
@@ -115,29 +122,55 @@ def decoder_apply(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     * ``mode='decode'``: ``tokens [B, 1]`` at ``cache_len`` (an int, or a
       0-d or ``[B]`` integer tensor on the device) with the self
       ``caches``, whose k/v are written in place and returned.
+    * ``mode='train'``: as a prefill without caches (None), each layer
+      recomputed in the backward pass under ``cfg.remat``, and a zero
+      float32 ``aux_loss`` (the encoder-decoder has no MoE).
 
     Returns ``[B, s, V]`` logits (always through ``unembed``) and the
     caches."""
-    if mode not in ("prefill", "decode"):
+    if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
+    train = mode == "train"
+    if train:
+        check_trainable(cfg)
     b, s = tokens.shape
     decode = mode == "decode"
     positions = token_positions(b, s, tokens.device,
                                 cache_len if decode else None)
-    x = params["embed"][tokens]
-    new_caches = []
-    for i, lp in enumerate(params["decoder"]):
+
+    def layer(lp, x, ckv_i, cache):
         a, nc = attn_mod.attention(lp["self"], x, positions, cfg,
-                                   cache=caches[i] if decode else None,
+                                   cache=cache,
                                    cache_len=cache_len if decode else None)
         x = x + a
         c, _ = attn_mod.attention(lp["cross"], x, positions, cfg,
-                                  cross_kv=ckv[i])
+                                  cross_kv=ckv_i)
         x = x + c
-        x = x + mlp_mod.mlp(lp["ffn"], x, cfg)
+        return x + mlp_mod.mlp(lp["ffn"], x, cfg), nc
+
+    x = params["embed"][tokens]
+    new_caches = []
+    for i, lp in enumerate(params["decoder"]):
+        if train:
+            x = remat(cfg, lambda *a: layer(*a)[0], lp, x, ckv[i], None)
+            continue
+        x, nc = layer(lp, x, ckv[i], caches[i] if decode else None)
         new_caches.append(nc)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if train:
+        return LMOutput(h @ params["unembed"], None,
+                        torch.zeros((), dtype=torch.float32,
+                                    device=h.device))
     return LMOutput(h @ params["unembed"], new_caches)
+
+
+def encdec_train(params: dict, cfg: ModelConfig, frames: torch.Tensor,
+                 tokens: torch.Tensor) -> LMOutput:
+    """A train forward of the encoder-decoder: :func:`encode`,
+    :func:`cross_kv`, then :func:`decoder_apply` in mode ``"train"``."""
+    check_trainable(cfg)
+    ckv = cross_kv(params, cfg, encode(params, cfg, frames))
+    return decoder_apply(params, cfg, tokens, ckv, mode="train")
 
 
 def encdec_decode(params: dict, cfg: ModelConfig, tokens: torch.Tensor,

@@ -1,13 +1,15 @@
 """Live profile tables of a width-nested anytime LM (port of
-``repro.profiling.live``, without training).
+``repro.profiling.live``).
 
-A :class:`TrainedAnytime` holds a model, its weights and its measured
-per-level accuracies (training is not ported yet: the caller brings
-both).  :func:`live_profile_table` attaches per-level latencies, either
-deterministic fake measurements through the clock seam (compute time
-proportional to each level's nested-FLOP fraction) or real ``generate``
-times of a :class:`~repro_torch.serving.engine.ServeEngine` on the
-weights' device, and emits the anytime ``ProfileTable`` through
+:func:`train_reduced_anytime` joint-trains the reduced ``alert_anytime``
+config on the synthetic task (paper Section 4.3: one backward pass for
+every level) and measures each level's accuracy on held-out batches.  A
+:class:`TrainedAnytime` holds the model, its weights and those
+accuracies.  :func:`live_profile_table` attaches per-level latencies,
+either deterministic fake measurements through the clock seam (compute
+time proportional to each level's nested-FLOP fraction) or real
+``generate`` times of a :class:`~repro_torch.serving.engine.ServeEngine`
+on the weights' device, and emits the anytime ``ProfileTable`` through
 :func:`~repro_torch.profiling.harness.profile_anytime_measured`.
 """
 
@@ -15,6 +17,10 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+import torch
+
+from repro_torch.configs.alert_anytime import reduced
 from repro_torch.core.nesting import StripeSpec
 from repro_torch.core.power import PowerModel
 from repro_torch.core.profiles import ProfileTable
@@ -38,7 +44,8 @@ def level_flop_fractions(cfg) -> list[float]:
 class TrainedAnytime:
     """An anytime LM with its evaluation results: ``model`` (a registry
     :class:`~repro_torch.models.registry.Model`), ``params`` on the device
-    it is served from, and per-level ``accuracies`` (shallow to deep)."""
+    it is served from, and per-level ``accuracies`` (shallow to deep),
+    from :func:`train_reduced_anytime` or brought by the caller."""
 
     model: object
     cfg: object
@@ -46,6 +53,71 @@ class TrainedAnytime:
     accuracies: list[float]
     final_loss: float
     q_fail: float             # random-guess accuracy on the eval task
+
+
+def train_reduced_anytime(train_steps: int = 250, seed: int = 0,
+                          eval_batches: int = 2, data_vocab: int = 32,
+                          device=None, params=None,
+                          on_metrics=None) -> TrainedAnytime:
+    """Joint-train the reduced ``alert_anytime`` config (its dtype,
+    bfloat16) and measure each level's accuracy.
+
+    The task is ``SyntheticLM(data_vocab, seq_len=cfg.attn_chunk,
+    global_batch=16, noise=0.05, order=2)``, a ``data_vocab`` sub-range of
+    the model's vocabulary (the full-width task is not learnable at this
+    size in a profile's budget; the point is a separated accuracy
+    staircase); the loss weighs the levels ``linspace(1, 2)``, normalised;
+    ``AdamW(lr=8e-3)``; the weights are drawn from a seed-``seed``
+    generator on ``device`` unless ``params`` are given (the tests start
+    from the reference's); ``on_metrics(step, metrics)`` sees each step's
+    metrics.  Accuracies are the mean over ``eval_batches``
+    held-out batches (steps 10,000 on) of each level's token accuracy,
+    unclamped (the harness clamps them monotone)."""
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.device import resolve_device
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.losses import token_accuracy
+    from repro_torch.train.step import (init_train_state,
+                                        make_anytime_loss_fn,
+                                        make_train_step)
+
+    dev = resolve_device(device)
+    cfg = reduced()
+    model = build_model(cfg)
+    if data_vocab > cfg.vocab:
+        raise ValueError(f"data_vocab {data_vocab} > vocab {cfg.vocab}")
+    data = SyntheticLM(vocab=data_vocab, seq_len=cfg.attn_chunk,
+                       global_batch=16, noise=0.05, order=2)
+    weights = np.linspace(1.0, 2.0, cfg.nest_levels)
+    opt = AdamW(lr=8e-3)
+    state = init_train_state(model, cfg, opt,
+                             torch.Generator(device=dev).manual_seed(seed),
+                             device=dev, params=params)
+    step = make_train_step(model, cfg, opt, loss_fn=make_anytime_loss_fn(
+        model, cfg, level_weights=list(weights / weights.sum())))
+
+    def batch_at(i):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch_at(i).items()}
+
+    loss = torch.zeros(())
+    for i in range(train_steps):
+        state, metrics = step(state, batch_at(i))
+        loss = metrics["loss"]
+        if on_metrics is not None:
+            on_metrics(i, metrics)
+    accs = np.zeros(cfg.nest_levels)
+    with torch.no_grad():
+        for b in range(eval_batches):
+            evalb = batch_at(10_000 + b)
+            for k in range(1, cfg.nest_levels + 1):
+                logits, _ = model.train_logits(state.params, evalb, level=k)
+                accs[k - 1] += float(token_accuracy(logits, evalb["labels"]))
+    accs /= eval_batches
+    return TrainedAnytime(model=model, cfg=cfg, params=state.params,
+                          accuracies=[float(a) for a in accs],
+                          final_loss=float(loss), q_fail=1.0 / data_vocab)
 
 
 def live_profile_table(trained: TrainedAnytime, *,

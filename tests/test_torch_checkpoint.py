@@ -123,6 +123,137 @@ def test_cross_package_trees(tmp_path):
     assert raw["bank"]["n"].dtype == np.int64 and raw["x"] == 2.5
 
 
+def bf16_bits() -> torch.Tensor:
+    """bfloat16 values that a cast would disturb: signed zeros, a
+    subnormal, the largest finite, infinities and a NaN with a payload."""
+    bits = np.array([0x0000, 0x8000, 0x0001, 0x7F7F, 0xFF7F, 0x7F80, 0xFF80,
+                     0x7FC1, 0x3FC0, 0xBE20], dtype=np.uint16)
+    return torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+
+
+def bits_of(t: torch.Tensor) -> np.ndarray:
+    return t.view(torch.int16).numpy().view(np.uint16)
+
+
+def test_train_state_roundtrip_bitwise(tmp_path):
+    """A train state (NamedTuples) with bf16 params and float32 moments
+    comes back as its own types, every bit equal, and the manifest names
+    the bf16 leaves "bfloat16" (the reference's ``str(arr.dtype)``)."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.step import TrainState
+
+    g = torch.Generator().manual_seed(0)
+    params = {"w": torch.randn(3, 4, generator=g).to(torch.bfloat16),
+              "layers": [{"norm": bf16_bits()}]}
+    moments = lambda: {"w": torch.randn(3, 4, generator=g),
+                       "layers": [{"norm": torch.randn(10, generator=g)}]}
+    state = TrainState(params, AdamWState(torch.tensor(7, dtype=torch.int32),
+                                          moments(), moments()), None)
+    d = str(tmp_path / "ck")
+    tio.save(d, state, step=7)
+    like = TrainState(
+        {"w": torch.zeros(3, 4, dtype=torch.bfloat16),
+         "layers": [{"norm": torch.zeros(10, dtype=torch.bfloat16)}]},
+        AdamWState(torch.zeros((), dtype=torch.int32), moments(),
+                   moments()), None)
+    got, step = tio.restore(d, like)
+    assert step == 7 and type(got) is TrainState
+    assert type(got.opt_state) is AdamWState and got.compress_state is None
+    assert got.params["w"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(bits_of(got.params["w"]),
+                                  bits_of(params["w"]))
+    np.testing.assert_array_equal(bits_of(got.params["layers"][0]["norm"]),
+                                  bits_of(bf16_bits()))
+    for a, b in ((got.opt_state.m, state.opt_state.m),
+                 (got.opt_state.v, state.opt_state.v)):
+        assert torch.equal(a["w"], b["w"]) and a["w"].dtype == torch.float32
+    assert int(got.opt_state.step) == 7
+    recs = {r["path"]: r for r in tio.load_manifest(d)["leaves"]}
+    assert recs[".params/w"]["dtype"] == "bfloat16"
+    assert recs[".opt_state/.m/w"]["dtype"] == "float32"
+    assert ".opt_state/.step" in recs
+
+
+def test_namedtuple_paths_are_the_references(tmp_path):
+    """The reference names a NamedTuple's fields ``.<field>`` (jax's
+    attribute keys): both packages write one manifest for one state."""
+    import jax.numpy as jnp
+
+    from repro.optim.adamw import AdamWState as JState
+    from repro.train.step import TrainState as JTrain
+    from repro_torch.optim.adamw import AdamWState as TState
+    from repro_torch.train.step import TrainState as TTrain
+
+    w = np.arange(6, dtype=np.float32).reshape(2, 3)
+    jtree = JTrain({"w": jnp.asarray(w), "b": [jnp.ones(2)]},
+                   JState(jnp.asarray(3, jnp.int32), {"w": jnp.zeros((2, 3)),
+                          "b": [jnp.zeros(2)]}, {"w": jnp.zeros((2, 3)),
+                                                 "b": [jnp.zeros(2)]}), None)
+    ttree = TTrain({"w": torch.from_numpy(w), "b": [torch.ones(2)]},
+                   TState(torch.tensor(3, dtype=torch.int32),
+                          {"w": torch.zeros(2, 3), "b": [torch.zeros(2)]},
+                          {"w": torch.zeros(2, 3), "b": [torch.zeros(2)]}),
+                   None)
+    jd, td = str(tmp_path / "j"), str(tmp_path / "t")
+    jio.save(jd, jtree, step=3)
+    tio.save(td, ttree, step=3)
+    assert tio.load_manifest(td) == jio.load_manifest(jd)
+    got, _ = tio.restore(jd, ttree)
+    assert type(got) is TTrain and torch.equal(got.params["w"],
+                                               torch.from_numpy(w))
+
+
+def test_bf16_saved_by_the_reference_restores_bitwise(tmp_path):
+    import jax.numpy as jnp
+    import ml_dtypes
+
+    raw = bits_of(bf16_bits())
+    tree = {"w": jnp.asarray(raw.view(ml_dtypes.bfloat16)),
+            "m": jnp.linspace(0, 1, 10)}
+    d = str(tmp_path / "ref")
+    jio.save(d, tree, step=1)
+    like = {"w": torch.zeros(10, dtype=torch.bfloat16),
+            "m": torch.zeros(10)}
+    got, _ = tio.restore(d, like)
+    assert got["w"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(bits_of(got["w"]), raw)
+    raw_tree, _ = tio.restore_tree(d)
+    np.testing.assert_array_equal(raw_tree["w"].view(np.uint16), raw)
+
+
+def test_bf16_saved_by_the_port_holds_the_references_bytes(tmp_path):
+    """The port writes a bf16 leaf as the reference does (its bits as
+    numpy's ``V2``, "bfloat16" in the manifest): the two packages' files
+    are equal, and the reference's reader gives back the bits exactly.
+    Its ``restore``, though, cannot cast ``V2`` to bfloat16 and refuses
+    either package's bf16 checkpoint (a reference-side gap; a plain
+    uint16 array would instead be cast by value, silently wrong)."""
+    import jax.numpy as jnp
+    import ml_dtypes
+
+    raw = bits_of(bf16_bits())
+    jd, td = str(tmp_path / "j"), str(tmp_path / "t")
+    jio.save(jd, {"w": jnp.asarray(raw.view(ml_dtypes.bfloat16))}, step=4)
+    tio.save(td, {"w": bf16_bits()}, step=4)
+    assert tio.load_manifest(td) == jio.load_manifest(jd)
+    assert tio.load_manifest(td)["leaves"][0]["dtype"] == "bfloat16"
+    with np.load(os.path.join(jd, "arrays.npz")) as a, \
+            np.load(os.path.join(td, "arrays.npz")) as b:
+        assert a["leaf_0"].dtype == b["leaf_0"].dtype == np.dtype("V2")
+        assert a["leaf_0"].tobytes() == b["leaf_0"].tobytes()
+    got, _ = jio.restore_tree(td)
+    np.testing.assert_array_equal(
+        got["w"].view(ml_dtypes.bfloat16).view(np.uint16), raw)
+    like = {"w": jnp.zeros(10, jnp.bfloat16)}
+    for d in (jd, td):
+        with pytest.raises(ValueError, match="No cast function"):
+            jio.restore(d, like)
+    # an ml_dtypes leaf given to the port is written the same way
+    tio.save(td, {"w": raw.view(ml_dtypes.bfloat16)}, step=4)
+    with np.load(os.path.join(td, "arrays.npz")) as b:
+        assert b["leaf_0"].tobytes() == raw.tobytes()
+
+
 def test_restore_onto_tensors_keeps_their_dtype(tmp_path):
     d = str(tmp_path / "ck")
     tio.save(d, {"w": np.arange(4, dtype=np.float64),

@@ -1593,3 +1593,98 @@ def test_megatick_graph_equals_eager_and_cpu(cuda_device, policy):
                 res[name].pages_out) == (res["graph"].n_rounds,
                                          res["graph"].pages_in,
                                          res["graph"].pages_out)
+
+
+# --------------------------------------------------------------------- #
+# training (phase 33's parts)                                            #
+# --------------------------------------------------------------------- #
+def _guarded_calls(device):
+    from repro_torch.core.nesting import StripeSpec
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import nested_matmul as nm
+    from repro_torch.kernels import rwkv_scan as rs
+
+    spec = StripeSpec.pow2(64, 2)
+    g = torch.Generator(device=device).manual_seed(0)
+    r = lambda *s: torch.randn(*s, generator=g, device=device)
+    q, k, v = r(2, 4, 2, 16), r(2, 4, 2, 16), r(2, 4, 2, 16)
+    return [
+        (nm.nested_matmul, lambda x, w: nm.nested_matmul(x, w, spec, spec),
+         (r(4, 64), r(64, 64))),
+        (fa.flash_attention, lambda q, k, v: fa.flash_attention(q, k, v),
+         (q, k, v)),
+        (da.decode_attention, lambda q, k, v: da.decode_attention(
+            q[:, 0], k, v, 3), (q, k, v)),
+        (rs.rwkv_scan, rs.rwkv_scan,
+         (r(1, 3, 2, 16), r(1, 3, 2, 16), r(1, 3, 2, 16),
+          torch.rand(1, 3, 2, 16, generator=g, device=device), r(2, 16),
+          r(1, 2, 16, 16)))]
+
+
+def test_kernel_wrappers_refuse_gradients_on_the_card(cuda_device):
+    """On CUDA tensors a wrapper launches into ``torch.empty``, whose
+    output has no ``grad_fn``: with any floating input requiring a
+    gradient it raises before launching, and without one it launches."""
+    for wrapper, call, args in _guarded_calls(cuda_device):
+        name = wrapper.__name__
+        before = wrapper.launches
+        for i in range(len(args)):
+            live = [a.clone().requires_grad_(j == i)
+                    for j, a in enumerate(args)]
+            with pytest.raises(RuntimeError, match=f"{name} has no "
+                                                   f"backward"):
+                call(*live)
+        assert wrapper.launches == before
+        with torch.no_grad():
+            call(*[a.clone().requires_grad_(True) for a in args])
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+
+
+def test_reduced_train_steps_on_the_card_match_the_cpu(cuda_device):
+    from chip_smoke import train_cpu_vs_card
+
+    out = train_cpu_vs_card(cuda_device, archs=("alert-anytime-120m",
+                                                "olmoe-1b-7b"))
+    assert out["alert-anytime-120m"]["elements"] > 0
+    assert out["olmoe-1b-7b"]["route_calls"] > 0
+    assert "RWKV" in out["rwkv6-3b"]
+
+
+def test_cuda_train_state_checkpoint_roundtrip_bitwise(cuda_device,
+                                                       tmp_path):
+    """A bf16 train state on the card (float32 moments) saved and
+    restored onto the card: every bit and dtype back, as a TrainState."""
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.configs.alert_anytime import reduced
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.step import (TrainState, init_train_state,
+                                        make_anytime_loss_fn,
+                                        make_train_step)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = reduced()
+    model, opt = build_model(cfg), AdamW(lr=8e-3)
+    state = init_train_state(model, cfg, opt, device=cuda_device)
+    step = make_train_step(model, cfg, opt,
+                           loss_fn=make_anytime_loss_fn(model, cfg))
+    tok = torch.randint(0, cfg.vocab, (2, 16), device=cuda_device)
+    state, _ = step(state, {"tokens": tok, "labels": tok})
+    d = str(tmp_path / "ck")
+    ckpt_io.save(d, state, step=1)
+    like = tree_map(torch.zeros_like, state)
+    got, n = ckpt_io.restore(d, like)
+    assert n == 1 and type(got) is TrainState
+    for a, b in zip(tree_leaves(got), tree_leaves(state)):
+        assert a.device == b.device and a.dtype == b.dtype
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                           else a, b.view(torch.int16)
+                           if b.dtype == torch.bfloat16 else b)
+
+
+def test_kill_and_resume_on_the_card_is_bitwise(cuda_device):
+    from chip_smoke import train_resume
+
+    assert train_resume(cuda_device)["bitwise"]
