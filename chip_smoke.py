@@ -322,17 +322,39 @@ Phases (each prints its own lines; any mismatch exits nonzero):
     ``flash_attention``, ``decode_attention``); (c)
     ``examples/serve_alert_torch.py`` with its defaults, its checks
     holding; (d) 3 float32 train steps of the reduced anytime LM,
-    ``qwen2.5-14b``, ``olmoe-1b-7b`` (routed ids equal), ``jamba-v0.1-52b``
-    and ``whisper-tiny`` on the card against the CPU (``params_close``),
-    and the reduced ``rwkv6-3b`` refusing mode "train"; (e) the reduced
-    anytime LM killed at step 7 and resumed from its step-6 checkpoint,
-    bitwise the uninterrupted run, under deterministic algorithms.
-34. the last lines: one JSON object per kernel (``launches``: the sum
+    ``qwen2.5-14b``, ``olmoe-1b-7b`` (routed ids equal), ``jamba-v0.1-52b``,
+    ``whisper-tiny`` and ``rwkv6-3b`` (its chunk scan) on the card against
+    the CPU: step 1's gradients leaf by leaf within ``GRAD_TOL`` of each
+    leaf's largest (``grads_close``, which names the leaves where the two
+    differ in sign), then the parameters (``params_close``: 0.1 lr, 2 lr a
+    step on those leaves); (e) the reduced anytime LM killed at step 7 and
+    resumed from its step-6 checkpoint, bitwise the uninterrupted run,
+    under deterministic algorithms.
+34. RWKV training: (a) ``rwkv6-3b`` at full width (d 2560, 40 heads of
+    64, d_ff 8960, vocab 65536), bf16 params, float32 moments, at the
+    depth whose AdamW update fits under 70 GB (16 of 32 layers:
+    ``rwkv_train_depth`` prints the reckoning), ``RWKV_TRAIN_STEPS`` = 6
+    steps of ``make_train_step`` at B=4 x S=256 (the chunk scan, each
+    128-token chunk recomputed): the median step (CUDA events),
+    tokens/s, ``max_memory_allocated``, the losses (finite, the last below
+    the first); (b) the trained weights: the graphed prefill on
+    ``rwkv_scan`` against ``train_logits`` (the chunk scan) within
+    ``RWKV_SERVE_ULPS`` bf16 ulps of each row's largest logit, then 4
+    ticks of ``FleetAlertServer`` over them (``rwkv_scan`` must launch).
+35. the serving launcher, ``repro_torch.launch.serve`` at its defaults:
+    its report line, ``nested_matmul``, ``flash_attention``,
+    ``decode_attention`` and ``alert_select`` launched.
+36. the examples ``examples/*_torch.py`` but ``serve_alert_torch.py``
+    (phase 33 (c)), each at its defaults (``live_profile_demo_torch.py``
+    with ``--measured``): each prints its ``OK`` line, and launches the
+    kernels ``EXAMPLES`` names for it.
+37. the last lines: one JSON object per kernel (``launches``: the sum
     over every ``serve`` run, graphed and eager, of phases 4, 7, 10, 13,
     15-17, 19, 20, 22, 23 and 27, over phase 26's two runs, over the
-    fleet and gateway runs of phases 29-32 and over phase 33's serve run
-    and example; ``launches_by_run`` by phase), the ``nvidia-smi`` line,
-    and ``{"ok": true, "device": {...}}``.
+    fleet and gateway runs of phases 29-32, over phase 33's serve run
+    and example, phase 34's serve run, the launcher and the examples;
+    ``launches_by_run`` by phase), the ``nvidia-smi`` line, and
+    ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds.
 """
@@ -4710,9 +4732,13 @@ TRAIN_LR, TRAIN_CKPT_EVERY = 3e-3, 10
 # over 12 layers (under one ulp of it seen, run a1 of PERF.md).
 TRAIN_SERVE_TOL = 2.0 ** -5
 # (d): the reduced families trained 3 steps in float32 on the card and on
-# the CPU; (e): kill at step 7 and resume from the step-6 checkpoint.
+# the CPU, step 1's gradients first held leaf by leaf to GRAD_TOL of each
+# leaf's largest magnitude (as tests/test_torch_train_grads.py holds the
+# port to the reference); (e): kill at step 7 and resume from the step-6
+# checkpoint.
 TRAIN_ARCHS = ("alert-anytime-120m", "qwen2.5-14b", "olmoe-1b-7b",
-               "jamba-v0.1-52b", "whisper-tiny")
+               "jamba-v0.1-52b", "whisper-tiny", "rwkv6-3b")
+GRAD_TOL = 2e-5
 RESUME_STEPS, RESUME_FAIL_AT, RESUME_CKPT_EVERY = 10, 7, 3
 BF16_PEAK_FLOPS = 989e12
 
@@ -4747,35 +4773,81 @@ def train_step_flops(cfg, batch: int, seq: int) -> float:
     return float(4 * layers + 3 * unembed)
 
 
-def params_close(got, want, lr: float, steps: int, what: str) -> dict:
-    """Two runs' parameters after ``steps`` AdamW steps at peak rate
-    ``lr``: at most 0.05 % of the elements more than 2e-6 apart, and every
-    one within ``2 * lr * steps``.  AdamW moves an element by about ``lr *
-    g / (|g| + eps)``, so where a gradient is rounding noise (a key bias,
-    which softmax leaves without a gradient; an embedding row few tokens
-    hit) the runs step by noise, up to ``lr`` each way a step; and the
-    card's embedding backward adds with atomics, so that noise changes
-    from run to run (the CPU tests, deterministic, hold the port to the
-    reference to 0.1 lr)."""
+def leaf_names(tree, prefix: str = "") -> list[str]:
+    """The ``/``-joined path of each leaf of ``tree``, in leaf order."""
+    from repro_torch.tree import children
+
+    if tree is None:
+        return []
+    if isinstance(tree, (dict, list, tuple)):
+        return [n for name, child in children(tree)
+                for n in leaf_names(child, f"{prefix}/{name}" if prefix
+                                    else name)]
+    return [prefix]
+
+
+def grads_close(got, want, names, what: str) -> dict:
+    """Step 1's gradients on the card (``got``) against the CPU's
+    (``want``), before AdamW acts: every leaf within ``GRAD_TOL`` of its
+    largest magnitude (float32 sums in other orders).  Returns the worst
+    ratio to that bound and, by leaf, the elements whose two gradients
+    differ in sign (zero counting as a sign): gradients below what float32
+    resolves in that leaf, rounding noise, which AdamW's first step turns
+    into a step of ``lr`` either way."""
     import torch
 
     from repro_torch.tree import tree_leaves
 
+    worst, noise = 0.0, {}
+    for name, a, b in zip(names, tree_leaves(got), tree_leaves(want)):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        bound = GRAD_TOL * float(b.abs().max()) + 1e-12
+        err = float((a - b).abs().max())
+        if not err <= bound:
+            raise SmokeFailure(f"{what}: step-1 gradient of {name} differs "
+                               f"by {err:.3e}, past {bound:.3e}")
+        worst = max(worst, err / bound)
+        flips = int((torch.sign(a) != torch.sign(b)).sum())
+        if flips:
+            noise[name] = flips
+    return {"worst_ratio": worst, "sign_differs": noise}
+
+
+def params_close(got, want, lr: float, steps: int, what: str, names,
+                 noise_leaves=()) -> dict:
+    """Two runs' parameters after ``steps`` AdamW steps at peak rate
+    ``lr``: at most 0.05 % of the elements more than 2e-6 apart; every
+    element within ``0.1 * lr``, but in ``noise_leaves`` within ``2 * lr *
+    steps``.  AdamW moves an element by about ``lr * g / (|g| +
+    eps)``, so where a gradient is rounding noise the runs step by noise,
+    up to ``lr`` each way a step: ``noise_leaves`` are the leaves where
+    step 1's gradients on the card and the CPU differ in sign
+    (:func:`grads_close`).  Returns, by leaf, the elements beyond 2e-6."""
+    from repro_torch.tree import tree_leaves
+
     n = off = 0
-    worst = 0.0
-    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+    worst, worst_other, beyond = 0.0, 0.0, {}
+    for name, a, b in zip(names, tree_leaves(got), tree_leaves(want)):
         if a.dtype != b.dtype or a.shape != b.shape:
-            raise SmokeFailure(f"{what}: a parameter's dtype or shape "
-                               f"differs")
+            raise SmokeFailure(f"{what}: {name}'s dtype or shape differs")
         d = (a.double().cpu() - b.double().cpu()).abs()
         worst = max(worst, float(d.max()))
-        off += int((d > 2e-6).sum())
+        if name not in noise_leaves:
+            worst_other = max(worst_other, float(d.max()))
+        far = int((d > 2e-6).sum())
+        if far:
+            beyond[name] = far
+        off += far
         n += d.numel()
-    if worst > 2 * lr * steps or off > 5e-4 * n:
+    if worst > 2 * lr * steps or worst_other > 0.1 * lr or \
+            off > 5e-4 * n:
         raise SmokeFailure(f"{what}: params differ by up to {worst:.3e} "
-                           f"(bound {2 * lr * steps:.1e}), {off} of {n} "
-                           f"beyond 2e-6 (at most {int(5e-4 * n)})")
-    return {"max_abs_diff": worst, "beyond_2e-6": off, "elements": n}
+                           f"(bound {2 * lr * steps:.1e} on {noise_leaves}), "
+                           f"{worst_other:.3e} elsewhere (bound "
+                           f"{0.1 * lr:.1e}), {off} of {n} beyond "
+                           f"2e-6 (at most {int(5e-4 * n)}) in {beyond}")
+    return {"max_abs_diff": worst, "max_abs_diff_other": worst_other,
+            "beyond_2e-6": off, "elements": n, "beyond_by_leaf": beyond}
 
 
 def train_full(device, cfg=None, steps: int = TRAIN_STEPS,
@@ -4929,6 +5001,26 @@ def level_accuracies(model, params, data, device, batches: int = 2,
     return accs
 
 
+def graphed_call(device, fn):
+    """``fn()``'s result, on the card from a CUDA graph of it (a warm-up
+    call on a side stream, the capture, one replay), else called eagerly."""
+    import torch
+
+    if device.type != "cuda":
+        return fn()
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fn()
+    graph.replay()
+    torch.cuda.synchronize(device)
+    return got
+
+
 def served_logits_vs_train(device, model, params, prompts,
                            tol: float = TRAIN_SERVE_TOL) -> dict:
     """Phase 33 (b): for each level, the serving prefill forward
@@ -4949,23 +5041,8 @@ def served_logits_vs_train(device, model, params, prompts,
             want, _ = model.train_logits(params, {"tokens": prompts},
                                          level=k)
 
-            def fwd(k=k):
-                return tfm.lm_apply(params, cfg, static, mode="prefill",
-                                    level=k).logits
-
-            if device.type == "cuda":
-                side = torch.cuda.Stream(device)
-                side.wait_stream(torch.cuda.current_stream(device))
-                with torch.cuda.stream(side):
-                    fwd()
-                torch.cuda.current_stream(device).wait_stream(side)
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph):
-                    got = fwd()
-                graph.replay()
-                torch.cuda.synchronize(device)
-            else:
-                got = fwd()
+            got = graphed_call(device, lambda k=k: tfm.lm_apply(
+                params, cfg, static, mode="prefill", level=k).logits)
             err = float((got.float() - want.float()).abs().max())
             scale = float(want.float().abs().max())
             same = float((got[:, -1].argmax(-1) == want[:, -1].argmax(-1))
@@ -5053,65 +5130,77 @@ def train_batches(cfg, steps: int, batch: int = 4, seq: int = 16) -> list:
 def train_cpu_vs_card(device, archs=TRAIN_ARCHS, steps: int = 3) -> dict:
     """Phase 33 (d): each reduced config of ``archs`` in float32, the same
     seed-0 weights, ``steps`` train steps (the joint anytime loss for the
-    anytime LM) on the card and on the CPU, the parameters held by
-    :func:`params_close`; olmoe's routed expert ids equal in every call.
-    The reduced ``rwkv6-3b`` must refuse mode "train"."""
+    anytime LM) on the card and on the CPU; step 1's gradients held leaf
+    by leaf by :func:`grads_close`, then the parameters by
+    :func:`params_close`, the 2-lr bound kept for the leaves whose step-1
+    gradients differ in sign; olmoe's routed expert ids equal in every
+    call."""
     import torch
 
     from repro_torch.configs import get_reduced
     from repro_torch.models.registry import build_model
     from repro_torch.optim.adamw import AdamW, cosine_schedule
-    from repro_torch.train.step import (init_train_state,
-                                        make_anytime_loss_fn,
-                                        make_train_step)
+    from repro_torch.train.step import (init_train_state, make_anytime_loss_fn,
+                                        make_loss_fn, make_train_step,
+                                        value_and_grad)
 
     cpu = torch.device("cpu")
     out = {}
     for arch in archs:
         cfg = get_reduced(arch).replace(dtype="float32")
         model = build_model(cfg)
+        loss_fn = make_anytime_loss_fn(model, cfg) if cfg.nest_levels > 1 \
+            else make_loss_fn(model, cfg)
         batches = train_batches(cfg, steps)
-        states, routes = [], []
+        states, routes, grads = [], [], []
         for dev in (cpu, device):
             opt = AdamW(lr=cosine_schedule(TRAIN_LR, 1, steps))
             params = copy_params(model.init(torch.Generator().manual_seed(0),
                                             device=cpu), dev)
+            on_dev = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+                      for b in batches]
+            _, g = value_and_grad(loss_fn, params, on_dev[0])
+            grads.append(g)
             state = init_train_state(model, cfg, opt, params=params)
-            step = make_train_step(model, cfg, opt, loss_fn=(
-                make_anytime_loss_fn(model, cfg) if cfg.nest_levels > 1
-                else None))
+            step = make_train_step(model, cfg, opt, loss_fn=loss_fn)
             with recording_routes() as seen:
-                for b in batches:
-                    state, _ = step(state, {k: torch.from_numpy(v).to(dev)
-                                            for k, v in b.items()})
+                for b in on_dev:
+                    state, _ = step(state, b)
             states.append(state)
             routes.append([r.cpu() for r in seen])
         if len(routes[0]) != len(routes[1]) or not all(
                 torch.equal(a, b) for a, b in zip(*routes)):
             raise SmokeFailure(f"{arch}: routed expert ids differ between "
                                f"the CPU and the card")
-        out[arch] = params_close(states[1].params, states[0].params,
-                                 TRAIN_LR, steps, f"{arch} card vs CPU")
-        out[arch]["route_calls"] = len(routes[0])
-        say(f"  {arch} reduced, float32, {steps} train steps: card vs CPU "
-            f"params max diff {out[arch]['max_abs_diff']:.3e}, "
-            f"{out[arch]['beyond_2e-6']} of {out[arch]['elements']} beyond "
-            f"2e-6" + (f", routed ids equal in {len(routes[0])} calls"
-                       if routes[0] else ""))
-    rwkv = get_reduced("rwkv6-3b").replace(dtype="float32")
-    model = build_model(rwkv)
-    b = train_batches(rwkv, 1)[0]
-    try:
-        model.train_logits(model.init(device=device),
-                           {k: torch.from_numpy(v).to(device)
-                            for k, v in b.items()})
-    except ValueError as exc:
-        if "RWKV training is not ported" not in str(exc):
-            raise
-        out["rwkv6-3b"] = str(exc)
-    else:
-        raise SmokeFailure("rwkv6-3b: mode 'train' ran")
-    say(f"  rwkv6-3b reduced refuses mode 'train': {out['rwkv6-3b']}")
+        names = leaf_names(states[0].params)
+        g = grads_close(grads[1], grads[0], names,
+                        f"{arch} step-1 gradients card vs CPU")
+        noise = sorted(g["sign_differs"])
+        o = out[arch] = params_close(states[1].params, states[0].params,
+                                     TRAIN_LR, steps,
+                                     f"{arch} card vs CPU", names, noise)
+        o["route_calls"], o["grads"] = len(routes[0]), g
+        say(f"  {arch} reduced, float32: step-1 gradients card vs CPU "
+            f"within {GRAD_TOL} of each leaf's largest (worst "
+            f"{g['worst_ratio']:.3f} of the bound), differing in sign at "
+            f"{g['sign_differs'] or 'no element'}; after {steps} train "
+            f"steps params max diff {o['max_abs_diff']:.3e} (bound "
+            f"{2 * TRAIN_LR * steps:.1e} on those leaves, "
+            f"{0.1 * TRAIN_LR:.1e} elsewhere: "
+            f"{o['max_abs_diff_other']:.3e}), {o['beyond_2e-6']} of "
+            f"{o['elements']} beyond 2e-6, in "
+            f"{o['beyond_by_leaf'] or 'no leaf'}"
+            + (f", routed ids equal in {len(routes[0])} calls"
+               if routes[0] else ""))
+    beyond = sorted({f"{a}:{n}" for a, o in out.items()
+                     for n in o["beyond_by_leaf"]})
+    noise = sorted({f"{a}:{n}" for a, o in out.items()
+                    for n in o["grads"]["sign_differs"]})
+    say(f"  evidence: the elements beyond 2e-6 lie in {len(beyond)} leaves "
+        f"({', '.join(beyond) or 'none'}); step 1's gradients differ in "
+        f"sign only in {', '.join(noise) or 'no leaf'}; every other leaf "
+        f"within 0.1 lr = {0.1 * TRAIN_LR:.1e} (largest "
+        f"{max(o['max_abs_diff_other'] for o in out.values()):.3e})")
     return out
 
 
@@ -5219,6 +5308,319 @@ def training_phase(device, full_cfg=None, steps: int = TRAIN_STEPS,
     say("  (e) kill and resume")
     out["resume"] = train_resume(device)
     out["counts"] = counts
+    return out
+
+
+# --------------------------------------------------------------------- #
+# Phase 34: rwkv6-3b at full width (d 2560, 40 heads of 64, d_ff 8960,
+# vocab 65536), bf16 params and float32 moments, trained with the plain LM
+# loss through make_train_step (its recurrence the chunk scan, a token
+# loop), then served graphed on rwkv_scan.
+RWKV_TRAIN_STEPS, RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ = 6, 4, 256
+RWKV_TRAIN_LR = 3e-4
+# The data: SyntheticLM over the first 1024 token ids of the 65536 (as
+# the live profile trains on a sub-range): the logits stay 65536 wide, and
+# the loss falls within a few steps as the model learns which ids occur
+# (over all 65536 ids a step's 1024 tokens teach too little to show in 6
+# steps: at lr 1e-3 the loss went 11.62 to 11.70).
+RWKV_TRAIN_DATA_VOCAB = 1024
+RWKV_TRAIN_MEMORY = 70e9
+# At the functional AdamW's update a parameter holds 26 bytes at once: the
+# old bf16 params, bf16 grads, their float32 clipped copy, old and new
+# float32 moments, and the new bf16 params (2 + 2 + 4 + 8 + 8 + 2).
+ADAMW_PEAK_BYTES = 26
+RWKV_TRAIN_DEPTHS = (32, 16)
+# The served (rwkv_scan, graphed) prefill logits against train_logits
+# (the chunk scan) on the same prompts, both bf16: within this many bf16
+# ulps of each row's largest logit.  The two recurrences sum in other
+# orders in float32, so y, rounded to bf16, may flip an ulp here and
+# there, and the flips spread through the layers.
+RWKV_SERVE_ULPS = 8
+
+
+def rwkv_param_total(cfg) -> int:
+    """The parameters ``init_lm`` draws for the RWKV ``cfg``: embedding,
+    unembedding, final norm, and ``rwkv_param_shapes`` a layer."""
+    from repro_torch.models.rwkv import rwkv_param_shapes
+
+    layer = sum(math.prod(s) for s in rwkv_param_shapes(cfg).values())
+    return 2 * cfg.vocab * cfg.d_model + cfg.d_model + cfg.n_layers * layer
+
+
+def rwkv_train_depth(cfg) -> tuple[int, list[str]]:
+    """The deepest of ``RWKV_TRAIN_DEPTHS`` whose update peak
+    (``ADAMW_PEAK_BYTES`` a parameter) stays under ``RWKV_TRAIN_MEMORY``,
+    and the reckoning of each depth tried."""
+    notes = []
+    for depth in RWKV_TRAIN_DEPTHS:
+        n = rwkv_param_total(cfg.replace(n_layers=depth))
+        peak = n * ADAMW_PEAK_BYTES
+        notes.append(f"{depth} layers: {n} parameters x "
+                     f"{ADAMW_PEAK_BYTES} B = {peak / 1e9:.1f} GB")
+        if peak < RWKV_TRAIN_MEMORY:
+            return depth, notes
+    raise SmokeFailure("rwkv6-3b: no depth fits " + "; ".join(notes))
+
+
+def row_ulps(got, want) -> float:
+    """The largest ``|got - want|`` over each row of ``want`` (the last
+    axis), in bf16 ulps of that row's largest magnitude."""
+    import torch
+
+    g, w = got.float(), want.float()
+    top = w.abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    return float(((g - w).abs().amax(-1) / ulp).max())
+
+
+def rwkv_train_full(device, cfg=None, steps: int = RWKV_TRAIN_STEPS,
+                    batch: int = RWKV_TRAIN_BATCH,
+                    seq: int = RWKV_TRAIN_SEQ) -> dict:
+    """Phase 34 (a): ``cfg`` (default ``rwkv6-3b`` at full width, at the
+    depth of :func:`rwkv_train_depth`) from seed-0 weights, ``steps``
+    steps of ``make_train_step`` (the plain LM loss, remat "full", each
+    ``rwkv_chunk`` of the recurrence recomputed) on
+    ``SyntheticLM(RWKV_TRAIN_DATA_VOCAB, seq, batch)`` with
+    ``AdamW(cosine_schedule(RWKV_TRAIN_LR, 1, steps))``.  Prints the
+    median step (CUDA events), tokens/s, ``max_memory_allocated`` and the
+    losses; fails on a loss that is not finite or a last loss not below
+    the first."""
+    import torch
+
+    from repro_torch.configs.rwkv6_3b import CONFIG as RWKV_CONFIG
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch.train import StepTimer, batch_fn
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    notes = []
+    if cfg is None:
+        depth, notes = rwkv_train_depth(RWKV_CONFIG)
+        cfg = RWKV_CONFIG.replace(n_layers=depth)
+        say(f"  the update's peak: " + "; ".join(notes) + f" -> {depth} of "
+            f"{RWKV_CONFIG.n_layers} layers (under "
+            f"{RWKV_TRAIN_MEMORY / 1e9:.0f} GB)")
+    card = device.type == "cuda"
+    if card:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    model = build_model(cfg)
+    opt = AdamW(lr=cosine_schedule(RWKV_TRAIN_LR, 1, steps))
+    state = init_train_state(model, cfg, opt, torch.Generator(
+        device=device).manual_seed(0), device=device)
+    data = SyntheticLM(vocab=min(RWKV_TRAIN_DATA_VOCAB, cfg.vocab),
+                       seq_len=seq, global_batch=batch)
+    batch_at = batch_fn(data, device)
+    step = StepTimer(make_train_step(model, cfg, opt), device)
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        state, metrics = step(state, batch_at(i))
+        losses.append(metrics["loss"])
+    step_ms = step.finish()
+    wall = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated(device) if card else None
+    n_params = sum(p.numel() for p in param_tensors(state.params))
+    med = statistics.median(step_ms)
+    out = {"model": cfg.name, "n_layers": cfg.n_layers,
+           "depth_reckoning": notes, "params": n_params, "dtype": cfg.dtype,
+           "data_vocab": data.vocab,
+           "steps": steps, "batch": batch, "seq": seq,
+           "rwkv_chunk": cfg.rwkv_chunk, "median_step_ms": med,
+           "first_step_ms": step_ms[0], "step_ms": step_ms,
+           "tokens_per_s": batch * seq / med * 1e3,
+           "max_memory_allocated_gb": None if peak is None else peak / 1e9,
+           "losses": losses, "wall_s": wall}
+    say(f"  {cfg.name} at {cfg.n_layers} layers trained {steps} steps "
+        f"({n_params} parameters, {cfg.dtype}, float32 moments, chunk "
+        f"{cfg.rwkv_chunk}, B={batch} x S={seq}): median step {med:.3f} ms "
+        f"(CUDA events; first {step_ms[0]:.3f}), "
+        f"{out['tokens_per_s']:.1f} tokens/s; max_memory_allocated "
+        + (f"{peak / 1e9:.3f} GB" if peak is not None else "not measured")
+        + f"; losses {[round(x, 4) for x in losses]} (data over "
+          f"{data.vocab} ids); {wall:.1f} s")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise SmokeFailure(f"rwkv6-3b training: a loss not finite, or the "
+                           f"last not below the first: {losses}")
+    out["state"], out["model_api"], out["data"] = state, model, data
+    return out
+
+
+def rwkv_served_vs_train(device, model, params, prompts,
+                         ulps: int = RWKV_SERVE_ULPS) -> dict:
+    """Phase 34 (b): the serving prefill forward (``rwkv_scan``, a CUDA
+    graph on the card) against ``model.train_logits`` (the chunk scan) on
+    the same ``prompts``: within ``ulps`` bf16 ulps of each row's largest
+    logit."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    cfg = model.cfg
+    with torch.inference_mode():
+        want, _ = model.train_logits(params, {"tokens": prompts})
+        static = prompts.clone()
+        got = graphed_call(device, lambda: tfm.lm_apply(
+            params, cfg, static, mode="prefill").logits)
+    err = row_ulps(got, want)
+    same = float((got[:, -1].argmax(-1) == want[:, -1].argmax(-1))
+                 .float().mean())
+    out = {"max_row_ulps": err, "max_abs_diff": float(
+        (got.float() - want.float()).abs().max()),
+        "max_abs_logit": float(want.float().abs().max()),
+        "last_argmax_agree": same}
+    say(f"  served (rwkv_scan, graphed prefill) vs train_logits (chunk "
+        f"scan), {cfg.dtype}, B=%d S=%d: at most {err:.2f} bf16 ulps of a "
+        f"row's largest logit (tolerance {ulps}), max abs diff "
+        f"{out['max_abs_diff']:.4e} of {out['max_abs_logit']:.3f}, last "
+        f"argmax agrees {same:.2f}" % tuple(prompts.shape))
+    if not err <= ulps:
+        raise SmokeFailure(f"rwkv6-3b: the served logits differ from "
+                           f"train_logits by {err:.2f} bf16 ulps of a row's "
+                           f"largest, past {ulps}")
+    return out
+
+
+def rwkv_training_phase(device, cfg=None, steps: int = RWKV_TRAIN_STEPS,
+                        batch: int = RWKV_TRAIN_BATCH,
+                        seq: int = RWKV_TRAIN_SEQ) -> dict:
+    """Phase 34: (a) :func:`rwkv_train_full`; (b) the trained weights,
+    detached, held by :func:`rwkv_served_vs_train`, then 4 ticks of
+    ``FleetAlertServer`` over them, its engine graphed on ``rwkv_scan``
+    (which must launch on the card); ``counts`` holds that run's
+    launches."""
+    import torch
+
+    from repro_torch.tree import tree_map
+
+    out = {}
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    say("  (a) full-width training")
+    a = rwkv_train_full(device, cfg, steps=steps, batch=batch, seq=seq)
+    state, model, data = a.pop("state"), a.pop("model_api"), a.pop("data")
+    out["train"] = a
+    say("  (b) the trained weights served on rwkv_scan")
+    params = tree_map(lambda t: t.detach(), state.params)
+    del state
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    prompts = torch.from_numpy(data.batch_at(20_000)["tokens"][:4, :8]).to(
+        device)
+    out["served_vs_train"] = rwkv_served_vs_train(device, model, params,
+                                                  prompts)
+    run = serve(device, model.cfg, params=params,
+                expect_kernel=device.type == "cuda")
+    if device.type == "cuda" and not run["rs_launches"]:
+        raise SmokeFailure("rwkv6-3b: serving the trained weights launched "
+                           "no rwkv_scan")
+    out["serve"] = {"tick_s": run["tick_s"],
+                    "rwkv_scan_launches": run["rs_launches"]}
+    out["counts"] = [run_counts(run)]
+    del run, params
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------- #
+# Phases 35-36: the serving launcher and the examples, each at its
+# defaults (and with the arguments named here), its kernels counted.
+# Each example with the kernels it must launch on the card.
+EXAMPLES = (
+    ("quickstart_torch", (), ("flash_attention", "decode_attention")),
+    ("train_anytime_torch", (), ()),
+    ("live_profile_demo_torch", ("--measured",),
+     ("nested_matmul", "flash_attention", "decode_attention",
+      "alert_select")),
+    ("traffic_demo_torch", (), ("alert_select",)),
+    ("faults_demo_torch", (), ("alert_select",)),
+    ("obs_demo_torch", (), ("alert_select",)),
+    ("kernel_demo_torch", (), ("alert_select",)))
+LAUNCHER_KERNELS = ("nested_matmul", "flash_attention", "decode_attention",
+                    "alert_select")
+
+
+def captured_main(main, argv, what: str) -> tuple[dict, list[str]]:
+    """``main(argv)``'s result and the lines it printed (printed here
+    whole if it raises)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = main(list(argv))
+    except BaseException:
+        say(f"  {what} failed; its output:\n" + buf.getvalue())
+        raise
+    return out, buf.getvalue().splitlines()
+
+
+def launcher_run(device) -> dict:
+    """Phase 35: ``python -m repro_torch.launch.serve`` at its defaults
+    (``main`` with no argument but the device): on the card its engine
+    must launch ``LAUNCHER_KERNELS``; prints its report line."""
+    from repro_torch.launch import serve as launch_serve
+
+    kernel_counts(reset=True)              # this run starts here
+    t0 = time.perf_counter()
+    out, lines = captured_main(launch_serve.main, ["--device", device.type],
+                               "repro_torch.launch.serve")
+    counts = kernel_counts()               # and ends here
+    wall = time.perf_counter() - t0
+    report = [ln for ln in lines if ln.startswith("[serve]")]
+    say("  " + "\n  ".join(report))
+    say(f"  launches {counts}, {wall:.1f} s")
+    if device.type == "cuda" and not all(counts[k] for k in
+                                         LAUNCHER_KERNELS):
+        raise SmokeFailure(f"repro_torch.launch.serve: a kernel never "
+                           f"launched: {counts}")
+    if out["requests"] != 40 or not report:
+        raise SmokeFailure(f"repro_torch.launch.serve: {out['requests']} "
+                           f"requests, report {report}")
+    return {"summary": {k: out[k] for k in (
+        "arch", "nest_backend", "attn_backend", "accuracies",
+        "table_latency", "requests", "delivered_acc", "miss_rate",
+        "mean_energy")}, "wall_s": wall, "counts": counts}
+
+
+def examples_run(device, settings=None) -> dict:
+    """Phase 36: each of ``EXAMPLES`` (``examples/<name>.py``) with its
+    arguments (``settings`` maps a name to other ones, for a rehearsal on
+    the CPU) on ``device``: its ``OK`` line printed, its kernels launched
+    on the card."""
+    import importlib.util
+
+    settings = settings or {}
+    out = {}
+    for name, argv, kernels in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        argv = list(settings.get(name, argv)) + ["--device", device.type]
+        kernel_counts(reset=True)          # this run starts here
+        t0 = time.perf_counter()
+        _, lines = captured_main(mod.main, argv, name)
+        counts = kernel_counts()           # and ends here
+        wall = time.perf_counter() - t0
+        ok = [ln for ln in lines if ln.startswith("OK")]
+        say(f"  {name} {' '.join(argv)}: {ok[-1] if ok else 'no OK line'} "
+            f"({wall:.1f} s, launches "
+            f"{ {k: v for k, v in counts.items() if v} })")
+        if not ok:
+            raise SmokeFailure(f"{name} printed no OK line")
+        if device.type == "cuda" and not all(counts[k] for k in kernels):
+            raise SmokeFailure(f"{name}: a kernel never launched: {counts}")
+        out[name] = {"argv": argv, "ok": ok[-1], "wall_s": wall,
+                     "counts": counts}
     return out
 
 
@@ -5986,6 +6388,20 @@ def main() -> int:
     phase.start("phase 33: training, then the trained weights served")
     training = training_phase(device)
     counted["phase 33"] = training.pop("counts")
+
+    phase.start("phase 34: rwkv6-3b trained at full width, then served on "
+                "rwkv_scan")
+    say(f"  nvidia-smi: {nvidia_smi_line()}")
+    rwkv_training = rwkv_training_phase(device)
+    counted["phase 34"] = rwkv_training.pop("counts")
+
+    phase.start("phase 35: the serving launcher")
+    launcher = launcher_run(device)
+    counted["phase 35"] = [launcher.pop("counts")]
+
+    phase.start("phase 36: the examples")
+    examples = examples_run(device)
+    counted["phase 36"] = [e.pop("counts") for e in examples.values()]
     phase.start(None)
     say(f"== done in {time.perf_counter() - t_start:.1f} s")
 
@@ -6007,7 +6423,8 @@ def main() -> int:
         "main_path_bound_ms": mp_bound, "main_path_select_ms": select_ms,
         "version": SELECT_VERSION, "bitwise_cases": n_select_cases,
         "fleet_goldens": fleet_golden, "fleet": fleet, "gateway": gateway,
-        "megatick": megatick, "training": training,
+        "megatick": megatick, "training": training, "launcher": launcher,
+        "examples": examples,
         **{f: timing[f] for f in ("instruction_bound_ms",
                                   "fp64_instructions_per_cell",
                                   "fp64_instructions_per_cell_most",
@@ -6078,7 +6495,7 @@ def main() -> int:
                                if k not in ("err",)}},
         "main_path": rwkv_mp,
         "reduced_model_max_abs_diff": err_model_r,
-        "serve": rwkv_serve})
+        "serve": rwkv_serve, "training": rwkv_training})
     for k in kernels:
         k["launches_by_run"] = by_run[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

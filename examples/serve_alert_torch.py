@@ -33,6 +33,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.controller import Constraints, Goal
 from repro_torch.data.synthetic import SyntheticLM
+from repro_torch.device import resolve_device
 from repro_torch.kernels import alert_select as ks
 from repro_torch.models.registry import build_model
 from repro_torch.optim.adamw import AdamW
@@ -49,10 +50,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--requests", type=int, default=60)
     ap.add_argument("--train-steps", type=int, default=200)
     ap.add_argument("--device", default=None,
-                    help="cuda when a card is present, else cpu")
+                    help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    device = torch.device(args.device or (
-        "cuda" if torch.cuda.is_available() else "cpu"))
+    device = resolve_device(args.device)
 
     levels = 3
     cfg = ModelConfig(name="alert-serve", family="dense", n_layers=2,

@@ -61,6 +61,8 @@ class ModelConfig:
     rwkv: bool = False                   # RWKV-6 mixer in every layer
     rwkv_head_dim: int = 64
     rwkv_decay_lora: int = 64
+    rwkv_chunk: int = 128                # a train forward's recurrence:
+    #                                      tokens a recomputed chunk
     encoder_layers: int = 0              # 0 = decoder-only
     nest_levels: int = 1                 # width nesting; 1 = off
     dtype: str = "bfloat16"

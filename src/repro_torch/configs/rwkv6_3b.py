@@ -32,4 +32,4 @@ def reduced() -> ModelConfig:
     return CONFIG.replace(n_layers=2, d_model=64, n_heads=2, n_kv_heads=2,
                           head_dim=32, d_ff=128, vocab=256,
                           rwkv_head_dim=32, rwkv_decay_lora=8,
-                          attn_chunk=32)
+                          rwkv_chunk=16, attn_chunk=32)

@@ -78,6 +78,11 @@ class SlowdownFilter:
         """Standard deviation of xi (sigma floored at 1e-6)."""
         return max(self.sigma, 1e-6)
 
+    def predict_latency(self, profiled_latency: float) -> tuple[float, float]:
+        """Predicted (mean, std) of the latency of a config profiled at
+        ``profiled_latency``: ``t = xi * t_profiled`` (Idea 1)."""
+        return self.mu * profiled_latency, self.std * profiled_latency
+
 
 @dataclasses.dataclass
 class IdlePowerFilter:

@@ -51,6 +51,19 @@ class StripeSpec:
         return StripeSpec(tuple(bounds))
 
     @staticmethod
+    def uniform(total: int, levels: int) -> "StripeSpec":
+        """Equal-width stripes (``total / levels`` channels a level)."""
+        if total % levels != 0:
+            raise ValueError(f"total={total} not divisible by levels={levels}")
+        step = total // levels
+        return StripeSpec(tuple(step * k for k in range(levels + 1)))
+
+    @staticmethod
+    def single(total: int) -> "StripeSpec":
+        """One stripe (a dimension that is not nested, e.g. the vocab)."""
+        return StripeSpec((0, total))
+
+    @staticmethod
     def saturated(total: int, levels: int) -> "StripeSpec":
         """All width in stripe 1 (for dims that cannot be divided, e.g. a
         single GQA KV head)."""

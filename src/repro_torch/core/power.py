@@ -51,3 +51,11 @@ def predict_energy(power_cap: float, latency: float, idle_ratio: float,
     with the idle slack clamped at zero."""
     slack = max(period - latency, 0.0)
     return power_cap * latency + idle_ratio * power_cap * slack
+
+
+def batched_predict_energy(power_caps: np.ndarray, latencies: np.ndarray,
+                           idle_ratio: float, period: float) -> np.ndarray:
+    """Eq. 9 over a ``(n_models, n_powers)`` grid (numpy, broadcasting
+    ``power_caps`` against ``latencies``)."""
+    slack = np.maximum(period - latencies, 0.0)
+    return power_caps * latencies + idle_ratio * power_caps * slack

@@ -79,6 +79,11 @@ class ProfileTable:
         """Per-candidate q_i vector ``[K]``."""
         return np.array([c.accuracy for c in self.candidates])
 
+    @property
+    def names(self) -> list[str]:
+        """Per-candidate display names (length K)."""
+        return [c.name for c in self.candidates]
+
     def anytime_groups(self) -> dict[str, list[int]]:
         """Indices of candidates per anytime group, sorted by level."""
         groups: dict[str, list[int]] = {}

@@ -1,1 +1,2 @@
-"""Launchers (port of ``repro.launch``): training on one device."""
+"""Launchers (port of ``repro.launch``): training and serving on one
+device."""

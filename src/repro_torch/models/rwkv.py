@@ -7,13 +7,23 @@ Time mixing, per head of ``rwkv_head_dim``::
     S_t = diag(w_t) S_{t-1} + k_t v_t^T
 
 with the data-dependent decay ``w_t = exp(-exp(w0 + tanh(x_w A) B))``.
-The recurrence runs through :func:`repro_torch.kernels.rwkv_scan.rwkv_scan`
-for every sequence length, the one-token decode step included: on the card
-one kernel launch per layer and forward pass, on the CPU its plain version
-(at ``S == 1`` the reference's inline step).  r, k, v and w go in as
-float32, as in the reference.  ``ln_x`` is a LayerNorm over the whole
-``d_model``, as the reference writes it (RWKV-6 itself uses a per-head
-GroupNorm).
+:func:`rwkv_time_mix` picks the recurrence by its ``mode``:
+
+* ``"train"`` runs :func:`_wkv_chunk_scan`, the reference's training
+  recurrence: a token loop in plain PyTorch over chunks of
+  ``cfg.rwkv_chunk`` tokens, each chunk recomputed in the backward pass
+  while autograd records (``rwkv_scan`` has no backward, nor has the
+  reference's Pallas kernel);
+* every other mode (a prefill, a decode step) runs
+  :func:`repro_torch.kernels.rwkv_scan.rwkv_scan`, the one-token decode
+  step included: on the card one kernel launch per layer and forward pass,
+  on the CPU its plain version, whose arithmetic the chunk scan repeats
+  op for op.  The reference prefills through its chunk scan too (its
+  model never calls its kernel); the port serves on its kernel.
+
+r, k, v and w go in as float32, as in the reference.  ``ln_x`` is a
+LayerNorm over the whole ``d_model``, as the reference writes it (RWKV-6
+itself uses a per-head GroupNorm).
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv_scan import rwkv_scan
@@ -86,10 +97,52 @@ def _token_shift(x: torch.Tensor, mu: torch.Tensor,
     return mu * x + (1.0 - mu) * prev_seq
 
 
+def _wkv_chunk(state, r, k, v, w, u):
+    """One chunk of the recurrence, token by token in float32: ``kv = k
+    v^T``, ``y = r . (S + u * kv)``, ``S = diag(w) S + kv`` (the reference's
+    ``inner``).  Returns ``(state, y [B,chunk,h,hd])``."""
+    uf = u[..., :, None]                                   # [h, hd, 1]
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]     # [B,h,hd,hd]
+        ys.append(torch.matmul(r[:, t, :, None, :],
+                               state + uf * kv)[..., 0, :])
+        state = w[:, t, :, :, None] * state + kv
+    return state, torch.stack(ys, dim=1)
+
+
+def _wkv_chunk_scan(s0: torch.Tensor, r, k, v, w, u: torch.Tensor,
+                    chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``_wkv_chunk_scan``: ``r/k/v/w [B,S,h,hd]`` float32,
+    ``s0 [B,h,hd,hd]``, ``u [h,hd]`` -> ``(sN, y [B,S,h,hd])``.  The
+    sequence is padded to whole chunks with ``k = 0`` (adds nothing to the
+    state) and ``w = 1`` (leaves its decay alone); each chunk runs under
+    :func:`torch.utils.checkpoint.checkpoint` while autograd records (the
+    reference's ``jax.checkpoint`` around ``outer``), so the backward pass
+    keeps one state a chunk and recomputes the chunk's tokens."""
+    s = r.shape[1]
+    n_chunks = -(-s // chunk)
+    pad = n_chunks * chunk - s
+    if pad:
+        r, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (r, k, v))
+        w = F.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
+    state, ys = s0, []
+    for c in range(n_chunks):
+        xs = [t[:, c * chunk:(c + 1) * chunk] for t in (r, k, v, w)]
+        if torch.is_grad_enabled():
+            state, y = checkpoint(_wkv_chunk, state, *xs, u,
+                                  use_reentrant=False)
+        else:
+            state, y = _wkv_chunk(state, *xs, u)
+        ys.append(y)
+    return state, torch.cat(ys, dim=1)[:, :s]
+
+
 def rwkv_time_mix(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                  state: RwkvState | None = None
+                  state: RwkvState | None = None, mode: str = "prefill"
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns ``(out [B,S,d], new wkv state, new shift tail)``."""
+    """Returns ``(out [B,S,d], new wkv state, new shift tail)``; ``mode
+    == "train"`` runs the chunk scan, any other mode ``rwkv_scan``."""
     b, s, d = x.shape
     h, hd = cfg.rwkv_n_heads, cfg.rwkv_head_dim
     xn = rms_norm(x, params["norm"], cfg.norm_eps)
@@ -114,7 +167,11 @@ def rwkv_time_mix(params: dict, x: torch.Tensor, cfg: ModelConfig,
     s0 = state.wkv if state is not None else \
         torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device)
 
-    y, s_n = rwkv_scan(r.float(), k.float(), v.float(), w, u, s0)
+    if mode == "train":
+        s_n, y = _wkv_chunk_scan(s0, r.float(), k.float(), v.float(), w, u,
+                                 min(cfg.rwkv_chunk, s))
+    else:
+        y, s_n = rwkv_scan(r.float(), k.float(), v.float(), w, u, s0)
 
     y = y.reshape(b * s, d).to(x.dtype)
     y = layer_norm(y, params["ln_x_g"], params["ln_x_b"]).reshape(b, s, d)

@@ -25,8 +25,8 @@ residual stream.  A model without nesting runs the dense blocks.
 level's logits from one pass (``all_levels``), the MoE aux loss summed,
 each layer recomputed in the backward pass under ``cfg.remat``
 (:func:`remat`).  It runs no kernel (none has a backward): the
-``blocks``/``masked`` projections and ``ref`` attention, as the
-reference trains.
+``blocks``/``masked`` projections, ``ref`` attention and RWKV's chunk
+scan, as the reference trains.
 """
 
 from __future__ import annotations
@@ -128,23 +128,25 @@ def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig, ffn: str,
 def apply_layer(lp: dict, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ModelConfig, mixer: str, ffn: str, *, cache=None,
                 cache_len=None, level: int | None = None,
-                pos3d: torch.Tensor | None = None, with_aux: bool = False):
+                pos3d: torch.Tensor | None = None, train: bool = False):
     """One pre-norm block: attention (M-RoPE at ``pos3d`` where the config
     has ``m_rope``) or Mamba, then SwiGLU (nested when ``nest_levels >
     1``; an ``"attn_local"`` layer with its sliding window) or the MoE FFN
-    of a ``"moe"`` layer; or the RWKV time mix + channel mix.  Returns
-    ``(x, new_cache, aux)``: a MoE layer's aux loss only ``with_aux`` (a
-    train step; the reference's ``jit`` drops it from a serving forward as
-    dead code), else None; 0 for a layer without MoE."""
+    of a ``"moe"`` layer; or the RWKV time mix (its chunk scan when
+    ``train``, else ``rwkv_scan``) + channel mix.  Returns ``(x,
+    new_cache, aux)``: a MoE layer's aux loss only when ``train`` (the
+    reference's ``jit`` drops it from a serving forward as dead code),
+    else None; 0 for a layer without MoE."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device) \
-        if with_aux else None
+        if train else None
     if mixer == "mamba":
         m, new_cache = mamba_mod.mamba(lp["mixer"], x, cfg, state=cache)
-        x, aux = _ffn(lp, x + m, cfg, ffn, with_aux)
+        x, aux = _ffn(lp, x + m, cfg, ffn, train)
         return x, new_cache, aux
     if mixer == "rwkv":
-        t, wkv, tail_t = rwkv_mod.rwkv_time_mix(lp["mixer"], x, cfg,
-                                                state=cache)
+        t, wkv, tail_t = rwkv_mod.rwkv_time_mix(
+            lp["mixer"], x, cfg, state=cache,
+            mode="train" if train else "prefill")
         x = x + t
         c, tail_c = rwkv_mod.rwkv_channel_mix(lp["mixer"], x, cfg,
                                               state=cache)
@@ -161,7 +163,7 @@ def apply_layer(lp: dict, x: torch.Tensor, positions: torch.Tensor,
                                       window=window, cache=cache,
                                       cache_len=cache_len,
                                       positions_3d=pos3d)
-    x, aux = _ffn(lp, x + a, cfg, ffn, with_aux)
+    x, aux = _ffn(lp, x + a, cfg, ffn, train)
     return x, new_cache, aux
 
 
@@ -207,17 +209,13 @@ def check_trainable(cfg: ModelConfig) -> None:
     """Refuse a train forward that would reach a kernel: the kernels have
     no backward (nor have the reference's), so training runs the
     ``blocks``/``masked`` projections and ``ref`` attention, as the
-    reference trains; and an RWKV layer's only recurrence on the card is
-    ``rwkv_scan``."""
+    reference trains (an RWKV layer runs its chunk scan in mode
+    ``"train"``, whatever the backends)."""
     if cfg.nest_backend == "kernel" or cfg.attn_backend == "kernel":
         raise ValueError(
             f"mode 'train' runs no kernel (they have no backward): use "
             f"nest_backend 'blocks' or 'masked' and attn_backend 'ref', not "
             f"{cfg.nest_backend!r} / {cfg.attn_backend!r}")
-    if cfg.rwkv:
-        raise ValueError("mode 'train': RWKV training is not ported (its "
-                         "recurrence on the card is rwkv_scan, which has no "
-                         "backward)")
 
 
 def lm_apply(params: dict, cfg: ModelConfig, tokens: torch.Tensor | None,
@@ -236,7 +234,8 @@ def lm_apply(params: dict, cfg: ModelConfig, tokens: torch.Tensor | None,
       logits tensor per level from the one forward (the nesting
       property); ``return_hidden=True`` returns the final-normed hidden
       states in place of logits (the chunked loss projects them).  A
-      kernel backend or an RWKV layer raises (:func:`check_trainable`).
+      kernel backend raises (:func:`check_trainable`); RWKV layers run
+      their chunk scan.
     * ``mode='prefill'``: ``tokens [B, S]``, no caches in; the per-layer
       k/v of the prompt (or the Mamba and RWKV states after it) come back
       (the serving engine merges them into its decode buffers).
@@ -281,7 +280,7 @@ def lm_apply(params: dict, cfg: ModelConfig, tokens: torch.Tensor | None,
             def layer(lp_, x_, kinds=plan[i]):
                 x_, _, aux = apply_layer(lp_, x_, positions, cfg, *kinds,
                                          level=level, pos3d=pos3d,
-                                         with_aux=True)
+                                         train=True)
                 return x_, aux
 
             x, aux = remat(cfg, layer, lp, x)

@@ -1646,10 +1646,24 @@ def test_reduced_train_steps_on_the_card_match_the_cpu(cuda_device):
     from chip_smoke import train_cpu_vs_card
 
     out = train_cpu_vs_card(cuda_device, archs=("alert-anytime-120m",
-                                                "olmoe-1b-7b"))
+                                                "olmoe-1b-7b", "rwkv6-3b"))
     assert out["alert-anytime-120m"]["elements"] > 0
     assert out["olmoe-1b-7b"]["route_calls"] > 0
-    assert "RWKV" in out["rwkv6-3b"]
+    assert out["rwkv6-3b"]["elements"] > 0      # the chunk scan trains
+    assert all(o["grads"]["worst_ratio"] <= 1.0 for o in out.values())
+
+
+def test_reduced_rwkv_trains_then_serves_on_the_card(cuda_device):
+    """Phase 34 at the reduced size: the chunk scan trains (no
+    ``rwkv_scan`` launch), then the graphed prefill on ``rwkv_scan``
+    holds to ``train_logits`` and the fleet server launches it."""
+    from chip_smoke import RWKV_SERVE_ULPS, rwkv_training_phase
+    from repro_torch.configs.rwkv6_3b import reduced
+
+    out = rwkv_training_phase(cuda_device, cfg=reduced(), steps=3, seq=40)
+    assert out["served_vs_train"]["max_row_ulps"] <= RWKV_SERVE_ULPS
+    assert out["serve"]["rwkv_scan_launches"] > 0
+    assert out["train"]["losses"][-1] < out["train"]["losses"][0]
 
 
 def test_cuda_train_state_checkpoint_roundtrip_bitwise(cuda_device,

@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch``, not
-``chip_smoke.py`` and not ``examples/serve_alert_torch.py`` imports jax,
-the reference package ``repro`` or the reference's ``benchmarks``."""
+``chip_smoke.py`` and no ``examples/*_torch.py`` imports jax, the
+reference package ``repro`` or the reference's ``benchmarks``."""
 
 import ast
 import os
@@ -12,7 +12,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "examples" / "serve_alert_torch.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def imported_modules(path: Path) -> set[str]:

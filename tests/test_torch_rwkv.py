@@ -12,8 +12,17 @@
   (the reference's init, carried over with ``params_from_jax``).  The
   reference's model never calls its own kernel: it runs the recurrence as
   ``_wkv_chunk_scan`` (S > 1, padded to whole chunks of ``rwkv_chunk``)
-  or as an inline step (S == 1); the port runs ``rwkv_scan`` for both.
-  Logits and states rtol = atol = 1e-5, as in ``tests/test_torch_model.py``.
+  or as an inline step (S == 1); the port serves on ``rwkv_scan`` for
+  both.  Logits and states rtol = atol = 1e-5, as in
+  ``tests/test_torch_model.py``.
+* Training: the port's ``_wkv_chunk_scan`` (mode ``"train"``) against the
+  reference's at whole and padded chunk counts (``TOL``), the train-mode
+  mixers against the reference's, and the train forward's logits bitwise
+  equal to the serving forward's on the CPU (the chunk scan repeats
+  ``rwkv_scan_plain``'s operations); the per-chunk recompute leaves the
+  gradients bitwise as they are without it; a serving forward that
+  autograd would record still refuses.  The loss and gradients against
+  ``jax.value_and_grad``: ``tests/test_torch_train_families.py``.
 """
 
 import dataclasses
@@ -184,8 +193,8 @@ def test_cost_of_a_2048_token_prompt():
 # --------------------------------------------------------------------- #
 FIELDS = ("name", "n_layers", "d_model", "n_heads", "n_kv_heads",
           "head_dim", "d_ff", "vocab", "rwkv", "rwkv_head_dim",
-          "rwkv_decay_lora", "nest_levels", "dtype", "norm_eps",
-          "attn_chunk", "rope_theta")
+          "rwkv_decay_lora", "rwkv_chunk", "nest_levels", "dtype",
+          "norm_eps", "attn_chunk", "rope_theta")
 
 
 @pytest.mark.parametrize("which", ["CONFIG", "reduced"])
@@ -197,7 +206,7 @@ def test_config_matches_reference(which):
     assert t.rwkv_n_heads == j.rwkv_n_heads
     assert [t.mixer_kind(i) for i in range(t.n_layers)] == \
         [j.mixer_kind(i) for i in range(j.n_layers)]
-    assert not hasattr(t, "rwkv_chunk")
+    assert t.rwkv_chunk == j.rwkv_chunk
 
 
 def test_config_rules():
@@ -351,6 +360,103 @@ def test_time_mix_launches_one_scan_per_call(models, monkeypatch):
     tt.lm_apply(t_params, t_cfg, toks[:, :1], mode="decode",
                 caches=out.caches, cache_len=5)
     assert calls == [5] * t_cfg.n_layers + [1] * t_cfg.n_layers
+
+
+# --------------------------------------------------------------------- #
+# training: the chunk scan                                               #
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("s,chunk", [(1, 1), (16, 16), (20, 16), (48, 16),
+                                     (7, 3)])
+def test_chunk_scan_matches_reference(s, chunk):
+    """Whole chunks, a padded last chunk (k = 0, w = 1) and one token."""
+    r, k, v, w, u, s0 = scan_inputs(2, s, 3, 16, seed=s)
+    j_sn, j_y = j_rwkv._wkv_chunk_scan(*map(jnp.asarray, (s0, r, k, v, w,
+                                                          u)), chunk)
+    t_sn, t_y = t_rwkv._wkv_chunk_scan(*map(torch.from_numpy, (s0, r, k, v,
+                                                               w, u)), chunk)
+    assert t_y.shape == (2, s, 3, 16) and t_sn.shape == (2, 3, 16, 16)
+    np.testing.assert_allclose(t_y.numpy(), np.asarray(j_y),
+                               **TOL["float32"])
+    np.testing.assert_allclose(t_sn.numpy(), np.asarray(j_sn), **STATE_TOL)
+
+
+@pytest.mark.parametrize("s", [1, 16, 20])
+def test_train_mode_mixer_matches_reference(models, s):
+    """``rwkv_time_mix(mode="train")`` (the chunk scan) against the
+    reference's time mix from a zero state."""
+    j_cfg, t_cfg, j_params, t_params = models
+    lp_j = jax.tree.map(lambda a: a[0], j_params["group"]["pos0"]["mixer"])
+    lp_t = t_params["layers"][0]["mixer"]
+    x = np.random.default_rng(s).standard_normal(
+        (BATCH, s, t_cfg.d_model)).astype(np.float32)
+    want = j_rwkv.rwkv_time_mix(lp_j, jnp.asarray(x), j_cfg)
+    got = t_rwkv.rwkv_time_mix(lp_t, torch.from_numpy(x), t_cfg,
+                               mode="train")
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **MODEL_TOL)
+
+
+@pytest.mark.parametrize("s", [1, 16, 20])
+def test_train_logits_equal_serving_logits(models, s):
+    """On the CPU the train forward (the chunk scan, padded at S = 20) and
+    the serving prefill (``rwkv_scan``'s plain version) run the same
+    float32 operations: the logits are bitwise equal."""
+    _, t_cfg, _, t_params = models
+    toks = torch.from_numpy(np.random.default_rng(s).integers(
+        0, t_cfg.vocab, (BATCH, s)))
+    with torch.no_grad():
+        train, _ = t_build(t_cfg).train_logits(t_params, {"tokens": toks})
+        serve = tt.lm_apply(t_params, t_cfg, toks, mode="prefill").logits
+    assert torch.equal(train, serve)
+
+
+def test_train_mode_runs_no_kernel(models, monkeypatch):
+    """Mode ``"train"`` never calls ``rwkv_scan``, whatever the backends."""
+    _, t_cfg, _, t_params = models
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("rwkv_scan called in mode 'train'")
+
+    monkeypatch.setattr(t_rwkv, "rwkv_scan", refuse)
+    toks = torch.zeros((BATCH, 5), dtype=torch.long)
+    with torch.no_grad():
+        out = tt.lm_apply(t_params, t_cfg, toks, mode="train")
+    assert out.logits.shape == (BATCH, 5, t_cfg.vocab)
+
+
+def test_chunk_recompute_keeps_gradients_bitwise(models, monkeypatch):
+    """Each chunk under ``torch.utils.checkpoint`` gives the gradients of
+    the same forward without the recompute, bit for bit."""
+    from repro_torch.train.step import make_loss_fn, value_and_grad
+    from repro_torch.tree import tree_leaves
+
+    _, t_cfg, _, t_params = models
+    cfg = t_cfg.replace(remat=False)
+    rng = np.random.default_rng(3)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (BATCH, 20)))
+             for k in ("tokens", "labels")}
+    loss_fn = make_loss_fn(t_build(cfg), cfg)
+    (loss, _), grads = value_and_grad(loss_fn, t_params, batch)
+    monkeypatch.setattr(t_rwkv, "checkpoint",
+                        lambda fn, *args, **kwargs: fn(*args))
+    (loss2, _), grads2 = value_and_grad(loss_fn, t_params, batch)
+    assert torch.equal(loss, loss2)
+    for a, b in zip(tree_leaves(grads), tree_leaves(grads2)):
+        assert torch.equal(a, b)
+
+
+def test_recorded_serving_call_refuses(models):
+    """A serving forward autograd would record reaches ``rwkv_scan``,
+    which has no backward: it raises rather than lose the gradient."""
+    _, t_cfg, _, t_params = models
+    params = dict(t_params, layers=[
+        {"mixer": {k: v.detach().requires_grad_(True)
+                   for k, v in lp["mixer"].items()}, "ffn": {}}
+        for lp in t_params["layers"]])
+    toks = torch.zeros((BATCH, 5), dtype=torch.long)
+    with torch.enable_grad(), pytest.raises(RuntimeError,
+                                            match="rwkv_scan has no backward"):
+        tt.lm_apply(params, t_cfg, toks, mode="prefill")
 
 
 # --------------------------------------------------------------------- #

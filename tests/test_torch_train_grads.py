@@ -14,7 +14,7 @@ loss to rtol 1e-6.
 
 Also: remat off, ``"full"`` and ``"save_dots"`` give bitwise the same
 loss and gradients (the recompute runs the same operations), and the
-kernel backends and RWKV refuse mode ``"train"``.
+kernel backends refuse mode ``"train"``.
 """
 
 import jax
@@ -50,17 +50,17 @@ def pair(arch, **kw):
     return j_cfg, t_cfg, j_params, t_params
 
 
-def make_batch(cfg, seed=0, pos3d=False):
+def make_batch(cfg, seed=0, pos3d=False, seq=S):
     rng = np.random.default_rng(seed)
-    batch = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32),
-             "labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, seq)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (B, seq)).astype(np.int32)}
     if cfg.encoder_layers:
         batch["frames"] = rng.standard_normal(
             (B, FRAMES, cfg.d_model)).astype(np.float32)
     if pos3d:       # three distinct streams, as an image's patches
-        t = np.broadcast_to(np.arange(S) // 4, (B, S))
-        batch["pos3d"] = np.stack([t, np.arange(S) % 4 + t,
-                                   np.arange(S) % 2 + t]).astype(np.int32)
+        t = np.broadcast_to(np.arange(seq) // 4, (B, seq))
+        batch["pos3d"] = np.stack([t, np.arange(seq) % 4 + t,
+                                   np.arange(seq) % 2 + t]).astype(np.int32)
     return batch
 
 
@@ -179,15 +179,6 @@ def test_whisper_kernel_backend_refuses_train_mode():
     batch = {k: torch.from_numpy(v) for k, v in make_batch(cfg).items()}
     with pytest.raises(ValueError, match="mode 'train' runs no kernel"):
         t_build(cfg).train_logits(t_params, batch)
-
-
-def test_rwkv_refuses_train_mode():
-    cfg = tc.get_reduced("rwkv6-3b").replace(dtype="float32")
-    model = t_build(cfg)
-    params = model.init(device="cpu")
-    batch = {k: torch.from_numpy(v) for k, v in make_batch(cfg).items()}
-    with pytest.raises(ValueError, match="RWKV training is not ported"):
-        model.train_logits(params, batch)
 
 
 def test_serving_forward_is_unchanged_by_train_fields():
