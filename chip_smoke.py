@@ -348,13 +348,28 @@ Phases (each prints its own lines; any mismatch exits nonzero):
     (phase 33 (c)), each at its defaults (``live_profile_demo_torch.py``
     with ``--measured``): each prints its ``OK`` line, and launches the
     kernels ``EXAMPLES`` names for it.
-37. the last lines: one JSON object per kernel (``launches``: the sum
+37. the lane-sharded decision plane, shards laid on the card by
+    ``make_lane_mesh(n, device=...)``, each launching its own
+    ``alert_select`` on its contiguous block: (a) the golden scenario on
+    1, 4 and 8 shards (S=1 padded) equal to the fixture with ``==`` and
+    bitwise ``mesh=None``; (b) phase 30's fleet on 4 shards bitwise the
+    unsharded run, 4 launches a tick, at the mid-run tick each shard's
+    launch bitwise its plain version on its block; (c) phase 10's
+    full-width ``alert-anytime-120m`` behind ``FleetAlertServer(
+    n_streams=6)`` on 4 shards (capacity 8, one retire and admit) bitwise
+    ``mesh=None`` in picks, tokens and lane state; (d) ``bench_traffic``
+    on a 4-shard ``SessionGateway`` killed and resumed on 2 shards and on
+    ``mesh=None``, both bitwise the uninterrupted run; (e) phase 32's
+    ``bench_megatick`` on 4 shards bitwise, 4 ``alert_select`` nodes a
+    round in its graph; (f) ``run_fleet_dryrun`` over ``make_lane_mesh()``
+    and over 8 shards on the card, parity and nothing built under churn.
+38. the last lines: one JSON object per kernel (``launches``: the sum
     over every ``serve`` run, graphed and eager, of phases 4, 7, 10, 13,
     15-17, 19, 20, 22, 23 and 27, over phase 26's two runs, over the
     fleet and gateway runs of phases 29-32, over phase 33's serve run
-    and example, phase 34's serve run, the launcher and the examples;
-    ``launches_by_run`` by phase), the ``nvidia-smi`` line, and
-    ``{"ok": true, "device": {...}}``.
+    and example, phase 34's serve run, the launcher, the examples and
+    phase 37's runs; ``launches_by_run`` by phase), the ``nvidia-smi``
+    line, and ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds.
 """
@@ -3733,7 +3748,8 @@ def fleet_full(device, lanes: int = FLEET_LANES,
            "shares": {k[:-3]: v / tick_med for k, v in split.items()},
            "checked_lanes": len(lanes_chk),
            "recorded_ticks": len(rec.inputs), "alert_select": n_sel,
-           "device_tick": busy, "nvidia_smi": smi, "counts": runs}
+           "device_tick": busy, "nvidia_smi": smi, "counts": runs,
+           "_keep": {"table": table, "specs": specs, "result": res}}
     say(f"  fleet S={lanes}, T={n_ticks}: traces built in {trace_s:.3f} s; "
         f"run_fleet {run_s:.3f} s (set-up {run_s - ticks_s:.3f} s, ticks "
         f"{ticks_s:.3f} s); alert_select launched {n_sel} times; "
@@ -4500,7 +4516,9 @@ def megatick_scale(device, runs: list) -> dict:
            "graph_kernel_nodes": len(nodes),
            "graph_select_nodes": n_select_nodes,
            "n_compiles": list(mega.n_compiles()), "checks": checks,
-           "device": busy, "nvidia_smi": smi}
+           "device": busy, "nvidia_smi": smi,
+           "_keep": {"table": table, "tick": dl, "sessions": sessions,
+                     "requests": requests, "result": first}}
     say(f"  bench_megatick: {len(sessions)} sessions over {n_lanes} lanes, "
         f"{first.offered} requests, {out['served']} served in {n} rounds "
         f"({first.pages_in} pages in, {first.pages_out} out); sessions "
@@ -4714,6 +4732,483 @@ def megatick_phase(device) -> dict:
     say("  (f) the pick-contract fallback is not used: the port's erf and "
         "exp are bitwise equal on the CPU and the card (phase 31), so (b)'s "
         "CPU run is held to the card bitwise")
+    return out
+
+
+# --------------------------------------------------------------------- #
+# phase 37: the lane-sharded decision plane                              #
+# --------------------------------------------------------------------- #
+# The golden scenario's meshes (S=1 padded to the mesh size), and the
+# shard count of (b)-(e): shards laid on one card by
+# make_lane_mesh(n, device=...), each launching its own alert_select.
+MESH_GOLDEN_SHARDS = (1, 4, 8)
+MESH_SHARDS = 4
+# (d): bench_traffic's workload at this load, killed at this iteration
+# with a checkpoint every MESH_CKPT_EVERY iterations.
+MESH_GW_LOAD, MESH_KILL_AT, MESH_CKPT_EVERY = 2.0, 61, 16
+# (f): run_fleet_dryrun(streams, ticks, churn), over every visible card
+# and over MESH_DRYRUN_SHARDS shards on one.
+MESH_DRYRUN = (4096, 12, 64)
+MESH_DRYRUN_SHARDS = 8
+FLEET_RESULT_FIELDS = ("energy", "accuracy", "latency", "missed", "budget",
+                       "active")
+
+
+def check_mesh_launches(n: int, want: int, device, what: str) -> None:
+    """Fails unless ``alert_select`` launched ``want`` times on the card
+    (never on the CPU)."""
+    want = want if device.type == "cuda" else 0
+    if n != want:
+        raise SmokeFailure(f"{what}: alert_select launched {n} times, "
+                           f"expected {want}")
+
+
+def mesh_goldens(device, runs: list) -> dict:
+    """Phase 37 (a): the golden scenario under meshes of
+    ``MESH_GOLDEN_SHARDS`` shards on ``device`` (S=1 padded with dead
+    lanes): the fixture's alert numbers with ``==``, every [S, T] array
+    bitwise the unsharded run's, ``alert_select`` launched once a shard a
+    tick."""
+    from repro_torch.core.controller import Constraints, Goal
+    from repro_torch.launch.mesh import make_lane_mesh
+    from repro_torch.serving.scenarios import (GOLDEN_BUDGET_W, GOLDEN_SEED,
+                                               golden_deadline, golden_table)
+    from repro_torch.serving.sim import ENVS, EnvironmentTrace, FleetSim
+
+    golden = json.loads((ROOT / "tests" / "golden_traces.json").read_text())
+    table = golden_table()
+    cons = Constraints.from_power_budget(float(golden_deadline(table, 3)[1]),
+                                         GOLDEN_BUDGET_W)
+    out = {}
+    for env in ("default", "cpu", "memory"):
+        trace = EnvironmentTrace(ENVS[env], seed=GOLDEN_SEED)
+        want = FleetSim(table, [trace], device=device).run_alert(
+            Goal.MAXIMIZE_ACCURACY, cons)
+        row = {}
+        for n in MESH_GOLDEN_SHARDS:
+            mesh = make_lane_mesh(n, device=device)
+            t0 = time.perf_counter()
+            res = counted_run(lambda: FleetSim(table, [trace],
+                                               device=device).run_alert(
+                Goal.MAXIMIZE_ACCURACY, cons, mesh=mesh), runs)
+            secs = time.perf_counter() - t0
+            got = {k: getattr(res.stream(0), k)
+                   for k in ("mean_energy", "mean_error", "miss_rate")}
+            if got != golden["envs"][env]["alert"]:
+                raise SmokeFailure(f"golden {env} on {n} shards: {got} != "
+                                   f"{golden['envs'][env]['alert']}")
+            same_result(res, want, FLEET_RESULT_FIELDS,
+                        f"golden {env} on {n} shards against mesh=None")
+            check_mesh_launches(runs[-1]["alert_select"], n * trace.n,
+                                device, f"golden {env} on {n} shards")
+            row[n] = {"seconds": secs, "alert_select":
+                      runs[-1]["alert_select"]}
+        out[env] = row
+        say(f"  golden {env} on " + ", ".join(
+            f"{n} shards ({r['alert_select']} launches, "
+            f"{r['seconds']:.3f} s)" for n, r in row.items())
+            + ": equal to the fixture with ==, bitwise mesh=None's")
+    return out
+
+
+def mesh_fleet(device, runs: list, keep: dict, phase30: dict) -> dict:
+    """Phase 37 (b): phase 30's fleet (its specs and result in ``keep``)
+    under a ``MESH_SHARDS``-shard mesh on ``device``: every [S, T] array
+    bitwise the unsharded run's, ``alert_select`` launched ``MESH_SHARDS``
+    times a tick, and at the mid-run tick each shard's launch bitwise its
+    plain version on the shard's block (a view of the lane vector at the
+    block's offset) and the whole select bitwise the unsharded engine's.
+    Prints the median tick beside phase 30's and the kernel's device time
+    on a shard's block beside one launch over all lanes."""
+    import torch
+
+    from repro_torch.kernels import alert_select as ks
+    from repro_torch.launch.mesh import make_lane_mesh
+    from repro_torch.serving import sim
+
+    table, specs, want = keep["table"], keep["specs"], keep["result"]
+    lanes, n_ticks = want.energy.shape
+    mid = n_ticks // 2
+    mesh = make_lane_mesh(MESH_SHARDS, device=device)
+    with FleetRecorder((), mid) as rec:
+        t0 = time.perf_counter()
+        res = counted_run(lambda: sim.run_fleet(table, specs, device=device,
+                                                mesh=mesh), runs)
+        run_s = time.perf_counter() - t0
+    if len(rec.stamps) != n_ticks:
+        raise SmokeFailure(f"sharded fleet: {len(rec.stamps)} selects in "
+                           f"{n_ticks} ticks")
+    check_mesh_launches(runs[-1]["alert_select"], MESH_SHARDS * n_ticks,
+                        device, "sharded fleet")
+    same_result(res, want, FLEET_RESULT_FIELDS,
+                f"the fleet on {MESH_SHARDS} shards against mesh=None")
+    tick_ms = [(b - a) * 1e3 for a, b in zip(rec.stamps, rec.stamps[1:])]
+
+    # Tick `mid`: each shard's launch against its plain version.
+    eng = rec.engine
+    args, kw = rec.select_args
+    calls = []
+    packed = ks.alert_select_packed
+
+    def recording(*blocks, **k):
+        calls.append((blocks, k))
+        return packed(*blocks, **k)
+
+    before = ks.alert_select.launches
+    ks.alert_select_packed = recording
+    try:
+        got = sim.BatchedAlertEngine.select(eng, *args, **kw)
+    finally:
+        ks.alert_select_packed = packed
+    if len(calls) != MESH_SHARDS or (
+            device.type == "cuda"
+            and ks.alert_select.launches - before != MESH_SHARDS):
+        raise SmokeFailure(f"tick {mid}: {len(calls)} shard calls, "
+                           f"{ks.alert_select.launches - before} launches")
+    block = lanes // MESH_SHARDS
+    for k, (blocks, kk) in enumerate(calls):
+        # The deadline is a row of the host values' one copy: shard k's
+        # block is a view of it at the block's offset.
+        if blocks[0].shape != (block,) or \
+                blocks[3].storage_offset() % lanes != k * block:
+            raise SmokeFailure(f"tick {mid}, shard {k}: the deadline is not "
+                               f"a view of lanes {k * block}-"
+                               f"{(k + 1) * block}")
+        ints, f64 = packed(*blocks, **kk)
+        i, j, lat, acc, en, feas, rel = ks.alert_select_plain(*blocks, **kk)
+        if not (torch.equal(ints, torch.stack([i, j, feas.to(torch.int32),
+                                               rel]))
+                and torch.equal(f64, torch.stack([lat, acc, en]))):
+            raise SmokeFailure(f"tick {mid}, shard {k}: the kernel differs "
+                               f"from its plain version on its block")
+    one = sim.BatchedAlertEngine(
+        eng.table, eng.goal, overhead=eng.overhead,
+        paper_faithful_energy=eng.paper_faithful_energy, device=device)
+    same_result(got, one.select(*args, **kw),
+                [f.name for f in dataclasses.fields(got)],
+                f"tick {mid}'s select on {MESH_SHARDS} shards against one "
+                f"launch")
+    out = {"lanes": lanes, "ticks": n_ticks, "shards": MESH_SHARDS,
+           "run_s": run_s, "tick_median_ms": statistics.median(tick_ms),
+           "phase30_tick_median_ms": phase30["tick_median_ms"],
+           "alert_select": runs[-1]["alert_select"]}
+    smi = nvidia_smi_line() if device.type == "cuda" else "cpu"
+    if device.type == "cuda":
+        blocks, kk = calls[0]
+        whole = [torch.cat([c[0][n] for c in calls]) for n in range(8)]
+        out["shard_kernel_ms"] = graph_ms(lambda: packed(*blocks, **kk))
+        out["whole_kernel_ms"] = graph_ms(lambda: packed(*whole, **kk))
+        out["nvidia_smi"] = smi
+    say(f"  fleet S={lanes}, T={n_ticks} on {MESH_SHARDS} shards: run "
+        f"{run_s:.3f} s, bitwise the unsharded run; alert_select launched "
+        f"{out['alert_select']} times ({MESH_SHARDS} a tick); tick {mid}: "
+        f"each shard's launch on a view of its block bitwise its plain "
+        f"version, the select bitwise one launch over all lanes")
+    say(f"  one tick, median: {out['tick_median_ms']:.6f} ms on "
+        f"{MESH_SHARDS} shards, {phase30['tick_median_ms']:.6f} ms "
+        f"unsharded (phase 30)" + (
+            f"; the kernel's device time (CUDA graph): "
+            f"{out['shard_kernel_ms']:.6f} ms a shard of {block} lanes, "
+            f"{out['whole_kernel_ms']:.6f} ms for one launch over "
+            f"{lanes} [{smi}]" if device.type == "cuda" else ""))
+    return out
+
+
+class SteppingClock:
+    """A fake clock for ``ServeEngine.generate``: each read advances it by
+    a seeded draw from [step/2, 3 step/2), so two servers that read it in
+    the same order see the same latencies, and the levels' profiled
+    latencies differ."""
+
+    def __init__(self, step: float = 0.004, seed: int = 0):
+        import numpy as np
+
+        self.t, self.step = 0.0, step
+        self.rng = np.random.default_rng(seed)
+
+    def __call__(self) -> float:
+        t = self.t
+        self.t += self.step * (0.5 + self.rng.random())
+        return t
+
+
+def mesh_served(device, engine, params, runs: list) -> dict:
+    """Phase 37 (c): ``FleetAlertServer(n_streams=6)`` over phase 10's
+    engine (alert-anytime-120m at full width and depth, every kernel on
+    the path) with a ``MESH_SHARDS``-shard mesh and with ``mesh=None``,
+    both reading a stepping fake clock: capacity 8 with the two pad lanes
+    dead, one retire and admit, picks, tokens and lane state bitwise
+    equal, ``alert_select`` launched ``MESH_SHARDS`` times a tick."""
+    import functools
+
+    import numpy as np
+
+    from repro_torch.core.batched import BatchedAlertEngine
+    from repro_torch.core.controller import Goal
+    from repro_torch.kernels import alert_select as ks
+    from repro_torch.launch.mesh import make_lane_mesh
+    from repro_torch.serving.alert_server import FleetAlertServer
+
+    mesh = make_lane_mesh(MESH_SHARDS, device=device)
+    plain_generate = engine.generate
+    levels = engine.levels
+    results = {}
+    table = None
+    try:
+        for name, m in (("none", None), ("mesh", mesh)):
+            tokens = []
+
+            def recording(*a, _gen=functools.partial(
+                    plain_generate, clock=SteppingClock()), **k):
+                r = _gen(*a, **k)
+                tokens.append(r["tokens"])
+                return r
+
+            engine.generate = recording
+            srv = FleetAlertServer(
+                engine, params, LEVEL_ACCURACIES[:len(levels)],
+                Goal.MINIMIZE_ENERGY, n_streams=6, profile_iters=1,
+                prompt_len=8, gen_tokens=4, start_active=False, mesh=m)
+            if table is None:
+                table = srv.table
+            srv.table = table            # one table for both servers
+            srv.scoring = BatchedAlertEngine(table, srv.goal, mesh=m,
+                                             device=device)
+            people = tenants(table)[:6]
+            for goal, cons in people:
+                srv.admit(goal, cons)
+            if m is not None and (srv.n_streams != 8 or srv.active[6:].any()):
+                raise SmokeFailure(f"sharded server: capacity "
+                                   f"{srv.n_streams}, pad lanes live "
+                                   f"{srv.active[6:].tolist()}")
+            rng = np.random.default_rng(0)
+            del tokens[:]
+            outs, per_tick = [], []
+
+            def ticks():
+                for tick in range(N_TICKS):
+                    if tick == 2:
+                        srv.retire(4)
+                        if srv.admit(*people[1]) != 4:
+                            raise SmokeFailure("the admit did not reuse "
+                                               "lane 4")
+                    # Eight prompts a tick for both servers (the mesh's
+                    # capacity); the unsharded one takes the first six.
+                    prompts = [rng.integers(0, engine.model.cfg.vocab,
+                                            (4, 8)).astype(np.int32)
+                               for _ in range(8)][:srv.n_streams]
+                    n0 = ks.alert_select.launches
+                    outs.append(srv.serve_tick(prompts)[:6])
+                    per_tick.append(ks.alert_select.launches - n0)
+
+            counted_run(ticks, runs)
+            state = {n: np.asarray(getattr(b, n).cpu()) for b, names in (
+                (srv.slowdown, ("mu", "sigma", "n_updates")),
+                (srv.idle_power, ("phi",))) for n in names}
+            state["goal"] = np.asarray(srv._goal_bank.current_goal().cpu())
+            results[name] = (outs, [np.array(t) for t in tokens],
+                             per_tick, {k: v[:6] for k, v in state.items()})
+    finally:
+        engine.generate = plain_generate
+    (o1, t1, p1, s1), (o2, t2, p2, s2) = results["none"], results["mesh"]
+    if o1 != o2:
+        raise SmokeFailure("sharded server: served inputs differ from "
+                           "mesh=None's")
+    if len(t1) != len(t2) or any(not np.array_equal(a, b)
+                                 for a, b in zip(t1, t2)):
+        raise SmokeFailure("sharded server: tokens differ from mesh=None's")
+    for k in s1:
+        if not np.array_equal(s1[k], s2[k]):
+            raise SmokeFailure(f"sharded server: lane state {k} differs")
+    card = device.type == "cuda"
+    if p2 != [MESH_SHARDS if card else 0] * N_TICKS or \
+            p1 != [1 if card else 0] * N_TICKS:
+        raise SmokeFailure(f"sharded server: alert_select launches a tick "
+                           f"{p2} (mesh=None {p1})")
+    levels_seen = sorted({o.level for row in o2 for o in row if o})
+    say(f"  FleetAlertServer(n_streams=6) over {engine.model.cfg.name} "
+        f"({engine.model.cfg.n_layers} layers, d={engine.model.cfg.d_model},"
+        f" {engine.model.cfg.dtype}) on {MESH_SHARDS} shards: capacity 8, "
+        f"pad lanes dead, lane 4 retired and readmitted; {N_TICKS} ticks, "
+        f"{len(t2)} generations, levels {levels_seen}: picks, tokens and "
+        f"lane state bitwise mesh=None's; alert_select a tick {p2}")
+    return {"ticks": N_TICKS, "generations": len(t2), "launches": p2,
+            "levels": levels_seen}
+
+
+def mesh_gateway_restore(device, runs: list) -> dict:
+    """Phase 37 (d): ``bench_traffic``'s workload at ``MESH_GW_LOAD`` on
+    a ``SessionGateway`` with a ``MESH_SHARDS``-shard mesh, checkpointed
+    and killed at iteration ``MESH_KILL_AT``, then resumed on half the
+    shards (``remesh_lanes``) and on ``mesh=None``: both bitwise the
+    uninterrupted unsharded run, each launch count the rounds it served
+    times its shards."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.launch.mesh import make_lane_mesh
+    from repro_torch.runtime.elastic import remesh_lanes
+    from repro_torch.runtime.ft import InjectedFailure
+    from repro_torch.serving.scenarios import (TRAFFIC_LANES, golden_table,
+                                               traffic_sessions)
+    from repro_torch.traffic import SessionGateway, generate_requests
+
+    table = golden_table()
+    sessions, dl, _ = traffic_sessions(table, MESH_GW_LOAD)
+    four = make_lane_mesh(MESH_SHARDS, device=device)
+    half = remesh_lanes(four.devices[:MESH_SHARDS // 2])
+
+    def gateway(mesh):
+        return SessionGateway(table, TRAFFIC_LANES, tick=dl / 4,
+                              max_queue=4 * TRAFFIC_LANES, device=device,
+                              mesh=mesh)
+
+    def run(g, **kw):
+        return g.run(sessions, generate_requests(sessions), **kw)
+
+    want = counted_run(lambda: run(gateway(None)), runs)
+    check_mesh_launches(runs[-1]["alert_select"], want.n_rounds, device,
+                        "uninterrupted run")
+    out = {"load": MESH_GW_LOAD, "rounds": want.n_rounds}
+    with tempfile.TemporaryDirectory() as td:
+        ck = str(Path(td) / "ck")
+
+        def killed():
+            try:
+                run(gateway(four), checkpoint_dir=ck,
+                    checkpoint_every=MESH_CKPT_EVERY,
+                    kill_at_round=MESH_KILL_AT)
+            except InjectedFailure:
+                return True
+            return False
+
+        if not counted_run(killed, runs):
+            raise SmokeFailure("the sharded gateway was not killed")
+        tree, step = ckpt_io.restore_tree(ck)
+        before = int(tree["meta"]["n_rounds"])
+        for name, mesh in (("2 shards", half), ("mesh=None", None)):
+            # A resumed run checkpoints as it goes: each resumes from its
+            # own copy of the killed run's checkpoint.
+            mine = str(Path(td) / f"ck-{name}")
+            shutil.copytree(ck, mine)
+            g = gateway(mesh)
+            got = counted_run(lambda: g.resume(
+                sessions, generate_requests(sessions), checkpoint_dir=mine),
+                runs)
+            same_gateway_result(got, want, f"resumed on {name}")
+            check_mesh_launches(runs[-1]["alert_select"],
+                                (got.n_rounds - before)
+                                * (1 if mesh is None else mesh.size),
+                                device, f"resumed on {name}")
+    out.update(resumed_from_iteration=step, rounds_before_kill=before)
+    say(f"  bench_traffic at load {MESH_GW_LOAD} ({len(sessions)} sessions, "
+        f"{TRAFFIC_LANES} lanes, {want.n_rounds} rounds) on {MESH_SHARDS} "
+        f"shards killed at iteration {MESH_KILL_AT}, resumed from the "
+        f"checkpoint of iteration {step} ({before} rounds served) on "
+        f"{MESH_SHARDS // 2} shards and on mesh=None: both bitwise equal "
+        f"to the uninterrupted run")
+    return out
+
+
+def mesh_megatick(device, runs: list, keep: dict, phase32: dict) -> dict:
+    """Phase 37 (e): phase 32 (b)'s ``bench_megatick`` cell (its
+    workload and graphed result in ``keep``, itself bitwise the host
+    gateway's) through a megatick with a ``MESH_SHARDS``-shard mesh:
+    bitwise, ``MESH_SHARDS`` ``alert_select`` nodes a round in the graph
+    and launches a round.  Prints ``plan_s``, ``scan_s`` and rounds/s
+    beside phase 32's."""
+    from repro_torch.launch.mesh import make_lane_mesh
+    from repro_torch.serving.scenarios import MEGATICK_ROUNDS
+    from repro_torch.traffic import MegatickGateway
+
+    card = device.type == "cuda"
+    sessions, requests = keep["sessions"], keep["requests"]
+    want, table, dl = keep["result"], keep["table"], keep["tick"]
+    n_lanes, rounds = phase32["lanes"], MEGATICK_ROUNDS
+    gw = MegatickGateway(table, n_lanes, tick=dl, max_queue=4 * n_lanes,
+                         chunk=rounds, device=device,
+                         mesh=make_lane_mesh(MESH_SHARDS, device=device))
+    plan_s = scan_s = float("inf")
+    for rep in range(2):                # the first run captures the graph
+        res = counted_run(lambda: gw.run(sessions, requests), runs)
+        same_gateway_result(res, want, f"the megatick on {MESH_SHARDS} "
+                            f"shards against the unsharded one")
+        scheduled = -(-res.n_rounds // rounds) * rounds   # pad rounds too
+        check_mesh_launches(runs[-1]["alert_select"],
+                            MESH_SHARDS * scheduled, device,
+                            f"the megatick on {MESH_SHARDS} shards")
+        if res.select_launches != runs[-1]["alert_select"]:
+            raise SmokeFailure("the megatick's launch count disagrees with "
+                               "the counter")
+        if rep:
+            plan_s, scan_s = gw.last_plan_s, gw.last_scan_s
+    nodes = graph_kernels(gw.chunk_graphs()[0]) if card else []
+    n_sel = sum("alert_select" in name for name, _ in nodes)
+    if card and n_sel != MESH_SHARDS * rounds:
+        raise SmokeFailure(f"the sharded megatick graph holds {n_sel} "
+                           f"alert_select nodes for {rounds} rounds")
+    smi = nvidia_smi_line() if card else "cpu"
+    out = {"rounds": res.n_rounds, "plan_s": plan_s, "scan_s": scan_s,
+           "round_clock_rounds_per_s": rounds / scan_s,
+           "end_to_end_rounds_per_s": rounds / (plan_s + scan_s),
+           "graph_kernel_nodes": len(nodes), "graph_select_nodes": n_sel,
+           "phase32": {k: phase32[k] for k in (
+               "plan_s", "scan_s", "round_clock_rounds_per_s",
+               "end_to_end_rounds_per_s", "graph_kernel_nodes")},
+           "nvidia_smi": smi}
+    say(f"  bench_megatick on {MESH_SHARDS} shards: bitwise the unsharded "
+        f"megatick (itself bitwise the host gateway, phase 32); graph "
+        f"{len(nodes)} kernel nodes, {n_sel} alert_select "
+        f"({MESH_SHARDS} a round)")
+    say(f"  plan_s {plan_s:.6f}, scan_s {scan_s:.6f}: "
+        f"{out['round_clock_rounds_per_s']:.3f} rounds/s on the round "
+        f"clock, {out['end_to_end_rounds_per_s']:.3f} end to end; phase 32 "
+        f"unsharded: plan_s {phase32['plan_s']:.6f}, scan_s "
+        f"{phase32['scan_s']:.6f}, "
+        f"{phase32['round_clock_rounds_per_s']:.3f} and "
+        f"{phase32['end_to_end_rounds_per_s']:.3f} rounds/s, "
+        f"{phase32['graph_kernel_nodes']} kernel nodes [{smi}]")
+    return out
+
+
+def mesh_dryrun(device, runs: list) -> dict:
+    """Phase 37 (f): ``run_fleet_dryrun(*MESH_DRYRUN)`` over a mesh of
+    every visible card and over ``MESH_DRYRUN_SHARDS`` shards on
+    ``device``: parity with the single-device engine and nothing built
+    under churn, both records printed."""
+    from repro_torch.launch.fleet_dryrun import run_fleet_dryrun
+
+    out = {}
+    cases = [("make_lane_mesh()", {})] if device.type == "cuda" else \
+        [(f"one shard on {device}", {"device": device})]
+    cases.append((f"{MESH_DRYRUN_SHARDS} shards on {device}",
+                  {"n_devices": MESH_DRYRUN_SHARDS, "device": device}))
+    for name, kw in cases:
+        rec = counted_run(lambda: run_fleet_dryrun(*MESH_DRYRUN, **kw), runs)
+        if not (rec["picks_match_single_device"]
+                and rec["builds_flat_under_churn"]):
+            raise SmokeFailure(f"fleet dry run over {name}: {rec}")
+        n_sel = (MESH_DRYRUN[1] + 1) * rec["n_devices"] + 1
+        check_mesh_launches(runs[-1]["alert_select"], n_sel, device,
+                            f"fleet dry run over {name}")
+        out[name] = rec
+        say(f"  fleet dry run over {name}: {json.dumps(rec)}")
+    return out
+
+
+def mesh_phase(device, fleet_keep, fleet_out, served, mega_keep,
+               mega_out) -> dict:
+    """Phase 37: (a)-(f) on ``device``; ``counts`` holds the launches of
+    every run."""
+    runs = []
+    out = {"goldens": mesh_goldens(device, runs),
+           "fleet": mesh_fleet(device, runs, fleet_keep, fleet_out),
+           "served": mesh_served(device, served["engine"], served["params"],
+                                 runs),
+           "gateway": mesh_gateway_restore(device, runs),
+           "megatick": mesh_megatick(device, runs, mega_keep, mega_out),
+           "dryrun": mesh_dryrun(device, runs), "counts": runs}
     return out
 
 
@@ -6376,6 +6871,7 @@ def main() -> int:
     phase.start(f"phase 30: a fleet of {FLEET_LANES} streams on the card")
     fleet = fleet_full(device)
     counted["phase 30"] = fleet.pop("counts")
+    fleet_keep = fleet.pop("_keep")       # phase 37 (b) reruns it sharded
 
     phase.start("phase 31: the session gateway on the card")
     gateway = gateway_phase(device)
@@ -6384,6 +6880,7 @@ def main() -> int:
     phase.start("phase 32: the megatick on the card")
     megatick = megatick_phase(device)
     counted["phase 32"] = megatick.pop("counts")
+    mega_keep = megatick["scale"].pop("_keep")   # and phase 37 (e) this
 
     phase.start("phase 33: training, then the trained weights served")
     training = training_phase(device)
@@ -6402,6 +6899,13 @@ def main() -> int:
     phase.start("phase 36: the examples")
     examples = examples_run(device)
     counted["phase 36"] = [e.pop("counts") for e in examples.values()]
+
+    phase.start("phase 37: the lane-sharded decision plane")
+    say(f"  nvidia-smi: {nvidia_smi_line()}")
+    lane_mesh = mesh_phase(device, fleet_keep, fleet, run_a, mega_keep,
+                           megatick["scale"])
+    counted["phase 37"] = lane_mesh.pop("counts")
+    del fleet_keep, mega_keep
     phase.start(None)
     say(f"== done in {time.perf_counter() - t_start:.1f} s")
 
@@ -6424,7 +6928,7 @@ def main() -> int:
         "version": SELECT_VERSION, "bitwise_cases": n_select_cases,
         "fleet_goldens": fleet_golden, "fleet": fleet, "gateway": gateway,
         "megatick": megatick, "training": training, "launcher": launcher,
-        "examples": examples,
+        "examples": examples, "lane_mesh": lane_mesh,
         **{f: timing[f] for f in ("instruction_bound_ms",
                                   "fp64_instructions_per_cell",
                                   "fp64_instructions_per_cell_most",

@@ -23,7 +23,12 @@ with ``os.replace`` and only then ``.old`` removed, so a crash at any
 point leaves a complete checkpoint under ``<dir>`` or ``<dir>.old``.
 
 :func:`restore` gives each leaf back in the dtype of the ``like`` tree's
-leaf (float64 stays float64) as a tensor on that leaf's device.
+leaf (float64 stays float64) as a tensor on that leaf's device, or placed
+by ``shardings``: a ``torch.device`` or a lane placement of a
+:class:`~repro_torch.launch.mesh.LaneMesh`
+(:func:`~repro_torch.launch.mesh.lane_shardings`).  A lane-sharded leaf
+(:class:`~repro_torch.launch.mesh.LaneShards`) is saved as its whole
+array, so a checkpoint written under one mesh restores onto any other.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.tree import children, is_namedtuple
+from repro_torch.launch.mesh import LanePlacement, LaneShards
+from repro_torch.tree import children, is_namedtuple, tree_map
 
 
 def _leaves(tree, path=()):
@@ -126,8 +132,15 @@ def _saved_tensor(arr: np.ndarray, saved_dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def _like_leaf(arr: torch.Tensor, leaf, key: str) -> torch.Tensor:
-    """``arr`` as a tensor shaped, typed and placed as ``leaf``."""
+def _like_leaf(arr: torch.Tensor, leaf, key: str):
+    """``arr`` as a tensor shaped, typed and placed as ``leaf`` (over the
+    same lane mesh where ``leaf`` is a :class:`LaneShards`)."""
+    if isinstance(leaf, LaneShards):
+        if tuple(arr.shape) != tuple(leaf.shape):
+            raise ValueError(f"leaf {key}: checkpoint shape "
+                             f"{tuple(arr.shape)} != model shape "
+                             f"{tuple(leaf.shape)}")
+        return leaf.mesh.split(arr.to(leaf.dtype).clone())
     if isinstance(leaf, torch.Tensor):
         dtype, device = leaf.dtype, leaf.device
         shape = tuple(leaf.shape)
@@ -142,12 +155,25 @@ def _like_leaf(arr: torch.Tensor, leaf, key: str) -> torch.Tensor:
     return arr.to(device=device, dtype=dtype)
 
 
-def restore(directory: str, like) -> tuple[Any, int]:
+def _place(x, where):
+    """A restored leaf onto a ``torch.device`` or a lane placement."""
+    if isinstance(where, LanePlacement):
+        return where.place(x.full() if isinstance(x, LaneShards) else x)
+    if isinstance(x, LaneShards):
+        return x.full(where)
+    return x.to(where)
+
+
+def restore(directory: str, like, shardings=None) -> tuple[Any, int]:
     """Restore into the structure of ``like`` (a tree of arrays,
     scalars or tensors; dicts, lists, tuples and ``NamedTuple``s, each
     rebuilt as its own type): each leaf comes back as a tensor of the
     like leaf's shape and dtype on its device (a numpy leaf: the CPU).
-    Returns ``(tree, step)``."""
+    ``shardings`` (a tree of the same structure) places each leaf
+    instead: a ``torch.device``, or a lane placement
+    (:func:`~repro_torch.launch.mesh.lane_shardings`) that splits it into
+    a mesh's blocks or copies it to every shard.  Returns
+    ``(tree, step)``."""
     directory = _resolve(directory)
     manifest = load_manifest(directory)
     saved = {rec["path"]: rec for rec in manifest["leaves"]}
@@ -172,6 +198,8 @@ def restore(directory: str, like) -> tuple[Any, int]:
                                             rec["dtype"]), node, key)
 
         tree = build(like, ())
+    if shardings is not None:
+        tree = tree_map(_place, tree, shardings)
     return tree, manifest["step"]
 
 

@@ -15,6 +15,10 @@ models x L power buckets in one call:
 * Fleets may mix Eq. 4 and Eq. 5 lanes (``goal_kind``) and carry dead
   lanes (``active``); dead lanes may hold garbage and come back with a
   null decision.
+* ``mesh=`` (a :class:`~repro_torch.launch.mesh.LaneMesh`) shards the
+  lane axis: the kernel is launched once a shard on that shard's
+  contiguous block (through :func:`~repro_torch.launch.mesh.
+  lane_shard_map`), and the results are bitwise the unsharded engine's.
 
 Selection goes through
 :func:`repro_torch.kernels.alert_select.alert_select_packed`: the CUDA
@@ -35,7 +39,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.profiles import ProfileTable
-from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import (LaneShards, lane_fill, lane_map,
+                                     lane_place, lane_shard_map,
+                                     mesh_device, put_lanes, take_lanes)
 
 F64 = torch.float64
 
@@ -103,16 +109,30 @@ class BatchedAlertEngine:
     ``"cuda"``) holds the profile constants; ``backend`` defaults to the
     one that device runs (``"cuda"``: the kernel, ``"torch"``: the plain
     version) and raises if it names the other.
+
+    ``mesh`` (a 1-D :class:`~repro_torch.launch.mesh.LaneMesh`) turns on
+    lane sharding: :meth:`select` and :meth:`select_step_impl` launch the
+    kernel once a shard on its ``[S / size]`` block, each shard's device
+    holding its own copy of the tables, and join the results in lane
+    order on the mesh's home device (the engine's ``device``).  S must be
+    a multiple of the mesh size (fleet callers pad with dead lanes).  The
+    grid has no cross-lane op, so the decisions are bitwise the unsharded
+    engine's.
     """
 
     def __init__(self, table: ProfileTable, goal=None, *,
                  overhead: float = 0.0,
                  paper_faithful_energy: bool = True,
-                 backend: str | None = None, device=None):
+                 backend: str | None = None, device=None, mesh=None):
         from repro_torch.core.controller import Goal  # avoid import cycle
         from repro_torch.kernels import alert_select as kernel
 
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
+        if mesh is not None and \
+                {d.type for d in mesh.devices} != {self.device.type}:
+            raise ValueError(f"a lane mesh's shards must all be CUDA or all "
+                             f"CPU devices: {mesh}")
         native = "cuda" if self.device.type == "cuda" else "torch"
         self.backend = native if backend is None else str(backend)
         if self.backend not in ("cuda", "torch"):
@@ -138,9 +158,16 @@ class BatchedAlertEngine:
         self._run_power = dev(table.run_power)
         self._weights = dev(self._staircase_weight_matrix(table))
         self._q_fail = float(table.q_fail)
+        # Under a mesh, the tables on each shard's device.
+        home = (self._latency, self._run_power, self._weights)
+        self._tables = {}
+        for dev in (mesh.devices if mesh is not None else ()):
+            if dev not in self._tables:
+                self._tables[dev] = home if dev == self.device else \
+                    tuple(t.to(dev) for t in home)
         if self.backend == "cuda":   # once here, not on every select
-            kernel.check_tables(self._latency, self._run_power,
-                                self._weights)
+            for tables in (home, *self._tables.values()):
+                kernel.check_tables(*tables)
 
     @staticmethod
     def _staircase_weight_matrix(table: ProfileTable) -> np.ndarray:
@@ -162,7 +189,14 @@ class BatchedAlertEngine:
     # ------------------------------------------------------------------ #
     def _vec(self, x, s: int, floor: float | None = None) -> torch.Tensor:
         """``[S]`` float64 vector on the engine's device from a scalar,
-        numpy array or tensor (``floor`` applied after the move)."""
+        numpy array or tensor (``floor`` applied after the move); a
+        :class:`LaneShards` on the engine's mesh stays sharded (on
+        another mesh it is gathered)."""
+        if isinstance(x, LaneShards):
+            if x.mesh != self.mesh:
+                return self._vec(x.full(self.device), s, floor)
+            return lane_map(lambda p: p.to(F64) if floor is None
+                            else torch.clamp_min(p.to(F64), floor), x)
         if isinstance(x, torch.Tensor):
             v = x.to(device=self.device, dtype=F64)
         else:
@@ -174,6 +208,10 @@ class BatchedAlertEngine:
 
     def _lane_ints(self, x) -> torch.Tensor:
         """``[S]`` int32 vector (goal codes, lane mask) on the device."""
+        if isinstance(x, LaneShards):
+            if x.mesh != self.mesh:
+                return self._lane_ints(x.full(self.device))
+            return lane_map(lambda p: p.to(torch.int32), x)
         if isinstance(x, torch.Tensor):
             return x.to(device=self.device, dtype=torch.int32).contiguous()
         return torch.from_numpy(np.array(x, np.int32)).to(self.device)
@@ -188,7 +226,7 @@ class BatchedAlertEngine:
         floors = (None, 1e-6, None, None, None, None)
         out = [None] * 8
         host = [n for n, x in enumerate(floats)
-                if not isinstance(x, torch.Tensor)]
+                if not isinstance(x, (torch.Tensor, LaneShards))]
         if host:
             buf = np.empty((len(host), s), np.float64)
             for row, n in enumerate(host):
@@ -201,7 +239,7 @@ class BatchedAlertEngine:
         for n, x in enumerate(floats):
             if out[n] is None:
                 out[n] = self._vec(x, s, floor=floors[n])
-        if any(isinstance(x, torch.Tensor) for x in ints):
+        if any(isinstance(x, (torch.Tensor, LaneShards)) for x in ints):
             out[6:] = [self._lane_ints(x) for x in ints]
         else:
             buf = np.empty((2, s), np.int32)
@@ -210,11 +248,37 @@ class BatchedAlertEngine:
             out[6:] = moved[0], moved[1]
         return out
 
-    @staticmethod
-    def _n_lanes(deadline) -> int:
-        shape = tuple(deadline.shape) if isinstance(deadline, torch.Tensor) \
+    def _n_lanes(self, deadline) -> int:
+        """S from ``deadline``; under a mesh it must divide the mesh size
+        (fleet callers pad with dead lanes)."""
+        shape = tuple(deadline.shape) \
+            if isinstance(deadline, (torch.Tensor, LaneShards)) \
             else np.shape(deadline)
-        return shape[0] if shape else 1
+        s = shape[0] if shape else 1
+        if self.mesh is not None:
+            self.mesh.blocks(s)
+        return s
+
+    def _packed(self, *lanes, predictions: bool):
+        """:func:`~repro_torch.kernels.alert_select.alert_select_packed`
+        over the eight ``[S]`` lane vectors: one launch, or under a mesh
+        one a shard on its block, the two buffers joined in lane order on
+        the home device."""
+        kernel = self._kernel
+
+        def launch(*blocks):
+            lat, rp, w = (self._latency, self._run_power, self._weights) \
+                if self.mesh is None else self._tables[blocks[0].device]
+            return kernel.alert_select_packed(
+                *blocks, latency=lat, run_power=rp, weights=w,
+                q_fail=self._q_fail, overhead=self.overhead,
+                paper_faithful_energy=self.paper_faithful_energy,
+                predictions=predictions)
+
+        if self.mesh is None:
+            return launch(*lanes)
+        return lane_shard_map(launch, self.mesh, n_in=8, n_out=2,
+                              out_axis=1)(*lanes)
 
     def estimate(self, mu, sigma, phi, deadline, *,
                  active=None) -> EstimateBatch:
@@ -225,7 +289,11 @@ class BatchedAlertEngine:
         lanes' inputs with benign constants before any arithmetic and
         zeroes their output rows.  The grids are the debugging view of
         the select path and come from the plain PyTorch ops on either
-        device (the kernel never writes an ``[S, K, L]`` grid)."""
+        device (the kernel never writes an ``[S, K, L]`` grid), on the
+        engine's (home) device under a mesh."""
+        mu, sigma, phi, deadline, active = (
+            x.full() if isinstance(x, LaneShards) else x
+            for x in (mu, sigma, phi, deadline, active))
         s = self._n_lanes(deadline)
         mu, sd = self._vec(mu, s), self._vec(sigma, s, floor=1e-6)
         phi, t = self._vec(phi, s), self._vec(deadline, s)
@@ -296,7 +364,7 @@ class BatchedAlertEngine:
             gk = self._resolve_goal_kind(goal_kind, s)
             if active is None:
                 act = np.ones(s, bool)
-            elif isinstance(active, torch.Tensor):
+            elif isinstance(active, (torch.Tensor, LaneShards)):
                 act = active
             else:
                 act = np.broadcast_to(np.asarray(active, bool), (s,))
@@ -314,12 +382,7 @@ class BatchedAlertEngine:
             s, (mu, sigma, phi, deadline,
                 0.0 if accuracy_goal is None else accuracy_goal,
                 0.0 if energy_goal is None else energy_goal), (gk, act))
-        ints, f64 = self._kernel.alert_select_packed(
-            *lanes, latency=self._latency, run_power=self._run_power,
-            weights=self._weights, q_fail=self._q_fail,
-            overhead=self.overhead,
-            paper_faithful_energy=self.paper_faithful_energy,
-            predictions=predictions)
+        ints, f64 = self._packed(*lanes, predictions=predictions)
         ints, f64 = ints.cpu().numpy(), f64.cpu().numpy()
         return DecisionBatch(model_index=ints[0], power_index=ints[1],
                              predicted_latency=f64[0],
@@ -337,18 +400,16 @@ class BatchedAlertEngine:
         engine's device, ``goal_kind`` and ``active`` integer or bool
         tensors there; the outputs stay on the device (views of the
         kernel's two buffers: nothing is copied to the host and nothing
-        syncs, so the call can be captured in a CUDA graph)."""
+        syncs, so the call can be captured in a CUDA graph).  Under a
+        mesh the kernel runs once a shard and the two buffers are joined
+        on the home device."""
         kernel = self._kernel
 
         def step(mu, sd, phi, deadline, acc_goal, en_goal, gk, act):
             """One pick-only select on device tensors."""
-            ints, f64 = kernel.alert_select_packed(
+            ints, f64 = self._packed(
                 mu, torch.clamp_min(sd, 1e-6), phi, deadline, acc_goal,
                 en_goal, gk.to(torch.int32), act.to(torch.int32),
-                latency=self._latency, run_power=self._run_power,
-                weights=self._weights, q_fail=self._q_fail,
-                overhead=self.overhead,
-                paper_faithful_energy=self.paper_faithful_energy,
                 predictions=False)
             return kernel.unpack(ints, f64)
 
@@ -423,86 +484,110 @@ class WindowedGoalBank:
     on the device: per-stream ring buffers of the last N-1 delivered
     accuracies (paper fn.3) and the same compensation rule.  ``goal`` may
     be a scalar or an ``[S]`` vector; :meth:`set_goals` resets exactly the
-    streams whose goal changed.  The ring buffer is updated in place."""
+    streams whose goal changed.  The ring buffer is updated in place.
 
-    def __init__(self, goal, n_streams: int, window: int = 10, device=None):
-        self.device = resolve_device(device)
-        self.goal = torch.as_tensor(
-            np.broadcast_to(np.asarray(goal, np.float64), (n_streams,))
-            .copy(), device=self.device)
+    ``mesh=`` (a :class:`~repro_torch.launch.mesh.LaneMesh`) keeps the
+    window state (``goal [S]``, ``buf [S, N-1]``, ``count``/``pos [S]``)
+    as one block a shard, :meth:`record` and :meth:`current_goal` running
+    once a shard; the capacity stays a multiple of the mesh size.  The
+    window sum runs along a lane's own row in the same pairwise order, so
+    a sharded bank's goals are bitwise the unsharded bank's."""
+
+    _lane_state = (("goal", "goal"), ("buf", "_buf"), ("count", "_count"),
+                   ("pos", "_pos"))
+
+    def __init__(self, goal, n_streams: int, window: int = 10, device=None,
+                 mesh=None):
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
+        if mesh is not None and n_streams % mesh.size:
+            raise ValueError(
+                f"goal-bank capacity {n_streams} must be a multiple of the "
+                f"lane-mesh size {mesh.size}")
         self.window = int(window)
         self._depth = max(self.window - 1, 0)
-        self._buf = torch.zeros((n_streams, max(self._depth, 1)), dtype=F64,
-                                device=self.device)
-        self._count = torch.zeros(n_streams, dtype=torch.int64,
-                                  device=self.device)
-        self._pos = torch.zeros(n_streams, dtype=torch.int64,
-                                device=self.device)
+        self.goal = lane_place(mesh, self.device, np.broadcast_to(
+            np.asarray(goal, np.float64), (n_streams,)), F64)
+        self._buf = lane_fill(mesh, self.device,
+                              (n_streams, max(self._depth, 1)), 0.0, F64)
+        self._count = lane_fill(mesh, self.device, (n_streams,), 0,
+                                torch.int64)
+        self._pos = lane_fill(mesh, self.device, (n_streams,), 0,
+                              torch.int64)
 
-    def _goals(self, goals) -> torch.Tensor:
-        return torch.as_tensor(goals, dtype=F64,
-                               device=self.device).expand(self.goal.shape)
+    def _lanes(self, x, dtype):
+        """An ``[S]`` host input as a lane value of this bank."""
+        if self.mesh is None:
+            return torch.as_tensor(x, dtype=dtype, device=self.device)
+        return self.mesh.split(x, dtype)
 
-    def _clear(self, sel: torch.Tensor) -> None:
-        self._buf = torch.where(sel[:, None], 0.0, self._buf)
-        self._count = torch.where(sel, 0, self._count)
-        self._pos = torch.where(sel, 0, self._pos)
+    def _goals(self, goals):
+        if self.mesh is None:
+            return torch.as_tensor(goals, dtype=F64,
+                                   device=self.device).expand(
+                                       self.goal.shape)
+        return self._lanes(np.broadcast_to(np.asarray(goals, np.float64),
+                                           self.goal.shape), F64)
+
+    def _clear(self, sel) -> None:
+        self._buf, self._count, self._pos = lane_map(
+            lambda m, b, c, p: (torch.where(m[:, None], 0.0, b),
+                                torch.where(m, 0, c), torch.where(m, 0, p)),
+            sel, self._buf, self._count, self._pos)
 
     def set_goals(self, goals) -> None:
         """Install per-stream goals; lanes whose goal changed get a fresh
         window, other lanes keep their history."""
         new = self._goals(goals)
-        changed = new != self.goal
+        changed = lane_map(lambda a, b: a != b, new, self.goal)
         self._clear(changed)
-        self.goal = torch.where(changed, new, self.goal)
+        self.goal = lane_map(lambda c, a, b: torch.where(c, a, b), changed,
+                             new, self.goal)
 
     def reset_lanes(self, lanes, goal=None) -> None:
         """Recycle ``lanes`` for newly admitted streams: clear their window
         and (optionally) install a new per-lane goal."""
-        idx = torch.as_tensor(np.asarray(lanes, np.int64), device=self.device)
-        sel = torch.zeros(self.goal.shape[0], dtype=torch.bool,
-                          device=self.device)
-        sel[idx] = True
+        sel = np.zeros(self.goal.shape[0], bool)
+        sel[np.asarray(lanes, np.int64)] = True
         if goal is not None:
-            g = self.goal.clone()
-            g[idx] = torch.as_tensor(goal, dtype=F64, device=self.device)
-            self.goal = g
-        self._clear(sel)
-
-    _lane_state = (("goal", "goal"), ("buf", "_buf"), ("count", "_count"),
-                   ("pos", "_pos"))
+            self.goal = put_lanes(self.goal, lanes,
+                                  np.asarray(goal, np.float64))
+        self._clear(self._lanes(sel, torch.bool))
 
     def export_lanes(self, lanes) -> dict:
         """Snapshot ``lanes``' window state as host numpy arrays (keys
         ``goal``, ``buf``, ``count``, ``pos``, as the reference's): the
         page-out half of session paging, bitwise round-trippable through
         :meth:`import_lanes`."""
-        idx = torch.as_tensor(np.asarray(lanes, np.int64), device=self.device)
-        return {key: getattr(self, attr)[idx].cpu().numpy()
+        return {key: take_lanes(getattr(self, attr), lanes)
                 for key, attr in self._lane_state}
 
     def import_lanes(self, lanes, state: dict) -> None:
         """Restore an :meth:`export_lanes` snapshot into ``lanes`` (the
         page-in half of session paging): same-shape indexed writes on the
         device, bitwise lossless."""
-        idx = torch.as_tensor(np.asarray(lanes, np.int64), device=self.device)
         for key, attr in self._lane_state:
-            t = getattr(self, attr).clone()
-            t[idx] = torch.as_tensor(np.asarray(state[key]), dtype=t.dtype,
-                                     device=self.device)
-            setattr(self, attr, t)
+            setattr(self, attr, put_lanes(getattr(self, attr), lanes,
+                                          state[key]))
 
     def grow(self, n_streams: int, goal_fill: float = 0.0) -> None:
         """Extend the bank to ``n_streams`` lanes with fresh windows and
-        goal ``goal_fill`` (admission installs the real one)."""
+        goal ``goal_fill`` (admission installs the real one); under a mesh
+        ``n_streams`` must be a multiple of its size."""
         extra = int(n_streams) - self.goal.shape[0]
         if extra <= 0:
             return
-
+        if self.mesh is not None and int(n_streams) % self.mesh.size:
+            raise ValueError(
+                f"sharded goal-bank capacity must grow in multiples of the "
+                f"mesh size {self.mesh.size}; got {n_streams}")
         def pad(x, value):
-            fill = torch.full((extra,) + tuple(x.shape[1:]), value,
-                              dtype=x.dtype, device=self.device)
-            return torch.cat([x, fill])
+            """``x`` through the host, extended, placed back (under a mesh
+            in its new blocks)."""
+            host = np.asarray(x.cpu())
+            fill = np.full((extra,) + host.shape[1:], value, host.dtype)
+            return lane_place(self.mesh, self.device,
+                              np.concatenate([host, fill]), x.dtype)
 
         self.goal = pad(self.goal, float(goal_fill))
         self._buf = pad(self._buf, 0.0)
@@ -515,17 +600,19 @@ class WindowedGoalBank:
         if self._depth == 0:
             return
         s = self._buf.shape[0]
-        m = torch.ones(s, dtype=torch.bool, device=self.device) \
-            if mask is None else torch.as_tensor(mask, dtype=torch.bool,
-                                                 device=self.device)
-        d = torch.as_tensor(delivered, dtype=F64, device=self.device)
-        self._buf, self._pos, self._count = _goal_record_step(
-            self._buf, self._pos, self._count, d, m, self._depth)
+        m = lane_fill(self.mesh, self.device, (s,), True, torch.bool) \
+            if mask is None else self._lanes(mask, torch.bool)
+        d = self._lanes(delivered, F64)
+        self._buf, self._pos, self._count = lane_map(
+            _goal_record_step, self._buf, self._pos, self._count, d, m,
+            self._depth)
 
-    def current_goal(self) -> torch.Tensor:
+    def current_goal(self):
         """Per-stream effective Q_goal after window compensation (paper
-        fn.3); lanes with an empty window return their raw goal."""
+        fn.3); lanes with an empty window return their raw goal.  Under a
+        mesh a :class:`~repro_torch.launch.mesh.LaneShards` that feeds the
+        sharded engine as it is."""
         if self._depth == 0:
-            return self.goal.clone()
-        return goal_current_step_hostsum(self.goal, self._buf, self._count,
-                                         self.window)
+            return lane_map(torch.clone, self.goal)
+        return lane_map(goal_current_step_hostsum, self.goal, self._buf,
+                        self._count, self.window)

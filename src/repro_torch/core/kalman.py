@@ -14,7 +14,11 @@ operations (:meth:`reset_lanes`, :meth:`grow`, :meth:`shrink`) recycle,
 add or drop lanes for churning fleets; :meth:`export_lanes` and
 :meth:`import_lanes` page a session's state out to the host and back.
 Bank updates replace the state tensors (no in-place writes), so a
-caller's earlier reference to ``bank.mu`` is never mutated.
+caller's earlier reference to ``bank.mu`` is never mutated.  A bank built
+with ``mesh=`` (a :class:`~repro_torch.launch.mesh.LaneMesh`) holds each
+state vector as :class:`~repro_torch.launch.mesh.LaneShards`, one block a
+shard on its device, and runs its recurrences once a shard; its capacity
+stays a multiple of the mesh size.
 :class:`ScalarKalman` is the straggler monitor's generic filter.
 """
 
@@ -26,7 +30,9 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import (LaneShards, lane_fill, lane_map,
+                                     lane_place, mesh_device, put_lanes,
+                                     take_lanes)
 
 F64 = torch.float64
 
@@ -152,92 +158,123 @@ def fused_fleet_step(mu, sigma, gain, q, obs, prof, miss, mask,
 
 class _LaneBank:
     """Shared lane-pool plumbing: ``_state_names`` lists the ``[S]``
-    float64 state tensors, ``_priors()`` their reset values."""
+    float64 state tensors, ``_priors()`` their reset values.  Each state
+    vector is one tensor on ``device``, or under ``mesh`` a
+    :class:`~repro_torch.launch.mesh.LaneShards`."""
 
     _state_names: tuple = ()
+    mesh = None
 
     def _priors(self) -> tuple:
         raise NotImplementedError
+
+    def _init_home(self, n_streams: int, mesh, device) -> None:
+        """Install ``mesh`` and the fresh state: one tensor on the device,
+        or one block a shard on its device under a mesh."""
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
+        if mesh is not None and n_streams % mesh.size:
+            raise ValueError(
+                f"bank capacity {n_streams} must be a multiple of the "
+                f"lane-mesh size {mesh.size}")
+        for name, prior in zip(self._state_names, self._priors()):
+            setattr(self, name, lane_fill(mesh, self.device, (n_streams,),
+                                          prior, F64))
+        self.n_updates = lane_fill(mesh, self.device, (n_streams,), 0,
+                                   torch.int64)
 
     @property
     def n_streams(self) -> int:
         """Lane capacity S (live + recyclable lanes)."""
         return getattr(self, self._state_names[0]).shape[0]
 
-    def _vec(self, x, dtype=F64) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=dtype, device=self.device)
+    def _vec(self, x, dtype=F64):
+        """An ``[S]`` input as a lane value of this bank: on the device,
+        or split into the mesh's blocks."""
+        if self.mesh is None:
+            return torch.as_tensor(x, dtype=dtype, device=self.device)
+        if isinstance(x, LaneShards):
+            return lane_map(lambda p: p.to(dtype), x)
+        return self.mesh.split(x, dtype)
 
-    def _mask(self, mask) -> torch.Tensor:
+    def _mask(self, mask):
         if mask is None:
-            return torch.ones(self.n_streams, dtype=torch.bool,
-                              device=self.device)
+            return lane_fill(self.mesh, self.device, (self.n_streams,), True,
+                             torch.bool)
         return self._vec(mask, torch.bool)
 
-    def _masked_positive(self, values, mask: torch.Tensor, what: str):
+    def _masked_positive(self, values, mask, what: str):
         """Require strictly positive values on masked-in lanes (checked on
         the host for host input; device tensors are trusted, as a check
         would force a sync) and give masked-out lanes a harmless divisor."""
-        if not isinstance(values, torch.Tensor):
+        if not isinstance(values, (torch.Tensor, LaneShards)):
             v = np.asarray(values, np.float64)
-            if np.any(v[mask.cpu().numpy()] <= 0.0):
+            if np.any(v[np.asarray(mask.cpu())] <= 0.0):
                 raise ValueError(f"{what} must be positive")
-        return torch.where(mask, self._vec(values), 1.0)
-
-    def _lane_index(self, lanes) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(lanes, np.int64),
-                               device=self.device)
+        return lane_map(lambda m, x: torch.where(m, x, 1.0), mask,
+                        self._vec(values))
 
     def export_lanes(self, lanes) -> dict:
         """Snapshot ``lanes``' full filter state as host numpy arrays, one
         ``[len(lanes)]`` entry per ``_state_names`` tensor plus
         ``n_updates`` (the reference's keys): the page-out half of session
-        paging.  One gather on the device and one copy back a tensor;
-        :meth:`import_lanes` restores the snapshot bitwise."""
-        idx = self._lane_index(lanes)
-        return {name: getattr(self, name)[idx].cpu().numpy()
+        paging.  One gather on the device (on each shard that owns some of
+        the lanes) and one copy back a tensor; :meth:`import_lanes`
+        restores the snapshot bitwise."""
+        return {name: take_lanes(getattr(self, name), lanes)
                 for name in self._state_names + ("n_updates",)}
 
     def import_lanes(self, lanes, state: dict) -> None:
         """Restore an :meth:`export_lanes` snapshot into ``lanes``: the
         page-in half of session paging, a same-shape indexed write of
-        each state tensor on the device (bitwise lossless)."""
-        idx = self._lane_index(lanes)
+        each state tensor on the device (bitwise lossless).  A state
+        resharded onto this bank's mesh
+        (:func:`~repro_torch.runtime.elastic.reshard_state`) may be
+        imported into every lane at once."""
         for name in self._state_names + ("n_updates",):
-            t = getattr(self, name).clone()
-            t[idx] = torch.as_tensor(np.asarray(state[name]), dtype=t.dtype,
-                                     device=self.device)
-            setattr(self, name, t)
+            setattr(self, name, put_lanes(getattr(self, name), lanes,
+                                          state[name]))
 
     def reset_lanes(self, lanes) -> None:
         """Reinitialise ``lanes`` (host indices) to the filter priors:
         stream admission into a recycled lane, same ``[S]`` shape."""
-        idx = self._lane_index(lanes)
         for name, prior in zip(self._state_names, self._priors()):
-            state = getattr(self, name).clone()
-            state[idx] = prior
-            setattr(self, name, state)
-        counts = self.n_updates.clone()
-        counts[idx] = 0
-        self.n_updates = counts
+            setattr(self, name, put_lanes(getattr(self, name), lanes, prior))
+        self.n_updates = put_lanes(self.n_updates, lanes, 0)
+
+    def _resize(self, n_streams: int, what: str) -> None:
+        """Capacity ``n_streams``: the state through the host, cut or
+        extended with fresh priors, placed back (under a mesh in its new
+        blocks, so ``n_streams`` must be a multiple of the mesh size)."""
+        if self.mesh is not None and n_streams % self.mesh.size:
+            raise ValueError(
+                f"sharded bank capacity must {what} in multiples of the "
+                f"mesh size {self.mesh.size}; got {n_streams}")
+        keep = min(n_streams, self.n_streams)
+        extra = n_streams - keep
+        for name, prior in zip(self._state_names + ("n_updates",),
+                               self._priors() + (0,)):
+            cur = getattr(self, name)
+            old = np.asarray(cur.cpu())
+            host = np.concatenate([old[:keep],
+                                   np.full(extra, prior, old.dtype)])
+            setattr(self, name, lane_place(self.mesh, self.device, host,
+                                           cur.dtype))
 
     def grow(self, n_streams: int) -> None:
-        """Extend capacity to ``n_streams``; new lanes hold fresh priors."""
-        extra = int(n_streams) - self.n_streams
-        if extra <= 0:
-            return
-        for name, prior in zip(self._state_names, self._priors()):
-            setattr(self, name, torch.cat(
-                [getattr(self, name),
-                 torch.full((extra,), prior, dtype=F64, device=self.device)]))
-        self.n_updates = torch.cat(
-            [self.n_updates,
-             torch.zeros(extra, dtype=torch.int64, device=self.device)])
+        """Extend capacity to ``n_streams``; new lanes hold fresh priors.
+        Under a mesh ``n_streams`` must be a multiple of its size."""
+        if int(n_streams) > self.n_streams:
+            self._resize(int(n_streams), "grow")
 
     def shrink(self, n_streams: int) -> None:
-        """Truncate capacity to the first ``n_streams`` lanes."""
-        s = int(n_streams)
-        for name in self._state_names + ("n_updates",):
-            setattr(self, name, getattr(self, name)[:s].clone())
+        """Truncate capacity to the first ``n_streams`` lanes (under a
+        mesh a multiple of its size)."""
+        if int(n_streams) < self.n_streams:
+            self._resize(int(n_streams), "shrink")
+
+    def _count(self, m) -> None:
+        self.n_updates = lane_map(lambda n, k: n + k, self.n_updates, m)
 
 
 class SlowdownFilterBank(_LaneBank):
@@ -249,18 +286,13 @@ class SlowdownFilterBank(_LaneBank):
                  sigma0: float = 0.1, gain0: float = 0.5,
                  meas_noise: float = 1e-3, process_noise_floor: float = 0.1,
                  alpha: float = 0.3, miss_inflation: float = 0.2,
-                 device=None):
-        self.device = resolve_device(device)
+                 device=None, mesh=None):
         self.mu0, self.sigma0, self.gain0 = mu0, sigma0, gain0
         self.meas_noise = meas_noise
         self.process_noise_floor = process_noise_floor
         self.alpha = alpha
         self.miss_inflation = miss_inflation
-        for name, prior in zip(self._state_names, self._priors()):
-            setattr(self, name, torch.full((n_streams,), prior, dtype=F64,
-                                           device=self.device))
-        self.n_updates = torch.zeros(n_streams, dtype=torch.int64,
-                                     device=self.device)
+        self._init_home(n_streams, mesh, device)
 
     def _priors(self) -> tuple:
         return (self.mu0, self.sigma0, self.gain0, self.process_noise_floor)
@@ -274,7 +306,7 @@ class SlowdownFilterBank(_LaneBank):
 
     def _step_args(self, observed_latency, profiled_latency,
                    deadline_missed, m):
-        miss = torch.zeros_like(m) if deadline_missed is None \
+        miss = lane_map(torch.zeros_like, m) if deadline_missed is None \
             else self._vec(deadline_missed, torch.bool)
         prof = self._masked_positive(profiled_latency, m, "profiled_latency")
         return (self.mu, self.sigma, self.gain, self.process_noise,
@@ -288,15 +320,15 @@ class SlowdownFilterBank(_LaneBank):
         state bit for bit.  Returns the updated ``mu``."""
         m = self._mask(mask)
         (self.mu, self.sigma, self.gain, self.process_noise) = \
-            _slowdown_bank_step(*self._step_args(
+            lane_map(_slowdown_bank_step, *self._step_args(
                 observed_latency, profiled_latency, deadline_missed, m))
-        self.n_updates = self.n_updates + m
+        self._count(m)
         return self.mu
 
     @property
-    def std(self) -> torch.Tensor:
+    def std(self):
         """Per-lane xi standard deviation (sigma floored at 1e-6)."""
-        return torch.clamp_min(self.sigma, 1e-6)
+        return lane_map(lambda x: torch.clamp_min(x, 1e-6), self.sigma)
 
 
 class IdlePowerFilterBank(_LaneBank):
@@ -306,16 +338,11 @@ class IdlePowerFilterBank(_LaneBank):
 
     def __init__(self, n_streams: int, *, phi0: float = 0.3,
                  variance0: float = 0.01, process_noise: float = 1e-4,
-                 meas_noise: float = 1e-3, device=None):
-        self.device = resolve_device(device)
+                 meas_noise: float = 1e-3, device=None, mesh=None):
         self.phi0, self.variance0 = phi0, variance0
         self.process_noise = process_noise
         self.meas_noise = meas_noise
-        for name, prior in zip(self._state_names, self._priors()):
-            setattr(self, name, torch.full((n_streams,), prior, dtype=F64,
-                                           device=self.device))
-        self.n_updates = torch.zeros(n_streams, dtype=torch.int64,
-                                     device=self.device)
+        self._init_home(n_streams, mesh, device)
 
     def _priors(self) -> tuple:
         return (self.phi0, self.variance0)
@@ -334,9 +361,9 @@ class IdlePowerFilterBank(_LaneBank):
     def observe(self, idle_power, active_power, mask=None) -> torch.Tensor:
         """Masked Eq. 8 update for all S lanes; returns the updated phi."""
         m = self._mask(mask)
-        self.phi, self.variance = _idle_bank_step(
-            *self._step_args(idle_power, active_power, m))
-        self.n_updates = self.n_updates + m
+        self.phi, self.variance = lane_map(
+            _idle_bank_step, *self._step_args(idle_power, active_power, m))
+        self._count(m)
         return self.phi
 
 
@@ -346,19 +373,25 @@ def observe_fleet(slow: SlowdownFilterBank, idle: IdlePowerFilterBank,
                   mask=None) -> None:
     """One tick's whole feedback step: the masked Eq. 6 and Eq. 8 updates
     of both banks (per lane identical to ``slow.observe`` then
-    ``idle.observe``).  ``[S]`` inputs may be numpy arrays or tensors."""
+    ``idle.observe``).  ``[S]`` inputs may be numpy arrays or tensors.
+    Banks on a lane mesh run the step once a shard; both banks must be on
+    the same mesh (or both on one device)."""
+    if slow.mesh != idle.mesh:
+        raise ValueError("observe_fleet needs both banks on the same mesh "
+                         "(or both unsharded)")
     if slow.device != idle.device:
         raise ValueError("observe_fleet needs both banks on one device")
     m = slow._mask(mask)
     phi, var, idle_w, active, _, s_noise, v_noise = idle._step_args(
         idle_power, active_power, m)
     (slow.mu, slow.sigma, slow.gain, slow.process_noise, idle.phi,
-     idle.variance) = fused_fleet_step(
+     idle.variance) = lane_map(
+        fused_fleet_step,
         *slow._step_args(observed_latency, profiled_latency,
                          deadline_missed, m),
         phi, var, idle_w, active, s_noise, v_noise)
-    slow.n_updates = slow.n_updates + m
-    idle.n_updates = idle.n_updates + m
+    slow._count(m)
+    idle._count(m)
 
 
 @dataclasses.dataclass

@@ -97,6 +97,11 @@ def build(names) -> dict[str, BuildResult]:
     return results
 
 
+def loaded() -> tuple[str, ...]:
+    """The kernels whose libraries this process has loaded, in order."""
+    return tuple(_LOADED)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     lib = _LOADED.get(name)

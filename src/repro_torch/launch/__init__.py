@@ -1,2 +1,3 @@
 """Launchers (port of ``repro.launch``): training and serving on one
-device."""
+device, the lane mesh of the decision plane (``mesh``) and its dry run
+(``fleet_dryrun``)."""

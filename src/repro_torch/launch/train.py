@@ -6,9 +6,12 @@
 
 Without ``--reduced`` the full config trains at its published widths and
 depth, in its dtype, on one card (``alert-anytime-120m`` fits; most of the
-zoo does not: the reference shards them over a pod, which the port has
-no mesh for yet).  ``--reduced`` trains the same-family shrunken config
-in float32.  The loop is supervised (:class:`~repro_torch.runtime.ft.
+zoo does not: the reference shards them over a pod, and the port's
+(data, model) sharding rules are not ported yet).  ``--model-parallel``
+resolves through :func:`~repro_torch.launch.mesh.make_host_mesh` as the
+reference's does, and the launcher refuses a grid over more than one
+device.  ``--reduced`` trains the same-family shrunken config in
+float32.  The loop is supervised (:class:`~repro_torch.runtime.ft.
 Supervisor`): atomic checkpoints every ``--ckpt-every`` steps,
 deterministic restart-safe data, optional crash injection, and a
 straggler monitor on the step times.
@@ -28,6 +31,7 @@ from repro_torch import configs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.registry import build_model
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 from repro_torch.runtime.ft import Supervisor
@@ -158,7 +162,9 @@ def main(argv=None) -> TrainRun:
     ap.add_argument("--anytime", action="store_true",
                     help="joint anytime training (needs nest_levels>1)")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="only 1: the port trains on one device")
+                    help="model-parallel degree of the (data, model) grid; "
+                    "it shrinks until it divides the device count, and the "
+                    "grid must resolve to one device")
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
                                                        "repro_torch_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=50)
@@ -168,9 +174,14 @@ def main(argv=None) -> TrainRun:
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        ap.error("--model-parallel must be 1: the port has no device mesh "
-                 "yet (ROADMAP A5, the launch tooling's mesh item)")
+    # The grid spans every visible card, or the one --device names.
+    mesh = make_host_mesh(args.model_parallel, devices=None
+                          if args.device is None else [args.device])
+    if mesh.size > 1:
+        ap.error(f"the (data, model) grid resolved to {mesh.shape} over "
+                 f"{mesh.size} devices: the port trains on one device until "
+                 f"the data-plane slice (ROADMAP A5) ports the sharding "
+                 f"rules; pass --device to train on one")
     cfg = configs.get_reduced(args.arch) if args.reduced \
         else configs.get_config(args.arch)
     if args.reduced:
@@ -178,6 +189,7 @@ def main(argv=None) -> TrainRun:
     if args.vocab:
         cfg = cfg.replace(vocab=args.vocab)
     print(f"[train] arch={cfg.name} params~{cfg.param_count() / 1e6:.1f}M "
+          f"mesh={dict(zip(mesh.axis_names, mesh.shape))} "
           f"device={resolve_device(args.device)}")
     run = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
                 lr=args.lr, anytime=args.anytime,

@@ -30,6 +30,7 @@ from repro_torch.core.kalman import (IdlePowerFilterBank, SlowdownFilterBank,
 from repro_torch.core.power import PowerModel
 from repro_torch.core.profiles import (Candidate, ProfileTable,
                                       extrapolate_power_buckets)
+from repro_torch.launch.mesh import mesh_device
 from repro_torch.serving.engine import ServeEngine
 
 
@@ -158,7 +159,12 @@ class FleetAlertServer:
     and goal type (Eq. 4 and Eq. 5 tenants share the call through
     per-lane ``goal_kind`` codes).  :meth:`admit` leases a free lane
     (doubling capacity when none is free) and :meth:`retire` releases
-    one.  Filter, goal and scoring state live on the engine's device."""
+    one.  Filter, goal and scoring state live on the engine's device.
+
+    ``mesh=`` (a :class:`~repro_torch.launch.mesh.LaneMesh` whose home is
+    the engine's device) shards the scoring pass and all bank state over
+    its shards: the capacity is rounded up to a multiple of the mesh size
+    (the spare lanes start dead) and always grows in such multiples."""
 
     def __init__(self, engine: ServeEngine, params,
                  level_accuracies: list[float], goal: Goal,
@@ -168,31 +174,37 @@ class FleetAlertServer:
                  profile_iters: int = 3, q_fail: float = 0.0,
                  prompt_len: int = 8, gen_tokens: int = 4,
                  accuracy_window: int = 10,
-                 start_active: bool = True):
+                 start_active: bool = True, mesh=None):
         self.engine = engine
         self.params = params
         self.goal = goal
         self.gen_tokens = gen_tokens
-        self.device = engine.device
+        self.mesh = mesh
+        self.device = mesh_device(mesh, engine.device)
         pm = power_model or PowerModel()
         self.power_model = pm
         self.table = profile_serve_table(
             engine, params, level_accuracies, pm,
             n_power_buckets=n_power_buckets, profile_iters=profile_iters,
             q_fail=q_fail, prompt_len=prompt_len, gen_tokens=gen_tokens)
+        pad = 0 if mesh is None else (-n_streams) % mesh.size
+        cap = n_streams + pad
         self.scoring = BatchedAlertEngine(self.table, goal,
-                                          device=self.device)
-        self.slowdown = SlowdownFilterBank(n_streams, device=self.device)
-        self.idle_power = IdlePowerFilterBank(n_streams, device=self.device)
+                                          device=self.device, mesh=mesh)
+        self.slowdown = SlowdownFilterBank(cap, device=self.device,
+                                           mesh=mesh)
+        self.idle_power = IdlePowerFilterBank(cap, device=self.device,
+                                              mesh=mesh)
         self.accuracy_window = accuracy_window
         self._goal_bank: WindowedGoalBank | None = None
-        self.active = np.full(n_streams, bool(start_active))
+        self.active = np.concatenate(
+            [np.full(n_streams, bool(start_active)), np.zeros(pad, bool)])
         # Quarantined lanes are never leased again until revived.
-        self._dead = np.zeros(n_streams, bool)
-        self.goal_kinds = np.full(n_streams, goal_codes([goal])[0],
+        self._dead = np.zeros(cap, bool)
+        self.goal_kinds = np.full(cap, goal_codes([goal])[0],
                                   dtype=np.int64)
         # Per-lane Constraints overrides installed by admit().
-        self.lane_constraints: list[Constraints | None] = [None] * n_streams
+        self.lane_constraints: list[Constraints | None] = [None] * cap
         self.history: list[list[ServedInput | None]] = []
 
     @property
@@ -212,6 +224,10 @@ class FleetAlertServer:
         free = np.nonzero(~self.active & ~self._dead)[0]
         if free.size == 0:
             new_cap = max(2 * self.n_streams, 1)
+            if self.mesh is not None:
+                # Doubling keeps a multiple of the mesh size; the max
+                # covers a capacity of 0.
+                new_cap = max(new_cap, self.mesh.size)
             lane = self.n_streams
             extra = new_cap - lane
             self.slowdown.grow(new_cap)
@@ -270,7 +286,8 @@ class FleetAlertServer:
         if self._goal_bank is None:
             self._goal_bank = WindowedGoalBank(goals, self.n_streams,
                                                self.accuracy_window,
-                                               device=self.device)
+                                               device=self.device,
+                                               mesh=self.mesh)
         else:
             self._goal_bank.set_goals(goals)
         return self._goal_bank.current_goal()

@@ -40,7 +40,7 @@ from repro_torch.core.controller import Constraints, Goal
 from repro_torch.core.kalman import (IdlePowerFilterBank, SlowdownFilterBank,
                                      observe_fleet)
 from repro_torch.core.profiles import ProfileTable
-from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import mesh_device
 
 F64 = torch.float64
 
@@ -649,7 +649,7 @@ class FleetSim:
                     dnn_control: bool = True, overhead: float = 0.0,
                     paper_faithful_energy: bool = True,
                     scheme_name: str = "alert",
-                    faults=None) -> FleetResult:
+                    faults=None, mesh=None) -> FleetResult:
         """Advance the whole fleet, one masked engine call per tick.
 
         ``goals``/``constraints`` are per stream: a minimize-energy
@@ -661,6 +661,14 @@ class FleetSim:
         ``power_control=False`` runs every pick at the system default
         (the top cap), ``dnn_control=False`` keeps only the fastest
         traditional DNN.
+
+        ``mesh`` (a :class:`~repro_torch.launch.mesh.LaneMesh`, whose home
+        is the fleet's device) shards the decision path: the engine
+        launches its kernel once a shard and the filter banks hold one
+        block a shard.  The lane pool is padded to a multiple of the mesh
+        size with always-dead lanes; the goal bank stays unsharded on the
+        home device, as the reference keeps it on the host.  Results are
+        bitwise the unsharded run's.
 
         ``faults`` is any object with ``n_lanes`` (= ``n_streams``),
         ``dead_at(t)`` ([S] bool) and ``slow_at(t)`` ([S] factors), read at
@@ -682,7 +690,7 @@ class FleetSim:
                 raise ValueError(f"{g} stream needs accuracy_goal")
             if g is Goal.MAXIMIZE_ACCURACY and c.energy_goal is None:
                 raise ValueError(f"{g} stream needs energy_goal")
-        dev = resolve_device(self.device)
+        dev = mesh_device(mesh, self.device)
         idx = list(range(len(table.candidates)))
         if not anytime:
             idx = self._trad_idx
@@ -695,12 +703,18 @@ class FleetSim:
         sub = table.subset(idx)
         engine = BatchedAlertEngine(
             sub, None, overhead=overhead,
-            paper_faithful_energy=paper_faithful_energy, device=dev)
+            paper_faithful_energy=paper_faithful_energy, device=dev,
+            mesh=mesh)
         self.engine = engine
         s_n, t_n = self.n_streams, self.n_ticks
+        # Under a mesh S must be a multiple of its size: the pool gains
+        # `pad` always-dead lanes (sanitised by the select, masked out of
+        # the feedback, so they cannot perturb a live lane).
+        pad = 0 if mesh is None else (-s_n) % mesh.size
+        s_all = s_n + pad
         gk = goal_codes(goals)                                      # [S]
-        slow = SlowdownFilterBank(s_n, device=dev)
-        idle = IdlePowerFilterBank(s_n, device=dev)
+        slow = SlowdownFilterBank(s_all, device=dev, mesh=mesh)
+        idle = IdlePowerFilterBank(s_all, device=dev, mesh=mesh)
         has_q = np.asarray([c.accuracy_goal is not None
                             for c in constraints])
         q0 = np.asarray([c.accuracy_goal if c.accuracy_goal is not None
@@ -710,7 +724,21 @@ class FleetSim:
         e_base = np.asarray([c.energy_goal if c.energy_goal is not None
                              else 0.0 for c in constraints])
         dls = np.asarray([c.deadline for c in constraints])
-        goal_bank = WindowedGoalBank(q0, s_n, device=dev) \
+        d_scale, act_grid = self.deadline_scale, self.active
+        scale_mat = self.xi * self.lam                              # [S, T]
+        if pad:
+            gk = np.concatenate([gk, np.zeros(pad, dtype=np.int64)])
+            q0 = np.concatenate([q0, np.zeros(pad)])
+            e_base = np.concatenate([e_base, np.zeros(pad)])
+            dls = np.concatenate([dls, np.ones(pad)])
+            ones = np.ones((pad, t_n))
+            d_scale = np.vstack([d_scale, ones])
+            scale_mat = np.vstack([scale_mat, ones])
+            act_grid = np.vstack([act_grid,
+                                  np.zeros((pad, t_n), dtype=bool)])
+        # The goal bank stays whole on the home device, as the reference
+        # keeps it on the host under a mesh.
+        goal_bank = WindowedGoalBank(q0, s_all, device=dev) \
             if has_q.any() else None
         # System default power: race-to-idle, the top cap.
         full_power_j = len(table.power_caps) - 1
@@ -719,20 +747,22 @@ class FleetSim:
 
         # E_goal = P_goal * T_goal (Section 3.1): budgets scale with the
         # per-input time allotment.
-        bmat = e_base[:, None] * self.deadline_scale                # [S, T]
+        bmat = e_base[:, None] * d_scale                            # [S, T]
         # The tick loop reads and writes one column a tick: keep the grids
         # tick-major ([T, S]) so each column is contiguous.
-        d_cols = np.ascontiguousarray((dls[:, None] * self.deadline_scale).T)
+        d_cols = np.ascontiguousarray((dls[:, None] * d_scale).T)
         b_cols = np.ascontiguousarray(bmat.T)
-        scale_cols = np.ascontiguousarray((self.xi * self.lam).T)
-        act_cols = np.ascontiguousarray(self.active.T)
-        o_lat, o_acc, o_en = (np.zeros((t_n, s_n)) for _ in range(3))
-        o_miss = np.zeros((t_n, s_n), bool)
+        scale_cols = np.ascontiguousarray(scale_mat.T)
+        act_cols = np.ascontiguousarray(act_grid.T)
+        o_lat, o_acc, o_en = (np.zeros((t_n, s_all)) for _ in range(3))
+        o_miss = np.zeros((t_n, s_all), bool)
 
         for n in range(t_n):
             act = act_cols[n]                                       # [S]
             if faults is not None:
                 dead = faults.dead_at(float(n))                     # [S]
+                if pad:
+                    dead = np.concatenate([dead, np.zeros(pad, bool)])
                 lost = act & dead
                 # The in-flight input died with its device: a miss with
                 # no completion (zero accuracy and energy).
@@ -748,12 +778,15 @@ class FleetSim:
                                   predictions=False)
             i_local = batch.model_index                             # [S]
             j_pick = batch.power_index                              # [S]
-            j_act = np.full(s_n, full_power_j) if not power_control \
+            j_act = np.full(s_all, full_power_j) if not power_control \
                 else j_pick
             i_glob = idx_arr[i_local]
             scale = scale_cols[n]
             if faults is not None:
-                scale = scale * faults.slow_at(float(n))
+                fmul = faults.slow_at(float(n))
+                if pad:
+                    fmul = np.concatenate([fmul, np.ones(pad)])
+                scale = scale * fmul
 
             d = deliver_tick(table, st, i_glob, j_act, scale, dvec,
                              self.phi_true, self._is_anytime,
@@ -770,10 +803,12 @@ class FleetSim:
                 active_power=sub.run_power[i_local, j_pick], mask=act)
             if goal_bank is not None:
                 goal_bank.record(d.accuracy, mask=act)
+        o_en, o_acc, o_lat, o_miss = (o[:, :s_n]
+                                      for o in (o_en, o_acc, o_lat, o_miss))
         return FleetResult(
             np.ascontiguousarray(o_en.T), np.ascontiguousarray(o_acc.T),
             np.ascontiguousarray(o_lat.T), np.ascontiguousarray(o_miss.T),
-            scheme_name, budget=bmat if has_b.any() else None,
+            scheme_name, budget=bmat[:s_n] if has_b.any() else None,
             arrivals=self.arrivals, lengths=self.lengths,
             active=self.active, has_budget=has_b)
 
@@ -782,7 +817,9 @@ def run_fleet(table: ProfileTable, specs: Sequence[StreamSpec], *,
               phi_true: float = 0.25, device=None,
               **kwargs) -> FleetResult:
     """Build a :class:`FleetSim` from ``specs`` and run it: one masked
-    engine call per tick, on ``device`` (default the card)."""
+    engine call per tick, on ``device`` (default the card).  Pass
+    ``mesh=`` (:func:`~repro_torch.launch.mesh.make_lane_mesh`) to run
+    the decision path lane-sharded; the results are bitwise the same."""
     fleet = FleetSim.from_specs(table, specs, phi_true=phi_true,
                                 device=device)
     return fleet.run_specs(specs, **kwargs)

@@ -52,8 +52,9 @@ from repro_torch.core.batched import (BatchedAlertEngine, WindowedGoalBank,
 from repro_torch.core.kalman import (IdlePowerFilterBank, SlowdownFilterBank,
                                      observe_fleet)
 from repro_torch.core.profiles import ProfileTable
-from repro_torch.device import resolve_device
 from repro_torch.kernels import alert_select as select_kernel
+from repro_torch.launch.mesh import lane_pspec, mesh_device
+from repro_torch.runtime.elastic import reshard_state
 from repro_torch.runtime.ft import InjectedFailure
 from repro_torch.serving.batcher import DeadlineBatcher
 from repro_torch.serving.sim import TraceResult, deliver_tick
@@ -251,6 +252,13 @@ class SessionGateway:
     ``obs`` takes a :class:`~repro_torch.obs.FlightRecorder`: spans,
     metrics, events and the telemetry ring, a pure observer (every result
     is bitwise the same with or without it).
+
+    ``mesh=`` (a :class:`~repro_torch.launch.mesh.LaneMesh` whose home is
+    ``device``; ``n_lanes`` a multiple of its size) shards the select and
+    the filter banks over its shards; the goal window stays whole on the
+    home device, as the reference keeps it on the host.  A checkpoint holds
+    whole arrays, so a run killed under one mesh resumes under another
+    (or none), bitwise.
     """
 
     def __init__(self, table: ProfileTable, n_lanes: int, *,
@@ -258,9 +266,11 @@ class SessionGateway:
                  tick: float | None = None,
                  max_queue: int | None = None,
                  min_feasible_latency: float | None = None,
-                 accuracy_window: int = 10, device=None, obs=None):
+                 accuracy_window: int = 10, device=None, obs=None,
+                 mesh=None):
         self.table = table
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
         self.obs = obs
         self._ob = _resolve_obs(obs)
         self.n_lanes = int(n_lanes)
@@ -271,9 +281,11 @@ class SessionGateway:
             if min_feasible_latency is None else float(min_feasible_latency)
         self.accuracy_window = int(accuracy_window)
         self.engine = BatchedAlertEngine(table, None, overhead=overhead,
-                                         device=self.device)
-        self.slow = SlowdownFilterBank(self.n_lanes, device=self.device)
-        self.idle = IdlePowerFilterBank(self.n_lanes, device=self.device)
+                                         device=self.device, mesh=mesh)
+        self.slow = SlowdownFilterBank(self.n_lanes, device=self.device,
+                                       mesh=mesh)
+        self.idle = IdlePowerFilterBank(self.n_lanes, device=self.device,
+                                        mesh=mesh)
         self.goal_bank = WindowedGoalBank(
             np.zeros(self.n_lanes), self.n_lanes, accuracy_window,
             device=self.device)
@@ -718,7 +730,10 @@ class SessionGateway:
 
     def _load_checkpoint(self, rs: _RunState, directory: str) -> None:
         """Overwrite the fresh ``rs``, lane pool and banks with the
-        snapshot under ``directory``."""
+        snapshot under ``directory``.  Under a lane mesh the restored bank
+        state is resharded onto this gateway's mesh first
+        (:func:`~repro_torch.runtime.elastic.reshard_state`), whatever
+        mesh the checkpoint was written under."""
         tree, _step = ckpt_io.restore_tree(directory)
         meta = tree["meta"]
         if int(meta["n_requests"]) != len(rs.requests):
@@ -757,8 +772,14 @@ class SessionGateway:
         self._lane_of = {int(s): int(l)
                          for l, s in enumerate(self._resident) if s >= 0}
         all_lanes = np.arange(self.n_lanes)
-        self.slow.import_lanes(all_lanes, tree["slow"])
-        self.idle.import_lanes(all_lanes, tree["idle"])
+        slow_state, idle_state = tree["slow"], tree["idle"]
+        if self.mesh is not None:
+            spec = lane_pspec(self.mesh)
+            slow_state, idle_state = (
+                reshard_state(st, self.mesh, lambda path, leaf: spec)
+                for st in (slow_state, idle_state))
+        self.slow.import_lanes(all_lanes, slow_state)
+        self.idle.import_lanes(all_lanes, idle_state)
         self.goal_bank.import_lanes(all_lanes, tree["goal"])
         self._store = {}
         for k, sid in enumerate(tree["store"]["sids"].tolist()):

@@ -64,8 +64,8 @@ from repro_torch.core.batched import (BatchedAlertEngine, _goal_record_step,
 from repro_torch.core.kalman import (IdlePowerFilterBank, SlowdownFilterBank,
                                      fused_fleet_step)
 from repro_torch.core.profiles import ProfileTable
-from repro_torch.device import resolve_device
 from repro_torch.kernels import alert_select as select_kernel
+from repro_torch.launch.mesh import mesh_device
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.ring import round_aggregates
 from repro_torch.serving.batcher import DeadlineBatcher
@@ -207,6 +207,15 @@ class MegatickGateway:
     eagerly there (the CPU always does).  ``obs`` takes a
     :class:`~repro_torch.obs.FlightRecorder` (spans, metrics and the
     telemetry ring, whose sums the round body computes; a pure observer).
+
+    ``mesh=`` (a :class:`~repro_torch.launch.mesh.LaneMesh` whose home is
+    ``device``; ``n_lanes`` a multiple of its size) launches the round's
+    select once a shard on its block of lanes: the chunk's graph then
+    holds ``mesh.size`` ``alert_select`` nodes a round.  Session state
+    stays whole on the home device (the reference keeps it unsharded
+    too).  A graph is captured on one device, so with ``graphs=True``
+    every shard must be on the home device; a mesh over several devices
+    runs its chunks eagerly (``graphs=False``).
     """
 
     def __init__(self, table: ProfileTable, n_lanes: int, *,
@@ -215,10 +224,20 @@ class MegatickGateway:
                  max_queue: int | None = None,
                  min_feasible_latency: float | None = None,
                  accuracy_window: int = 10, chunk: int = 128, obs=None,
-                 device=None, graphs: bool = True):
+                 device=None, graphs: bool = True, mesh=None):
         self.table = table
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
         self.graphs = bool(graphs) and self.device.type == "cuda"
+        if mesh is not None:
+            if int(n_lanes) % mesh.size:
+                raise ValueError(
+                    f"lane-sharded megatick needs n_lanes divisible by the "
+                    f"mesh size ({mesh.size}); got {n_lanes}")
+            if self.graphs and any(d != self.device for d in mesh.devices):
+                raise ValueError(
+                    f"a chunk's CUDA graph is captured on one device, and "
+                    f"{mesh} spans several: pass graphs=False")
         self.obs = obs
         self._ob = _resolve_obs(obs)
         # The phase timers accumulate across runs even without a recorder.
@@ -234,7 +253,7 @@ class MegatickGateway:
         self.accuracy_window = int(accuracy_window)
         self.chunk = int(chunk)
         self.engine = BatchedAlertEngine(table, None, overhead=overhead,
-                                         device=self.device)
+                                         device=self.device, mesh=mesh)
         self._select = self.engine.select_step_impl()
         st = table.staircase_tensors()
         groups = table.anytime_groups()

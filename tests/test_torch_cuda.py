@@ -1702,3 +1702,85 @@ def test_kill_and_resume_on_the_card_is_bitwise(cuda_device):
     from chip_smoke import train_resume
 
     assert train_resume(cuda_device)["bitwise"]
+
+
+# --------------------------------------------------------------------- #
+# The lane-sharded decision plane on one card                            #
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("lo,hi", [(0, 1025), (1025, 2050), (3, 1000),
+                                   (4097, 4101)])
+def test_alert_select_on_offset_views(cuda_device, lo, hi):
+    """A block of each lane vector (a view with a storage offset, at odd
+    offsets too) launches once, bitwise a contiguous copy's result and the
+    plain version's."""
+    eng = _engine(cuda_device)
+    args = fleet_inputs(eng.table, 4101, seed=lo, device=cuda_device)
+    kw = _consts(eng)
+    views = [x[lo:hi] for x in args]
+    assert views[0].storage_offset() == lo
+    before = ks.alert_select.launches
+    got = ks.alert_select_packed(*views, **kw)
+    assert ks.alert_select.launches == before + 1
+    want = ks.alert_select_packed(*(x.clone() for x in views), **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    plain = ks.alert_select_plain(*views, **kw)
+    for a, b in zip(ks.unpack(*got), plain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shards", [1, 4, 8])
+def test_sharded_engine_launches_once_a_shard(cuda_device, shards):
+    """A mesh of shards on the one card: one launch a shard a select,
+    bitwise the unsharded engine on the card and the CPU's."""
+    from repro_torch.launch.mesh import make_lane_mesh
+
+    s = 8 * 1031
+    rng = np.random.default_rng(shards)
+    table = synthetic_table(0)
+    host = dict(mu=rng.uniform(0.5, 3.0, s), sigma=rng.uniform(0.01, 0.5, s),
+                phi=rng.uniform(0.05, 0.8, s),
+                deadline=rng.uniform(0.1, 3.0, s)
+                * float(np.median(table.latency)))
+    kw = dict(accuracy_goal=rng.uniform(0.2, 1.1, s),
+              energy_goal=rng.uniform(0.0, 50.0, s),
+              goal_kind=rng.integers(0, 2, s), active=rng.random(s) < 0.9)
+    mesh = make_lane_mesh(shards, device=cuda_device)
+    eng = BatchedAlertEngine(table, None, overhead=0.001, mesh=mesh)
+    before = ks.alert_select.launches
+    got = eng.select(*host.values(), **kw)
+    assert ks.alert_select.launches == before + shards
+    for dev in ("cuda", "cpu"):
+        want = BatchedAlertEngine(table, None, overhead=0.001,
+                                  device=dev).select(*host.values(), **kw)
+        for f in ("model_index", "power_index", "predicted_latency",
+                  "predicted_accuracy", "predicted_energy", "feasible",
+                  "relaxed_code"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
+def test_sharded_banks_on_card_equal_cpu(cuda_device):
+    from repro_torch.core.kalman import (IdlePowerFilterBank,
+                                         SlowdownFilterBank, observe_fleet)
+    from repro_torch.launch.mesh import make_lane_mesh
+
+    s = 4096
+    rng = np.random.default_rng(0)
+    mesh = make_lane_mesh(4, device=cuda_device)
+    card = SlowdownFilterBank(s, mesh=mesh), IdlePowerFilterBank(s, mesh=mesh)
+    cpu = (SlowdownFilterBank(s, device="cpu"),
+           IdlePowerFilterBank(s, device="cpu"))
+    for t in range(5):
+        obs, prof = rng.uniform(0.01, 1.0, s), rng.uniform(0.01, 1.0, s)
+        miss, m = rng.random(s) < 0.2, rng.random(s) < 0.9
+        ip, ap = rng.uniform(10, 50, s), rng.uniform(60, 200, s)
+        for slow, idle in (card, cpu):
+            observe_fleet(slow, idle, obs, prof, deadline_missed=miss,
+                          idle_power=ip, active_power=ap, mask=m)
+            if t == 2:
+                slow.reset_lanes([3, 1500, 4095])
+    assert [p.device for p in card[0].mu.parts] == [mesh.home] * 4
+    for a, b in zip(card, cpu):
+        for name in a._state_names + ("n_updates",):
+            assert torch.equal(getattr(a, name).cpu(), getattr(b, name))

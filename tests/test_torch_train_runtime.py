@@ -173,10 +173,28 @@ def test_launcher_options(tmp_path, flags):
         assert run.state.compress_state is not None
 
 
-def test_launcher_refuses_model_parallel(capsys):
+def test_launcher_refuses_model_parallel(monkeypatch, capsys):
+    """A (data, model) grid that resolves to more than one device is
+    refused, naming the data-plane slice (here a two-device grid)."""
+    from repro_torch.launch.mesh import HostMesh
+
+    two = HostMesh([torch.device("cpu")] * 2, (1, 2))
+    monkeypatch.setattr(launch, "make_host_mesh",
+                        lambda mp, devices: two)
     with pytest.raises(SystemExit):
         launch.main(["--model-parallel", "2", "--device", "cpu"])
     assert "ROADMAP A5" in capsys.readouterr().err
+
+
+def test_launcher_model_parallel_shrinks_on_one_device(tmp_path, capsys):
+    """``--model-parallel 2`` on one device shrinks to 1 and trains, as
+    the reference's ``make_host_mesh`` does, printing its mesh line."""
+    run = launch.main(["--arch", "alert-anytime-120m", "--reduced",
+                       "--batch", "2", "--seq", "8", "--steps", "1",
+                       "--device", "cpu", "--model-parallel", "2",
+                       "--ckpt-dir", str(tmp_path / "mp")])
+    assert run.end == 1 and np.isfinite(run.losses[0])
+    assert "mesh={'data': 1, 'model': 1}" in capsys.readouterr().out
 
 
 # --------------------------------------------------------------------- #
