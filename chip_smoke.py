@@ -363,13 +363,32 @@ Phases (each prints its own lines; any mismatch exits nonzero):
     ``bench_megatick`` on 4 shards bitwise, 4 ``alert_select`` nodes a
     round in its graph; (f) ``run_fleet_dryrun`` over ``make_lane_mesh()``
     and over 8 shards on the card, parity and nothing built under churn.
-38. the last lines: one JSON object per kernel (``launches``: the sum
+38. the data plane's (data, model) grid: (a) every arch at its full
+    config with its AdamW state on ``meta`` (nothing placed), the
+    sharding rules on ``make_production_mesh(device="meta")`` and its
+    2x16x16 twin: every spec of rank at most its leaf's, each arch's
+    per-device bytes (``shard_shape``), each cell's ``cell_supported``
+    and projected memory term; (b) ``alert-anytime-120m`` whole, bf16,
+    ``GRID_STEPS`` = 3 steps of phase 33's data and loss on a (2, 2)
+    grid of shards on the card (``make_host_mesh(2, devices=[dev] *
+    4)``), the loss and every leaf bitwise the unsharded
+    ``microbatches=2`` step after each step (deterministic algorithms),
+    each shard's bytes and the step times; (c) that run checkpointed
+    after step 2 and resumed on ``remesh``'s (2, 1) grid and on no
+    grid, step 3 bitwise; (d) the grid-trained weights joined on the
+    card: graphed prefill logits against ``train_logits`` as phase 33
+    (b), then 4 ticks of ``FleetAlertServer`` (``nested_matmul``,
+    ``flash_attention``, ``decode_attention``, ``alert_select``); (e)
+    the reference's mini dry run: reduced ``gemma3-1b``,
+    ``jamba-v0.1-52b`` and ``rwkv6-3b`` on a (4, 2) grid, losses finite
+    and not rising, bitwise the unsharded ``microbatches=4`` step.
+39. the last lines: one JSON object per kernel (``launches``: the sum
     over every ``serve`` run, graphed and eager, of phases 4, 7, 10, 13,
     15-17, 19, 20, 22, 23 and 27, over phase 26's two runs, over the
     fleet and gateway runs of phases 29-32, over phase 33's serve run
     and example, phase 34's serve run, the launcher, the examples and
-    phase 37's runs; ``launches_by_run`` by phase), the ``nvidia-smi``
-    line, and ``{"ok": true, "device": {...}}``.
+    the runs of phases 37 and 38; ``launches_by_run`` by phase), the
+    ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds.
 """
@@ -5807,6 +5826,364 @@ def training_phase(device, full_cfg=None, steps: int = TRAIN_STEPS,
 
 
 # --------------------------------------------------------------------- #
+# phase 38: the data plane's (data, model) grid                         #
+# --------------------------------------------------------------------- #
+# (b)-(c): the full-width anytime LM on a (2, 2) grid of shards on the
+# card, GRID_STEPS steps of phase 33's data (B=8 x S=1024); (e): the
+# reference's mini dry run (tests/test_distributed.py) on a (4, 2) grid.
+GRID_STEPS = 3
+GRID_MP, GRID_SHARDS = 2, 4
+GRID_ARCHS = ("gemma3-1b", "jamba-v0.1-52b", "rwkv6-3b")
+GRID_DRYRUN_MP, GRID_DRYRUN_SHARDS, GRID_DRYRUN_BATCH = 2, 8, (8, 32)
+
+
+def grid_state_bytes(state, mesh) -> list[int]:
+    """Each grid coordinate's bytes of the state's blocks, in the grid's
+    row-major order."""
+    import numpy as np
+
+    from repro_torch.tree import tree_leaves
+
+    return [sum(leaf.parts[idx].numel() * leaf.parts[idx].element_size()
+                for leaf in tree_leaves(state))
+            for idx in np.ndindex(mesh.shape)]
+
+
+def grid_rules() -> dict:
+    """Phase 38 (a): every arch of ``ALL_IDS`` at its full config with its
+    AdamW state on ``meta`` (nothing placed), ``param_shardings`` on
+    ``make_production_mesh(device="meta")`` and ``multi_pod=True``: every
+    spec of rank at most its leaf's; the per-device bytes of params plus
+    AdamW state reckoned by ``shard_shape``; each (arch, shape) cell's
+    ``cell_supported`` and ``projected_memory_bytes`` memory term at 3.35
+    TB/s."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.configs.shapes import SHAPES, cell_supported
+    from repro_torch.launch import roofline
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import make_production_mesh, shard_shape
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.tree import tree_leaves, tree_map_with_path
+
+    meshes = {"16x16": make_production_mesh(device="meta"),
+              "2x16x16": make_production_mesh(multi_pod=True,
+                                              device="meta")}
+    out = {}
+    for arch in configs.ALL_IDS:
+        cfg = configs.get_config(arch)
+        params = build_model(cfg).init(device="meta")
+        state = (params, AdamW().init(params))
+        rec = out[arch] = {"params": sum(p.numel()
+                                         for p in tree_leaves(params))}
+        leaves = tree_leaves(state)
+        if any(x.device.type != "meta" for x in leaves):
+            raise SmokeFailure(f"{arch}: abstract state allocated a leaf")
+        for name, mesh in meshes.items():
+            places = tree_leaves(sh.param_shardings(cfg, mesh, state))
+            bad = []
+
+            def rank_ok(path, leaf):
+                if len(sh.spec_for(cfg, path, leaf)) > leaf.dim():
+                    bad.append("/".join(path))
+
+            tree_map_with_path(rank_ok, state)
+            if bad:
+                raise SmokeFailure(f"{arch} on {name}: specs of rank past "
+                                   f"their leaf's: {bad}")
+            rec[f"bytes_per_device_{name}"] = int(sum(
+                int(np.prod(shard_shape(p.spec, mesh, x.shape)))
+                * x.element_size() for p, x in zip(places, leaves)))
+            rec[f"sharded_leaves_{name}"] = sum(
+                any(e is not None for e in p.spec) for p in places)
+        cells = {}
+        for sname, shape in SHAPES.items():
+            ok, _ = cell_supported(cfg, shape)
+            cells[sname] = {"supported": ok, "memory_ms": None if not ok
+                            else roofline.projected_memory_bytes(
+                                cfg, shape, 256) / roofline.HBM_BW * 1e3}
+        rec["cells"] = cells
+        say(f"  {arch}: {rec['params']} params; params + AdamW state a "
+            f"device {rec['bytes_per_device_16x16'] / 1e9:.4f} GB on "
+            f"16x16, {rec['bytes_per_device_2x16x16'] / 1e9:.4f} GB on "
+            f"2x16x16 (shard_shape); projected memory term at 3.35 TB/s "
+            f"on 256: " + ", ".join(
+                f"{s} {c['memory_ms']:.4f} ms" if c["supported"]
+                else f"{s} skipped" for s, c in cells.items()))
+    return out
+
+
+def grid_train(device, cfg=None, steps: int = GRID_STEPS,
+               batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ) -> dict:
+    """Phase 38 (b)-(c): ``cfg`` (default ``alert-anytime-120m`` whole,
+    bf16) with weights from a seed-0 generator on ``device``, ``steps``
+    steps of the joint anytime loss on ``SyntheticLM(cfg.vocab, seq,
+    batch)`` with phase 33's optimizer, on ``make_host_mesh(GRID_MP,
+    devices=[device] * GRID_SHARDS)`` (2 x 2) beside the unsharded
+    ``microbatches=2`` step, under deterministic algorithms: the loss and
+    every leaf bitwise after each step.  (c): the grid run checkpointed
+    after step 2, restored onto ``remesh([device] * 2, 1)`` (2 x 1) by
+    ``restore(shardings=param_shardings(...))`` and onto no grid, step 3
+    run on each: bitwise the uninterrupted run.  Returns the results and,
+    under ``_keep``, the joined params, the model and the data."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.configs.alert_anytime import CONFIG
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import batch_fn
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.runtime.elastic import remesh
+    from repro_torch.train.step import (init_train_state, make_anytime_loss_fn,
+                                        make_grid_train_step, make_train_step)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = CONFIG if cfg is None else cfg
+    card = device.type == "cuda"
+    model = build_model(cfg)
+    opt = AdamW(lr=cosine_schedule(TRAIN_LR, warmup=steps // 10,
+                                   total=steps))
+    loss_fn = make_anytime_loss_fn(model, cfg)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, global_batch=batch)
+    batch_at = batch_fn(data, device)
+    state = init_train_state(model, cfg, opt, torch.Generator(
+        device=device).manual_seed(0), device=device)
+    mesh = make_host_mesh(GRID_MP, devices=[device] * GRID_SHARDS)
+    grid = tree_map(lambda leaf, where: where.place(leaf), state,
+                    sh.param_shardings(cfg, mesh, state))
+    per_shard = grid_state_bytes(grid, mesh)
+    g_step = make_grid_train_step(model, cfg, opt, mesh, loss_fn=loss_fn)
+    u_step = make_train_step(model, cfg, opt, microbatches=GRID_MP,
+                             loss_fn=loss_fn)
+    names = leaf_names(state)
+
+    def timed(fn, *args):
+        if not card:
+            t0 = time.perf_counter()
+            out = fn(*args)
+            return out, (time.perf_counter() - t0) * 1e3
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = fn(*args)
+        b.record()
+        torch.cuda.synchronize(device)
+        return out, a.elapsed_time(b)
+
+    def differing(got, want) -> dict:
+        """The leaves of two states that are not bitwise equal, each with
+        its largest difference."""
+        out = {}
+        for name, x, y in zip(names, tree_leaves(got), tree_leaves(want)):
+            x = x.full(device) if hasattr(x, "full") else x
+            if not torch.equal(x, y):
+                out[name] = float((x.double() - y.double()).abs().max())
+        return out
+
+    tmp = tempfile.mkdtemp(prefix="grid_ckpt_")
+    ckpt = os.path.join(tmp, "ck")
+    before = torch.are_deterministic_algorithms_enabled()
+    grid_ms, plain_ms, losses, diffs = [], [], [], []
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        for i in range(steps):
+            b = batch_at(i)
+            (grid, gm), g_ms = timed(g_step, grid, b)
+            (state, um), u_ms = timed(u_step, state, b)
+            grid_ms.append(g_ms)
+            plain_ms.append(u_ms)
+            losses.append(float(gm["loss"]))
+            d = differing(grid, state)
+            if not torch.equal(gm["loss"], um["loss"]):
+                d["loss"] = abs(float(gm["loss"]) - float(um["loss"]))
+            diffs.append(d)
+            if i == steps - 2:
+                ckpt_io.save(ckpt, grid, step=i + 1)
+        if not all(math.isfinite(x) for x in losses):
+            raise SmokeFailure(f"grid training: a loss is not finite: "
+                               f"{losses}")
+        if any(diffs):
+            say(f"  NOT bitwise: the leaves differing from the unsharded "
+                f"microbatches={GRID_MP} step, with their largest "
+                f"difference, by step: {diffs}; held to phase 33 (d)'s "
+                f"bounds")
+            params_close(tree_map(lambda s: s.full(device), grid.params),
+                         state.params, TRAIN_LR, steps, "grid vs unsharded",
+                         leaf_names(state.params))
+        say(f"  {cfg.name} on a {mesh.shape} grid of shards on {device} "
+            f"(bf16 params, float32 moments, B={batch} x S={seq}), "
+            f"{steps} steps: loss and every one of {len(names)} leaves "
+            + ("bitwise equal" if not any(diffs) else "within bounds")
+            + f" to the unsharded microbatches={GRID_MP} step after each "
+              f"step; losses {[round(x, 4) for x in losses]}; a shard's "
+              f"bytes of state {per_shard}; step "
+              f"{[round(t, 3) for t in grid_ms]} ms on the grid, "
+              f"{[round(t, 3) for t in plain_ms]} ms unsharded "
+              f"(deterministic algorithms; phase 33's step 370.8-595.6 ms)")
+
+        # (c): resume the step-2 checkpoint on the survivors' grid and on
+        # no grid
+        abstract = init_train_state(model, cfg, opt, device="meta")
+        survivors = remesh([device] * 2, model_parallel=1)
+        last = batch_at(steps - 1)
+        resumed, at = ckpt_io.restore(ckpt, abstract, shardings=
+                                      sh.param_shardings(cfg, survivors,
+                                                         abstract))
+        resumed, _ = make_grid_train_step(model, cfg, opt, survivors,
+                                          loss_fn=loss_fn)(resumed, last)
+        on_remesh = differing(resumed, state)
+        del resumed
+        plain, _ = ckpt_io.restore(ckpt, abstract, shardings=tree_map(
+            lambda _: device, abstract))
+        plain, _ = u_step(plain, last)
+        on_none = differing(plain, state)
+        del plain
+    finally:
+        torch.use_deterministic_algorithms(before)
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"  resumed from the step-{at} checkpoint on remesh's "
+        f"{survivors.shape} grid and on no grid (microbatches={GRID_MP}): "
+        f"step {steps} "
+        + ("bitwise equal" if not (on_remesh or on_none) else
+           f"differs: {on_remesh} / {on_none}")
+        + " to the uninterrupted run")
+    if on_remesh or on_none:
+        raise SmokeFailure("the grid run resumed on another grid or none is "
+                           "not bitwise the uninterrupted run")
+    params = tree_map(lambda s: s.full(device), grid.params)
+    del grid, state
+    return {"model": cfg.name, "grid": list(mesh.shape), "steps": steps,
+            "batch": batch, "seq": seq, "losses": losses,
+            "bitwise": not any(diffs), "differing_by_step": diffs,
+            "grid_step_ms": grid_ms, "plain_step_ms": plain_ms,
+            "shard_state_bytes": per_shard, "resumed_on": list(
+                survivors.shape), "resume_bitwise": True,
+            "_keep": (model, params, data)}
+
+
+def grid_served(device, model, params, data) -> dict:
+    """Phase 38 (d): the grid-trained weights, joined on ``device``, with
+    both kernel backends: each level's graphed prefill logits against
+    ``train_logits`` (``served_logits_vs_train``, phase 33's tolerance),
+    then 4 ticks of ``FleetAlertServer`` (``serve``), in which
+    ``nested_matmul``, ``flash_attention``, ``decode_attention`` and
+    ``alert_select`` must launch."""
+    import torch
+
+    prompts = torch.from_numpy(data.batch_at(20_000)["tokens"][:4, :8]).to(
+        device)
+    out = {"served_vs_train": served_logits_vs_train(device, model, params,
+                                                     prompts)}
+    run = serve(device, model.cfg.replace(nest_backend="kernel",
+                                          attn_backend="kernel"),
+                params=params, expect_kernel=device.type == "cuda")
+    counts = run_counts(run)
+    if device.type == "cuda" and not all(
+            counts[k] for k in ("alert_select", "nested_matmul",
+                                "flash_attention", "decode_attention")):
+        raise SmokeFailure(f"the grid-trained weights: a kernel never "
+                           f"launched: {counts}")
+    say(f"  grid-trained weights served 4 ticks: launches {counts}")
+    out.update(tick_s=run["tick_s"], counts=counts)
+    return out
+
+
+def grid_mini_dryrun(device) -> dict:
+    """Phase 38 (e): the reference's mini dry run
+    (``tests/test_distributed.py``): ``GRID_ARCHS`` reduced, float32,
+    vocab 64, a seeded ``[8, 32]`` batch, ``AdamW(lr=1e-3)``, 3 steps on
+    a (4, 2) grid of shards on ``device`` beside the unsharded
+    ``microbatches=4`` step, under deterministic algorithms: every loss
+    finite, the last not above the first, and each step bitwise."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.step import (init_train_state,
+                                        make_grid_train_step, make_train_step)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    mesh = make_host_mesh(GRID_DRYRUN_MP,
+                          devices=[device] * GRID_DRYRUN_SHARDS)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, 64, GRID_DRYRUN_BATCH)
+                                 .astype(np.int32)).to(device)
+             for k in ("tokens", "labels")}
+    out = {}
+    before = torch.are_deterministic_algorithms_enabled()
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        for arch in GRID_ARCHS:
+            cfg = get_reduced(arch).replace(dtype="float32", vocab=64)
+            model, opt = build_model(cfg), AdamW(lr=1e-3)
+            state = init_train_state(model, cfg, opt, torch.Generator(
+                device=device).manual_seed(0), device=device)
+            grid = tree_map(lambda leaf, where: where.place(leaf), state,
+                            sh.param_shardings(cfg, mesh, state))
+            g_step = make_grid_train_step(model, cfg, opt, mesh)
+            u_step = make_train_step(model, cfg, opt,
+                                     microbatches=mesh.axis_size("data"))
+            losses, equal = [], True
+            for _ in range(3):
+                grid, gm = g_step(grid, batch)
+                state, um = u_step(state, batch)
+                losses.append(float(gm["loss"]))
+                equal &= torch.equal(gm["loss"], um["loss"]) and all(
+                    torch.equal(a.full(device), b) for a, b in
+                    zip(tree_leaves(grid), tree_leaves(state)))
+            ok = all(math.isfinite(x) for x in losses) and \
+                losses[-1] < losses[0] + 1e-6
+            out[arch] = {"losses": losses, "bitwise": equal}
+            say(f"  {arch} reduced on a {mesh.shape} grid: losses "
+                f"{[round(x, 5) for x in losses]}"
+                + (", finite and not rising" if ok else ", FAILED")
+                + f"; {'bitwise equal' if equal else 'NOT equal'} to the "
+                  f"unsharded microbatches={mesh.axis_size('data')} step")
+            if not (ok and equal):
+                raise SmokeFailure(f"{arch} on the grid: {out[arch]}")
+    finally:
+        torch.use_deterministic_algorithms(before)
+    return out
+
+
+def grid_phase(device) -> dict:
+    """Phase 38, (a)-(e), on ``device``; ``counts`` holds (d)'s launches."""
+    import torch
+
+    say("  (a) the sharding rules over the zoo at full size, on meta")
+    out = {"rules": grid_rules()}
+    say("  (b) the grid train step at full width, (c) elastic resume")
+    t = grid_train(device)
+    model, params, data = t.pop("_keep")
+    out["train"] = t
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    say("  (d) the grid-trained weights served on the kernels")
+    served = grid_served(device, model, params, data)
+    out["counts"] = [served.pop("counts")]
+    out["served"] = served
+    del params
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    say("  (e) the reference's mini dry run on a grid of shards")
+    out["mini_dryrun"] = grid_mini_dryrun(device)
+    return out
+
+
+# --------------------------------------------------------------------- #
 # Phase 34: rwkv6-3b at full width (d 2560, 40 heads of 64, d_ff 8960,
 # vocab 65536), bf16 params and float32 moments, trained with the plain LM
 # loss through make_train_step (its recurrence the chunk scan, a token
@@ -6906,6 +7283,11 @@ def main() -> int:
                            megatick["scale"])
     counted["phase 37"] = lane_mesh.pop("counts")
     del fleet_keep, mega_keep
+
+    phase.start("phase 38: the data plane's (data, model) grid")
+    say(f"  nvidia-smi: {nvidia_smi_line()}")
+    data_plane = grid_phase(device)
+    counted["phase 38"] = data_plane.pop("counts")
     phase.start(None)
     say(f"== done in {time.perf_counter() - t_start:.1f} s")
 
@@ -6929,6 +7311,7 @@ def main() -> int:
         "fleet_goldens": fleet_golden, "fleet": fleet, "gateway": gateway,
         "megatick": megatick, "training": training, "launcher": launcher,
         "examples": examples, "lane_mesh": lane_mesh,
+        "data_plane": data_plane,
         **{f: timing[f] for f in ("instruction_bound_ms",
                                   "fp64_instructions_per_cell",
                                   "fp64_instructions_per_cell_most",

@@ -23,12 +23,16 @@ with ``os.replace`` and only then ``.old`` removed, so a crash at any
 point leaves a complete checkpoint under ``<dir>`` or ``<dir>.old``.
 
 :func:`restore` gives each leaf back in the dtype of the ``like`` tree's
-leaf (float64 stays float64) as a tensor on that leaf's device, or placed
-by ``shardings``: a ``torch.device`` or a lane placement of a
-:class:`~repro_torch.launch.mesh.LaneMesh`
-(:func:`~repro_torch.launch.mesh.lane_shardings`).  A lane-sharded leaf
-(:class:`~repro_torch.launch.mesh.LaneShards`) is saved as its whole
-array, so a checkpoint written under one mesh restores onto any other.
+leaf (float64 stays float64) as a tensor on that leaf's device (placed as
+it, where it is sharded), or placed by ``shardings``: a ``torch.device``,
+a lane placement of a :class:`~repro_torch.launch.mesh.LaneMesh`
+(:func:`~repro_torch.launch.mesh.lane_shardings`), or a grid placement of
+a :class:`~repro_torch.launch.mesh.GridMesh`
+(:func:`~repro_torch.launch.shardings.param_shardings`,
+:func:`~repro_torch.launch.shardings.named`).  A sharded leaf
+(:class:`~repro_torch.launch.mesh.LaneShards`,
+:class:`~repro_torch.launch.mesh.GridShards`) is saved as its whole array,
+so a checkpoint written under one mesh restores onto any other.
 """
 
 from __future__ import annotations
@@ -41,7 +45,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.launch.mesh import LanePlacement, LaneShards
+from repro_torch.launch.mesh import (GridPlacement, GridShards,
+                                     LanePlacement, LaneShards)
 from repro_torch.tree import children, is_namedtuple, tree_map
 
 
@@ -58,7 +63,9 @@ def _leaves(tree, path=()):
 
 def _to_numpy(leaf) -> np.ndarray:
     """The leaf as a numpy array; a bfloat16 one (a tensor, or an
-    ``ml_dtypes`` array) as its bits in ``V2``."""
+    ``ml_dtypes`` array) as its bits in ``V2``; a sharded one whole."""
+    if isinstance(leaf, (GridShards, LaneShards)):
+        leaf = leaf.full("cpu")
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach().cpu()
         if leaf.dtype == torch.bfloat16:
@@ -134,15 +141,22 @@ def _saved_tensor(arr: np.ndarray, saved_dtype: str) -> torch.Tensor:
 
 def _like_leaf(arr: torch.Tensor, leaf, key: str):
     """``arr`` as a tensor shaped, typed and placed as ``leaf`` (over the
-    same lane mesh where ``leaf`` is a :class:`LaneShards`)."""
-    if isinstance(leaf, LaneShards):
+    same mesh where ``leaf`` is a :class:`LaneShards` or
+    :class:`GridShards`; on the CPU where ``leaf`` is a ``meta`` tensor,
+    abstract state that gives a shape and dtype only)."""
+    if isinstance(leaf, (LaneShards, GridShards)):
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"leaf {key}: checkpoint shape "
                              f"{tuple(arr.shape)} != model shape "
                              f"{tuple(leaf.shape)}")
+        if isinstance(leaf, GridShards):
+            return GridPlacement(leaf.mesh, leaf.spec).place(
+                arr.to(leaf.dtype))
         return leaf.mesh.split(arr.to(leaf.dtype).clone())
     if isinstance(leaf, torch.Tensor):
         dtype, device = leaf.dtype, leaf.device
+        if device.type == "meta":
+            device = torch.device("cpu")
         shape = tuple(leaf.shape)
     else:
         ref = np.asarray(leaf)
@@ -156,10 +170,11 @@ def _like_leaf(arr: torch.Tensor, leaf, key: str):
 
 
 def _place(x, where):
-    """A restored leaf onto a ``torch.device`` or a lane placement."""
-    if isinstance(where, LanePlacement):
-        return where.place(x.full() if isinstance(x, LaneShards) else x)
-    if isinstance(x, LaneShards):
+    """A restored leaf onto a ``torch.device`` or a lane or grid
+    placement."""
+    if isinstance(where, (LanePlacement, GridPlacement)):
+        return where.place(x)
+    if isinstance(x, (LaneShards, GridShards)):
         return x.full(where)
     return x.to(where)
 
@@ -170,9 +185,12 @@ def restore(directory: str, like, shardings=None) -> tuple[Any, int]:
     rebuilt as its own type): each leaf comes back as a tensor of the
     like leaf's shape and dtype on its device (a numpy leaf: the CPU).
     ``shardings`` (a tree of the same structure) places each leaf
-    instead: a ``torch.device``, or a lane placement
+    instead: a ``torch.device``, a lane placement
     (:func:`~repro_torch.launch.mesh.lane_shardings`) that splits it into
-    a mesh's blocks or copies it to every shard.  Returns
+    a mesh's blocks or copies it to every shard, or a grid placement
+    (:func:`~repro_torch.launch.shardings.param_shardings`) that cuts it
+    into a block a grid coordinate.  A ``meta`` like leaf gives only the
+    shape and dtype, as the reference's ``ShapeDtypeStruct``s.  Returns
     ``(tree, step)``."""
     directory = _resolve(directory)
     manifest = load_manifest(directory)

@@ -24,6 +24,11 @@ _MODULES = {
 }
 
 ALL_IDS = list(_MODULES)
+# The ten assigned architectures (every one but the paper's anytime LM),
+# in the reference's order: the archs the data plane's dry run loops over.
+ARCH_IDS = ["qwen2-vl-2b", "qwen2.5-32b", "gemma3-1b", "qwen2.5-14b",
+            "stablelm-12b", "jamba-v0.1-52b", "qwen3-moe-30b-a3b",
+            "olmoe-1b-7b", "whisper-tiny", "rwkv6-3b"]
 
 
 def _mod(arch_id: str):

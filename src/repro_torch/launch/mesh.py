@@ -1,5 +1,4 @@
-"""Device meshes for the port (port of ``repro.launch.mesh``, its lane
-half and ``make_host_mesh``).
+"""Device meshes for the port (port of ``repro.launch.mesh``).
 
 The decision plane lays the fleet's ``[S]`` lane axis over devices: a
 :class:`LaneMesh` is a 1-D tuple of ``torch.device``s, one a shard, and
@@ -20,8 +19,13 @@ one device: the port's counterpart of the reference's
 for its tests.  The shards then run the same per-shard code as shards on
 distinct devices, one launch each.
 
-The data plane's meshes (``make_production_mesh``, ``batch_axes``) are
-not ported yet.
+The data plane lays a training state over a (data, model) grid: a
+:class:`GridMesh` is an n-D array of devices with named axes, a
+:class:`GridShards` one array cut into a block a grid coordinate by a
+partition spec (:mod:`repro_torch.launch.shardings`), and a
+:class:`GridPlacement` the rule that cuts it.  ``make_production_mesh``
+builds the pod grids (``device="meta"`` to reckon over them with nothing
+placed), ``make_host_mesh`` a small grid over the devices at hand.
 """
 
 from __future__ import annotations
@@ -400,26 +404,233 @@ def mesh_device(mesh, device=None) -> torch.device:
     return mesh.home
 
 
-class HostMesh:
-    """A (data, model) grid over ``devices``: ``shape`` is ``(data,
-    model)`` and ``axis_names`` ``("data", "model")``."""
+class GridMesh:
+    """A grid of devices with named axes (the reference's ``jax.sharding.
+    Mesh``): ``devices`` is an n-D numpy array of ``torch.device``s,
+    ``axis_names`` names its axes, ``shape`` is the tuple of their sizes
+    and ``axis_size(name)`` one axis's size (the reference's
+    ``mesh.shape[name]``).  A device may appear at several coordinates
+    (several shards on one device)."""
 
-    axis_names = ("data", "model")
+    def __init__(self, devices, axis_names):
+        self.devices = np.array(devices, dtype=object)
+        self.axis_names = tuple(axis_names)
+        if self.devices.ndim != len(self.axis_names) or not self.devices.size:
+            raise ValueError(f"a grid of shape {self.devices.shape} needs "
+                             f"one name an axis and a device; got axes "
+                             f"{self.axis_names}")
+        for idx in np.ndindex(self.devices.shape):
+            self.devices[idx] = _pinned(self.devices[idx])
 
-    def __init__(self, devices, shape: tuple[int, int]):
-        self.devices = tuple(devices)
-        self.shape = tuple(shape)
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return tuple(self.devices.shape)
 
     @property
     def size(self) -> int:
-        return self.shape[0] * self.shape[1]
+        return int(self.devices.size)
+
+    @property
+    def home(self) -> torch.device:
+        """The device at coordinate 0: where a joined value lands."""
+        return self.devices.flat[0]
+
+    def axis_size(self, name: str) -> int:
+        return self.shape[self.axis_names.index(name)]
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, GridMesh) and \
+            other.axis_names == self.axis_names and \
+            other.shape == self.shape and \
+            all(a == b for a, b in zip(other.devices.flat, self.devices.flat))
+
+    def __repr__(self) -> str:
+        return (f"GridMesh({dict(zip(self.axis_names, self.shape))}, "
+                f"{sorted({str(d) for d in self.devices.flat})})")
 
 
-def make_host_mesh(model_parallel: int = 1, *, devices=None) -> HostMesh:
+def _spec_axes(entry) -> tuple[str, ...]:
+    """The mesh axes one partition-spec entry splits its dimension over."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _entries(spec, mesh: GridMesh, ndim: int) -> tuple:
+    """``spec`` padded with ``None`` to ``ndim`` entries, checked against
+    ``mesh``: at most ``ndim`` entries, known axes, each axis once."""
+    spec = tuple(spec or ())
+    if len(spec) > ndim:
+        raise ValueError(f"spec {spec} has more entries than the leaf's "
+                         f"{ndim} dims")
+    used = [a for e in spec for a in _spec_axes(e)]
+    for a in used:
+        if a not in mesh.axis_names:
+            raise ValueError(f"spec {spec} names axis {a!r}, not one of "
+                             f"{mesh.axis_names}")
+    if len(set(used)) != len(used):
+        raise ValueError(f"spec {spec} names an axis twice")
+    return spec + (None,) * (ndim - len(spec))
+
+
+def _split(entry, mesh: GridMesh) -> int:
+    """How many blocks ``entry`` cuts its dimension into."""
+    return int(np.prod([mesh.axis_size(a) for a in _spec_axes(entry)],
+                       dtype=np.int64))
+
+
+def shard_shape(spec, mesh: GridMesh, shape) -> tuple[int, ...]:
+    """A leaf's per-device shape under ``spec`` on ``mesh``, nothing
+    placed: a dimension split ``a`` ways holds ``ceil(n / a)`` (the padded
+    block XLA allocates for an uneven split; where ``a`` divides ``n``,
+    ``NamedSharding.shard_shape``'s)."""
+    shape = tuple(int(n) for n in shape)
+    return tuple(-(-n // _split(e, mesh))
+                 for n, e in zip(shape, _entries(spec, mesh, len(shape))))
+
+
+def _block(entries, mesh: GridMesh, shape, coord) -> tuple[slice, ...]:
+    """The slices of the block at grid coordinate ``coord``: on a dimension
+    split ``a`` ways, block ``k`` (the coordinate over the entry's axes,
+    the first axis major) holds ``[k * ceil(n/a), min((k+1) * ceil(n/a),
+    n))``, jax's layout (a trailing block may be short or empty)."""
+    out = []
+    for n, e in zip(shape, entries):
+        axes = _spec_axes(e)
+        if not axes:
+            out.append(slice(None))
+            continue
+        k = int(np.ravel_multi_index(
+            [coord[mesh.axis_names.index(a)] for a in axes],
+            [mesh.axis_size(a) for a in axes]))
+        c = -(-n // _split(e, mesh))
+        out.append(slice(min(k * c, n), min((k + 1) * c, n)))
+    return tuple(out)
+
+
+class GridShards:
+    """One array over a :class:`GridMesh`: ``parts[coord]`` is the block
+    of grid coordinate ``coord`` on ``mesh.devices[coord]``, cut by
+    ``spec`` (see :func:`_block`; an axis the spec does not name holds a
+    copy).  A tree leaf for the checkpoint, saved as the whole array."""
+
+    __slots__ = ("mesh", "spec", "shape", "parts")
+
+    def __init__(self, mesh: GridMesh, spec, shape, parts):
+        self.mesh, self.shape = mesh, tuple(shape)
+        self.spec = _entries(spec, mesh, len(self.shape))
+        if np.shape(parts) != mesh.shape:
+            raise ValueError(f"{np.shape(parts)} parts for a grid of shape "
+                             f"{mesh.shape}")
+        for idx in np.ndindex(mesh.shape):
+            if parts[idx].device != mesh.devices[idx]:
+                raise ValueError(f"the block at {idx} is on "
+                                 f"{parts[idx].device}, its shard on "
+                                 f"{mesh.devices[idx]}")
+        self.parts = parts
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts.flat[0].dtype
+
+    def slices(self, idx) -> tuple[slice, ...]:
+        """The slices of the whole array that the block at grid coordinate
+        ``idx`` holds."""
+        return _block(self.spec, self.mesh, self.shape, idx)
+
+    def full(self, device=None) -> torch.Tensor:
+        """The whole array on ``device`` (default the grid's home), joined
+        from one block of each distinct slice (copies along the axes the
+        spec does not name are read once)."""
+        dev = self.mesh.home if device is None else torch.device(device)
+        named = {a for e in self.spec for a in _spec_axes(e)}
+        coords = [idx for idx in np.ndindex(self.mesh.shape)
+                  if all(i < 1 for i, a in zip(idx, self.mesh.axis_names)
+                         if a not in named)]
+        if len(coords) == 1:
+            return self.parts[coords[0]].to(dev)
+        out = torch.empty(self.shape, dtype=self.dtype, device=dev)
+        for idx in coords:
+            out[self.slices(idx)] = self.parts[idx].to(dev)
+        return out
+
+    def clone(self) -> "GridShards":
+        """A copy of every block, placed as this one."""
+        parts = np.empty(self.mesh.shape, dtype=object)
+        for idx in np.ndindex(self.mesh.shape):
+            parts[idx] = self.parts[idx].detach().clone()
+        return GridShards(self.mesh, self.spec, self.shape, parts)
+
+    def __repr__(self) -> str:
+        return (f"GridShards(shape={self.shape}, spec={self.spec}, "
+                f"{self.mesh})")
+
+
+class GridPlacement:
+    """Where a leaf goes on a grid (the reference's ``NamedSharding``):
+    ``spec`` cuts it into blocks, one a grid coordinate, each on that
+    coordinate's device."""
+
+    def __init__(self, mesh: GridMesh, spec=()):
+        self.mesh, self.spec = mesh, () if spec is None else spec
+
+    def place(self, x) -> GridShards:
+        """``x`` (host array, tensor, or a value sharded over any mesh) as
+        :class:`GridShards` on this grid; every block a new tensor."""
+        if isinstance(x, (GridShards, LaneShards)):
+            x = x.full()
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.array(x))
+        shape = tuple(x.shape)
+        spec = _entries(self.spec, self.mesh, len(shape))
+        parts = np.empty(self.mesh.shape, dtype=object)
+        for idx in np.ndindex(self.mesh.shape):
+            parts[idx] = x[_block(spec, self.mesh, shape, idx)].to(
+                self.mesh.devices[idx], copy=True).contiguous()
+        return GridShards(self.mesh, spec, shape, parts)
+
+    def __repr__(self) -> str:
+        return f"GridPlacement({self.mesh}, spec={self.spec})"
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None
+                         ) -> GridMesh:
+    """The production grid: (16, 16) over ``("data", "model")``, or with
+    ``multi_pod`` (2, 16, 16) over ``("pod", "data", "model")`` (the pod
+    axis extends data parallelism across pods).
+
+    By default one shard a visible CUDA device, refusing a machine with
+    fewer than 256 (512) of them.  With ``device=`` every shard lies on
+    that one device; ``device="meta"`` is the counterpart of the
+    reference's 512 faked host devices (``XLA_FLAGS=--xla_force_host_
+    platform_device_count=512`` in its dry run): a grid to reckon the
+    rules and per-device shapes over, on which nothing is placed."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = int(np.prod(shape))
+    if device is not None:
+        return GridMesh(np.array([device] * n, dtype=object).reshape(shape),
+                        axes)
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if count < n:
+        raise RuntimeError(f"the production grid {shape} needs {n} CUDA "
+                           f"devices, {count} visible; pass device='meta' "
+                           f"to reckon over it")
+    return GridMesh(np.array([torch.device("cuda", k) for k in range(n)],
+                             dtype=object).reshape(shape), axes)
+
+
+def batch_axes(mesh) -> tuple[str, ...]:
+    """Axes the global batch shards over."""
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def make_host_mesh(model_parallel: int = 1, *, devices=None) -> GridMesh:
     """Small (data, model) grid over whatever devices exist (``devices``,
     default every visible CUDA device), the model-parallel degree halved
     until it divides the device count: on one device any degree shrinks
-    to 1."""
+    to 1.  A device may be listed more than once (several shards on
+    it)."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass devices= to lay "
@@ -431,4 +642,5 @@ def make_host_mesh(model_parallel: int = 1, *, devices=None) -> HostMesh:
     mp = int(model_parallel)
     while mp > 1 and n % mp:
         mp //= 2
-    return HostMesh(devices, (n // mp, mp))
+    return GridMesh(np.array(devices, dtype=object).reshape(n // mp, mp),
+                    ("data", "model"))

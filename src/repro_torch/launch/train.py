@@ -1,20 +1,22 @@
-"""Training launcher on one device (port of ``repro.launch.train``):
+"""Training launcher (port of ``repro.launch.train``):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
-        --reduced --steps 100 --ckpt-dir <dir> [--microbatches 2] \\
-        [--compress] [--anytime] [--resume] [--fail-at N] [--device cpu]
+        --reduced --steps 100 --ckpt-dir <dir> [--model-parallel 2] \\
+        [--microbatches 2] [--compress] [--anytime] [--resume] \\
+        [--fail-at N] [--device cpu]
 
 Without ``--reduced`` the full config trains at its published widths and
-depth, in its dtype, on one card (``alert-anytime-120m`` fits; most of the
-zoo does not: the reference shards them over a pod, and the port's
-(data, model) sharding rules are not ported yet).  ``--model-parallel``
-resolves through :func:`~repro_torch.launch.mesh.make_host_mesh` as the
-reference's does, and the launcher refuses a grid over more than one
-device.  ``--reduced`` trains the same-family shrunken config in
-float32.  The loop is supervised (:class:`~repro_torch.runtime.ft.
-Supervisor`): atomic checkpoints every ``--ckpt-every`` steps,
-deterministic restart-safe data, optional crash injection, and a
-straggler monitor on the step times.
+depth, in its dtype.  ``--model-parallel`` resolves through
+:func:`~repro_torch.launch.mesh.make_host_mesh` over the visible cards (or
+the one ``--device`` names), as the reference's does; on a grid of more
+than one shard the state is placed by the sharding rules
+(:func:`~repro_torch.launch.shardings.param_shardings`) and trains with
+:func:`~repro_torch.train.step.make_grid_train_step`.  ``--reduced``
+trains the same-family shrunken config in float32.  The loop is
+supervised (:class:`~repro_torch.runtime.ft.Supervisor`): atomic
+checkpoints every ``--ckpt-every`` steps, deterministic restart-safe
+data, optional crash injection, and a straggler monitor on the step
+times.
 """
 
 from __future__ import annotations
@@ -31,13 +33,15 @@ from repro_torch import configs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch import shardings as sh
+from repro_torch.launch.mesh import GridMesh, make_host_mesh
 from repro_torch.models.registry import build_model
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 from repro_torch.runtime.ft import Supervisor
 from repro_torch.runtime.straggler import StragglerMonitor
 from repro_torch.train.step import (init_train_state, make_anytime_loss_fn,
-                                    make_train_step)
+                                    make_grid_train_step, make_train_step)
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass
@@ -98,7 +102,7 @@ def train(cfg: ModelConfig, *, steps: int, batch: int = 8, seq: int = 64,
           lr: float = 3e-3, anytime: bool = False, microbatches: int = 1,
           compress: bool = False, ckpt_dir: str, ckpt_every: int = 50,
           resume: bool = False, fail_at: int | None = None, device=None,
-          log_every: int = 10) -> TrainRun:
+          mesh: GridMesh | None = None, log_every: int = 10) -> TrainRun:
     """Train ``cfg`` for ``steps`` steps (from step 0, or from the
     checkpoint's step with ``resume``, as the reference's launcher) on
     ``SyntheticLM(cfg.vocab, seq, batch)`` with ``AdamW(cosine_schedule(
@@ -107,8 +111,12 @@ def train(cfg: ModelConfig, *, steps: int, batch: int = 8, seq: int = 64,
     on ``device`` (or, with ``resume``, the checkpoint under
     ``ckpt_dir``), supervised with a checkpoint every ``ckpt_every``
     steps and a crash injected at ``fail_at``; every ``log_every`` steps
-    (0: never) a line on the standard output."""
-    dev = resolve_device(device)
+    (0: never) a line on the standard output.  With ``mesh`` the weights
+    are drawn on its home device, the state is placed on the grid by
+    :func:`~repro_torch.launch.shardings.param_shardings` and each step is
+    :func:`~repro_torch.train.step.make_grid_train_step`'s (``device`` is
+    then the grid's home)."""
+    dev = resolve_device(device) if mesh is None else mesh.home
     model = build_model(cfg)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, global_batch=batch)
     opt = AdamW(lr=cosine_schedule(lr, warmup=steps // 10, total=steps))
@@ -116,10 +124,16 @@ def train(cfg: ModelConfig, *, steps: int, batch: int = 8, seq: int = 64,
     state = init_train_state(model, cfg, opt,
                              torch.Generator(device=dev).manual_seed(0),
                              device=dev, compress=compress)
-    step_fn = StepTimer(make_train_step(model, cfg, opt,
-                                        microbatches=microbatches,
-                                        compress=compress, loss_fn=loss_fn),
-                        dev)
+    if mesh is None:
+        step = make_train_step(model, cfg, opt, microbatches=microbatches,
+                               compress=compress, loss_fn=loss_fn)
+    else:
+        state = tree_map(lambda leaf, where: where.place(leaf), state,
+                         sh.param_shardings(cfg, mesh, state))
+        step = make_grid_train_step(model, cfg, opt, mesh,
+                                    microbatches=microbatches,
+                                    compress=compress, loss_fn=loss_fn)
+    step_fn = StepTimer(step, dev)
     monitor = StragglerMonitor(n_hosts=1)
     losses: list = []
     t_last = [time.perf_counter()]
@@ -163,8 +177,7 @@ def main(argv=None) -> TrainRun:
                     help="joint anytime training (needs nest_levels>1)")
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="model-parallel degree of the (data, model) grid; "
-                    "it shrinks until it divides the device count, and the "
-                    "grid must resolve to one device")
+                    "it shrinks until it divides the device count")
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
                                                        "repro_torch_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=50)
@@ -177,11 +190,6 @@ def main(argv=None) -> TrainRun:
     # The grid spans every visible card, or the one --device names.
     mesh = make_host_mesh(args.model_parallel, devices=None
                           if args.device is None else [args.device])
-    if mesh.size > 1:
-        ap.error(f"the (data, model) grid resolved to {mesh.shape} over "
-                 f"{mesh.size} devices: the port trains on one device until "
-                 f"the data-plane slice (ROADMAP A5) ports the sharding "
-                 f"rules; pass --device to train on one")
     cfg = configs.get_reduced(args.arch) if args.reduced \
         else configs.get_config(args.arch)
     if args.reduced:
@@ -190,12 +198,13 @@ def main(argv=None) -> TrainRun:
         cfg = cfg.replace(vocab=args.vocab)
     print(f"[train] arch={cfg.name} params~{cfg.param_count() / 1e6:.1f}M "
           f"mesh={dict(zip(mesh.axis_names, mesh.shape))} "
-          f"device={resolve_device(args.device)}")
+          f"device={mesh.home}")
     run = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
                 lr=args.lr, anytime=args.anytime,
                 microbatches=args.microbatches, compress=args.compress,
                 ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                resume=args.resume, fail_at=args.fail_at, device=args.device)
+                resume=args.resume, fail_at=args.fail_at, device=mesh.home,
+                mesh=mesh if mesh.size > 1 else None)
     if run.losses:
         print(f"[train] done at step {run.end}; loss {run.losses[0]:.3f} -> "
               f"{run.losses[-1]:.3f}; checkpoint at {args.ckpt_dir}")

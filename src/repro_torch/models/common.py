@@ -95,7 +95,11 @@ def dense_init(shape: tuple[int, ...], dtype: torch.dtype,
                generator: torch.Generator, device: torch.device,
                scale: float | None = None) -> torch.Tensor:
     """Truncated-normal (+-3 sd) fan-in init, drawn and scaled in float32
-    (in place, so the float32 draw is the only temporary) and then cast."""
+    (in place, so the float32 draw is the only temporary) and then cast.
+    On the ``meta`` device: an empty tensor of the shape and dtype, no
+    draw (abstract state, as ``jax.eval_shape`` of the init)."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
     w = torch.empty(shape, dtype=torch.float32, device=device)
@@ -106,7 +110,10 @@ def dense_init(shape: tuple[int, ...], dtype: torch.dtype,
 def embed_init(shape: tuple[int, ...], dtype: torch.dtype,
                generator: torch.Generator,
                device: torch.device) -> torch.Tensor:
-    """Truncated-normal (+-3) embedding init, unit scale."""
+    """Truncated-normal (+-3) embedding init, unit scale (on ``meta``:
+    empty, no draw)."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=generator)
     return w.to(dtype)

@@ -74,9 +74,11 @@ def init_layer(cfg: ModelConfig, mixer: str, ffn: str,
 def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
             device=None) -> dict:
     """Random parameters drawn from ``generator`` (which must live on
-    ``device``; a fresh seed-0 generator when omitted)."""
+    ``device``; a fresh seed-0 generator when omitted).  On the ``meta``
+    device every leaf is an empty tensor of its shape and dtype: abstract
+    state with nothing allocated or drawn."""
     dev = resolve_device(device)
-    if generator is None:
+    if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     dtype = getattr(torch, cfg.dtype)
     params = {

@@ -45,9 +45,10 @@ def init_encdec(cfg: ModelConfig, generator: torch.Generator | None = None,
     """Random parameters drawn from ``generator`` (which must live on
     ``device``; a fresh seed-0 generator when omitted).  Every ``wo`` is
     scaled by ``sqrt(2 * cfg.n_layers)``, the decoder's layer count, the
-    encoder's too, as in the reference."""
+    encoder's too, as in the reference.  On ``meta``: abstract state,
+    nothing drawn."""
     dev = resolve_device(device)
-    if generator is None:
+    if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     dtype = getattr(torch, cfg.dtype)
 

@@ -54,11 +54,21 @@ class AdamW:
 
     def update(self, grads, state: AdamWState, params
                ) -> tuple[Any, AdamWState, dict]:
+        gnorm = global_norm(grads)
+        new_params, new_state, metrics = self.apply(grads, state, params,
+                                                    gnorm)
+        return new_params, new_state, {"grad_norm": gnorm, **metrics}
+
+    def apply(self, grads, state: AdamWState, params, gnorm: torch.Tensor
+              ) -> tuple[Any, AdamWState, dict]:
+        """The update given the global gradient norm ``gnorm``: every op
+        after it is elementwise, so a grid shard applies it to its blocks
+        alone (the clip scale and the rate are scalars)."""
         dev = state.step.device
         step = state.step + 1
         lr = _f32(self.lr(step) if callable(self.lr) else self.lr, dev)
-        gnorm = global_norm(grads)
-        metrics = {"grad_norm": gnorm}
+        gnorm = gnorm.to(dev)
+        metrics = {}
         if self.clip_norm is not None:
             scale = torch.minimum(
                 _f32(1.0, dev), _f32(self.clip_norm, dev)

@@ -1,22 +1,25 @@
-"""Elastic re-meshing of the decision plane (port of
-``repro.runtime.elastic``, its lane half).
+"""Elastic re-meshing (port of ``repro.runtime.elastic``): rebuild a mesh
+from the devices that survive and place the state on it.
 
-A lane mesh lays its lanes out in contiguous blocks, one block a shard,
-so losing a device loses a contiguous block of lanes.  The layout helpers
-compute that on the host; :func:`remesh_lanes` rebuilds the lane mesh from
-the devices that survive and :func:`reshard_state` places a state tree on
-it.  Checkpoints hold whole arrays (:mod:`repro_torch.checkpoint.io`), so
-state saved under one mesh restores onto any other.  ``remesh`` for
-(data, model) grids comes with the data plane.
+Checkpoints hold whole arrays (:mod:`repro_torch.checkpoint.io`) and the
+data pipeline is a pure function of the step, so scaling a training run
+from one (data, model) grid to another is: pick the new grid
+(:func:`remesh`), take the placements from the same partition-spec rules
+(:mod:`repro_torch.launch.shardings`), restore.  The decision plane's
+lanes lie in contiguous blocks, one a shard, so losing a device loses a
+contiguous block of lanes; the layout helpers compute that on the host
+and :func:`remesh_lanes` rebuilds the lane mesh.  :func:`reshard_state`
+places a state tree on either kind of mesh.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.launch.mesh import (LaneMesh, LanePlacement,
+from repro_torch.launch.mesh import (GridMesh, GridPlacement, LaneMesh,
+                                     LanePlacement, make_host_mesh,
                                      make_lane_mesh)
-from repro_torch.tree import children, is_namedtuple
+from repro_torch.tree import tree_map_with_path
 
 
 def best_mesh_shape(n_devices: int, model_parallel: int
@@ -26,6 +29,19 @@ def best_mesh_shape(n_devices: int, model_parallel: int
     while model_parallel > 1 and n_devices % model_parallel:
         model_parallel //= 2
     return (n_devices // model_parallel, model_parallel)
+
+
+def remesh(devices=None, model_parallel: int = 1) -> GridMesh:
+    """Rebuild a (data, model) grid from the surviving ``devices``
+    (default every visible CUDA device), shrinking the model-parallel
+    degree until it divides the device count (:func:`best_mesh_shape`).
+    A device may be listed more than once (several shards on it)."""
+    if devices is None:
+        return make_host_mesh(model_parallel)
+    devices = list(devices)
+    shape = best_mesh_shape(len(devices), model_parallel)
+    return GridMesh(np.array(devices[:shape[0] * shape[1]], dtype=object)
+                    .reshape(shape), ("data", "model"))
 
 
 def remesh_lanes(devices=None) -> LaneMesh:
@@ -38,29 +54,21 @@ def remesh_lanes(devices=None) -> LaneMesh:
     return LaneMesh(devices)
 
 
-def reshard_state(state, mesh: LaneMesh, spec_fn):
+def reshard_state(state, mesh, spec_fn):
     """Place every leaf of ``state`` on ``mesh`` by the rule
-    ``spec_fn(path, leaf)`` gives it: :func:`~repro_torch.launch.mesh.
+    ``spec_fn(path, leaf)`` gives it (``path`` the tuple of the leaf's path
+    components).  On a :class:`~repro_torch.launch.mesh.GridMesh` the spec
+    cuts the leaf into one block a grid coordinate (a
+    :class:`~repro_torch.launch.mesh.GridShards`; ``()`` or ``None`` a
+    copy on every shard).  On a lane mesh :func:`~repro_torch.launch.mesh.
     lane_pspec` splits the leaf's leading axis into the mesh's blocks (a
-    :class:`~repro_torch.launch.mesh.LaneShards`), ``()`` or ``None``
-    puts the whole leaf on every shard's device.  ``path`` is the tuple of
-    the leaf's path components (dict keys, sequence indices)."""
-    def place(node, path):
-        if node is None:
-            return None
-        if isinstance(node, (dict, list, tuple)):
-            items = [(name, place(child, path + (name,)))
-                     for name, child in children(node)]
-            if isinstance(node, dict):
-                return {k: v for k, (_, v) in
-                        zip(sorted(node), items)}
-            if is_namedtuple(node):
-                return type(node)(*(v for _, v in items))
-            vals = [v for _, v in items]
-            return vals if isinstance(node, list) else tuple(vals)
-        return LanePlacement(mesh, spec_fn(path, node)).place(node)
-
-    return place(state, ())
+    :class:`~repro_torch.launch.mesh.LaneShards`), and ``()`` or ``None``
+    puts the whole leaf on every shard's device."""
+    placement = GridPlacement if isinstance(mesh, GridMesh) \
+        else LanePlacement
+    return tree_map_with_path(
+        lambda path, leaf: placement(mesh, spec_fn(path, leaf)).place(leaf),
+        state)
 
 
 def lane_groups(n_lanes: int, n_devices: int) -> np.ndarray:

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import io as ckpt_io
+from repro_torch.launch.mesh import GridShards
 from repro_torch.tree import tree_map
 
 
@@ -33,6 +34,8 @@ class InjectedFailure(RuntimeError):
 
 
 def _copy(leaf):
+    if isinstance(leaf, GridShards):
+        return leaf.clone()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().clone()
     return np.array(leaf, copy=True)
@@ -87,7 +90,8 @@ class Supervisor:
     def restore(self, like_state):
         """``(state, step)`` of the latest checkpoint (``<dir>`` or its
         ``.old`` torn-write fallback), restored into ``like_state``'s
-        structure, dtypes and devices; with no checkpoint yet, a copy of
+        structure, dtypes and devices (a grid-sharded leaf placed as it
+        is); with no checkpoint yet, a copy of
         the state and step :meth:`run` entered with."""
         if not os.path.exists(self.ckpt_dir) and \
                 not os.path.exists(self.ckpt_dir + ".old"):

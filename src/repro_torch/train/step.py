@@ -8,6 +8,14 @@ projections and ``ref`` attention: no kernel has a backward), its
 gradients from :func:`torch.autograd.grad`, its update the functional
 :class:`~repro_torch.optim.adamw.AdamW`.  A state is a
 :class:`TrainState` of tensor trees; a step returns a new one.
+
+:func:`make_grid_train_step` trains a state laid over a (data, model)
+grid (:mod:`repro_torch.launch.shardings`).  The reference jits its
+unsharded step under the grid's shardings, and GSPMD computes the same
+function; the port computes that function too, without emulating XLA's
+partitioned program: each data shard gathers the leaves and takes its
+slice of the batch, the gradients are joined as microbatches are, and
+each block gets its AdamW update.
 """
 
 from __future__ import annotations
@@ -16,10 +24,14 @@ from typing import Any, NamedTuple
 
 import torch
 
+import numpy as np
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.nesting import greedy_stage_weights, joint_anytime_loss
+from repro_torch.launch.mesh import (GridMesh, GridPlacement, GridShards,
+                                     batch_axes, on_device)
 from repro_torch.models import transformer as tfm
-from repro_torch.optim.adamw import AdamW, AdamWState
+from repro_torch.optim.adamw import AdamW, AdamWState, global_norm
 from repro_torch.optim.compress import (CompressionState, compress_grads,
                                         init_compression)
 from repro_torch.train.losses import chunked_cross_entropy, cross_entropy
@@ -97,6 +109,45 @@ def value_and_grad(loss_fn, params, batch):
         tree_map(lambda _: next(grads), params)
 
 
+def _pieces(batch: dict, n: int, what: str) -> list[dict]:
+    """``batch`` cut into ``n`` equal pieces on axis 0 (``pos3d`` on axis
+    1; a leaf without the batch axis goes whole to every piece)."""
+    b = batch["tokens"].shape[0]
+    if b % n:
+        raise ValueError(f"batch {b} not divisible into {n} {what}")
+    mb = b // n
+    out = []
+    for i in range(n):
+        piece = {k: (v[i * mb:(i + 1) * mb]
+                     if v.dim() and v.shape[0] == b else v)
+                 for k, v in batch.items() if k != "pos3d"}
+        if "pos3d" in batch:
+            piece["pos3d"] = batch["pos3d"][:, i * mb:(i + 1) * mb]
+        out.append(piece)
+    return out
+
+
+def _mean(parts, n: int, device: torch.device):
+    """``(loss, metrics, grads)`` averaged over the ``n`` items of
+    ``parts`` (each :func:`value_and_grad`'s ``((loss, metrics), grads)``
+    of one piece), in order: float32 ``g / n`` added to zeros on
+    ``device``, as the reference's microbatch ``lax.scan`` accumulates."""
+    nt = torch.tensor(float(n), device=device)
+    loss = torch.zeros((), dtype=torch.float32, device=device)
+    metrics = grads = None
+    for (l_i, m_i), g_i in parts:
+        if grads is None:
+            grads = tree_map(lambda g: torch.zeros(
+                g.shape, dtype=torch.float32, device=device), g_i)
+            metrics = {k: torch.zeros_like(v, device=device)
+                       for k, v in m_i.items()}
+        grads = tree_map(lambda a, g: a + g.to(device).float() / nt, grads,
+                         g_i)
+        loss = loss + l_i.to(device) / nt
+        metrics = {k: metrics[k] + m_i[k].to(device) / nt for k in metrics}
+    return loss, metrics, grads
+
+
 def make_train_step(model, cfg: ModelConfig, opt: AdamW, *,
                     microbatches: int = 1, compress: bool = False,
                     loss_fn=None):
@@ -114,30 +165,9 @@ def make_train_step(model, cfg: ModelConfig, opt: AdamW, *,
         if microbatches <= 1:
             (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
             return loss, metrics, grads
-        b = batch["tokens"].shape[0]
-        if b % microbatches:
-            raise ValueError(f"batch {b} not divisible into "
-                             f"{microbatches} microbatches")
-        mb = b // microbatches
-        dev = batch["tokens"].device
-        n = torch.tensor(float(microbatches), device=dev)
-        loss = torch.zeros((), dtype=torch.float32, device=dev)
-        metrics = grads = None
-        for i in range(microbatches):
-            micro = {k: (v[i * mb:(i + 1) * mb]
-                         if v.dim() and v.shape[0] == b else v)
-                     for k, v in batch.items() if k != "pos3d"}
-            if "pos3d" in batch:
-                micro["pos3d"] = batch["pos3d"][:, i * mb:(i + 1) * mb]
-            (l_i, m_i), g_i = value_and_grad(loss_fn, params, micro)
-            if grads is None:
-                grads = tree_map(lambda p: torch.zeros(
-                    p.shape, dtype=torch.float32, device=p.device), params)
-                metrics = {k: torch.zeros_like(v) for k, v in m_i.items()}
-            grads = tree_map(lambda a, g: a + g.float() / n, grads, g_i)
-            loss = loss + l_i / n
-            metrics = {k: metrics[k] + m_i[k] / n for k in metrics}
-        return loss, metrics, grads
+        parts = (value_and_grad(loss_fn, params, micro)
+                 for micro in _pieces(batch, microbatches, "microbatches"))
+        return _mean(parts, microbatches, batch["tokens"].device)
 
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
         loss, metrics, grads = compute_grads(state.params, batch)
@@ -150,6 +180,101 @@ def make_train_step(model, cfg: ModelConfig, opt: AdamW, *,
         metrics.update(ometrics)
         metrics["loss"] = loss
         return TrainState(params, opt_state, comp_state), metrics
+
+    return train_step
+
+
+def make_grid_train_step(model, cfg: ModelConfig, opt: AdamW,
+                         mesh: GridMesh, *, microbatches: int = 1,
+                         compress: bool = False, loss_fn=None):
+    """``train_step(state, batch) -> (state, metrics)`` over a state whose
+    leaves are :class:`~repro_torch.launch.mesh.GridShards` on ``mesh``
+    (placed by :func:`~repro_torch.launch.shardings.param_shardings`).
+
+    Data shard ``d`` (the coordinates over ``batch_axes(mesh)``, the first
+    major, as ``batch_specs`` splits the batch) computes on the device at
+    its coordinate with every other axis 0: it gathers each leaf there and
+    takes pieces ``d * microbatches`` to ``(d + 1) * microbatches - 1`` of
+    the batch cut into ``n_dp * microbatches``, each piece's loss and
+    gradients in turn.  The gradients, loss and metrics are joined over
+    the pieces in that order as float32 ``g / n`` on the grid's home
+    device; compression, the global gradient norm, AdamW's clip and the
+    ``grad_norm`` metric act on the joined whole gradients; then each
+    block gets its AdamW update from its slice of them on its device.  So
+    the step computes :func:`make_train_step` with ``microbatches = n_dp *
+    microbatches``, bit for bit where the devices compute alike; the model
+    axis only decides where blocks live.  Where the loss couples a batch's
+    rows (a MoE layer routes each dispatch group of its tokens under a
+    capacity set by the group, and its aux loss is a product of means),
+    that is the function of microbatches, each data shard's tokens routed
+    among themselves, not the one over the whole batch."""
+    loss_fn = loss_fn or make_loss_fn(model, cfg)
+    dp = batch_axes(mesh)
+    sizes = [mesh.axis_size(a) for a in dp]
+    n_dp = int(np.prod(sizes))
+    n = n_dp * microbatches
+    home = mesh.home
+    shard_devices = []
+    for d in range(n_dp):
+        at = dict(zip(dp, np.unravel_index(d, sizes)))
+        shard_devices.append(mesh.devices[tuple(
+            int(at.get(a, 0)) for a in mesh.axis_names)])
+    coords = list(np.ndindex(mesh.shape))
+
+    def pieces(params, batch):
+        cut = _pieces(batch, n, "pieces (data shards x microbatches)")
+        for d, dev in enumerate(shard_devices):
+            with on_device(dev):
+                full = tree_map(lambda s: s.full(dev), params)
+                for piece in cut[d * microbatches:(d + 1) * microbatches]:
+                    yield value_and_grad(loss_fn, full, {
+                        k: v.to(dev) for k, v in piece.items()})
+
+    def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
+        loss, metrics, grads = _mean(pieces(state.params, batch), n, home)
+        comp_state = state.compress_state
+        if compress:
+            whole = tree_map(lambda s: s.full(home), comp_state)
+            grads, whole, cmetrics = compress_grads(grads, whole)
+            comp_state = tree_map(
+                lambda new, old: GridPlacement(mesh, old.spec).place(new),
+                whole, comp_state)
+            metrics.update(cmetrics)
+        gnorm = global_norm(grads)
+        grad_leaves = tree_leaves(grads)
+        leaves = [tree_leaves(t) for t in (state.params, state.opt_state.m,
+                                           state.opt_state.v)]
+        out = [[np.empty(mesh.shape, dtype=object) for _ in grad_leaves]
+               for _ in range(3)]
+        steps = np.empty(mesh.shape, dtype=object)
+        for idx in coords:
+            dev = mesh.devices[idx]
+            p, m, v = ([leaf.parts[idx] for leaf in ls] for ls in leaves)
+            g = [gl[s.slices(idx)].to(dev)
+                 for gl, s in zip(grad_leaves, leaves[0])]
+            with on_device(dev):
+                new_p, new_st, om = opt.apply(
+                    g, AdamWState(state.opt_state.step.parts[idx], m, v), p,
+                    gnorm)
+            for k, new in enumerate((new_p, new_st.m, new_st.v)):
+                for j, blk in enumerate(new):
+                    out[k][j][idx] = blk
+            steps[idx] = new_st.step
+            if idx == coords[0]:
+                lr = om["lr"]
+
+        def rebuild(tree, parts):
+            it = iter(parts)
+            return tree_map(lambda s: GridShards(mesh, s.spec, s.shape,
+                                                 next(it)), tree)
+
+        st = state.opt_state
+        opt_state = AdamWState(
+            GridShards(mesh, st.step.spec, st.step.shape, steps),
+            rebuild(st.m, out[1]), rebuild(st.v, out[2]))
+        metrics.update({"grad_norm": gnorm, "lr": lr, "loss": loss})
+        return TrainState(rebuild(state.params, out[0]), opt_state,
+                          comp_state), metrics
 
     return train_step
 

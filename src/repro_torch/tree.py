@@ -50,3 +50,25 @@ def tree_map(fn: Callable, tree, *rest):
             return type(tree)(*items)
         return items if isinstance(tree, list) else tuple(items)
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn: Callable, tree, is_leaf: Callable | None = None):
+    """``fn(path, leaf)`` over the leaves of ``tree`` (``path`` the tuple
+    of the leaf's path components, as :func:`children` names them), in
+    leaf order, rebuilt as ``tree``'s types; a node for which ``is_leaf``
+    holds is a leaf."""
+    def walk(node, path):
+        if node is None:
+            return None
+        if (is_leaf is None or not is_leaf(node)) and \
+                isinstance(node, (dict, list, tuple)):
+            items = [walk(child, path + (name,))
+                     for name, child in children(node)]
+            if isinstance(node, dict):
+                return dict(zip(sorted(node), items))
+            if is_namedtuple(node):
+                return type(node)(*items)
+            return items if isinstance(node, list) else tuple(items)
+        return fn(path, node)
+
+    return walk(tree, ())

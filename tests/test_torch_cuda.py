@@ -1784,3 +1784,71 @@ def test_sharded_banks_on_card_equal_cpu(cuda_device):
     for a, b in zip(card, cpu):
         for name in a._state_names + ("n_updates",):
             assert torch.equal(getattr(a, name).cpu(), getattr(b, name))
+
+
+# --------------------------------------------------------------------- #
+# The data plane's (data, model) grid on the card                        #
+# --------------------------------------------------------------------- #
+def test_grid_of_cuda_shards_never_places_on_the_cpu(cuda_device):
+    """Placing a host array, a CPU tensor or a CPU grid's value on a grid
+    of CUDA shards puts every block on the card; joining gives it back."""
+    from repro_torch.launch.mesh import GridPlacement, make_host_mesh
+
+    mesh = make_host_mesh(2, devices=[cuda_device] * 4)
+    cpu_grid = make_host_mesh(2, devices=["cpu"] * 8)
+    x = torch.arange(7 * 6, dtype=torch.float32).reshape(7, 6)
+    for src in (x.numpy(), x, GridPlacement(cpu_grid, ("data", "model"))
+                .place(x)):
+        g = GridPlacement(mesh, ("data", "model")).place(src)
+        assert all(p.device == cuda_device for p in g.parts.flat)
+        assert torch.equal(g.full().cpu(), x)
+        assert g.full().device == cuda_device
+
+
+def test_production_mesh_refuses_one_card(cuda_device):
+    from repro_torch.launch.mesh import make_production_mesh
+
+    if torch.cuda.device_count() >= 256:
+        pytest.skip("this machine has a production grid's cards")
+    with pytest.raises(RuntimeError, match="needs 256 CUDA devices"):
+        make_production_mesh()
+
+
+def test_grid_step_on_the_card_equals_microbatches(cuda_device):
+    """The reduced gemma3-1b, float32, three steps on a (2, 2) grid of
+    shards on the card under deterministic algorithms: bitwise the
+    unsharded ``microbatches=2`` step on the card."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import step as ts
+    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.data.synthetic import SyntheticLM
+
+    cfg = get_reduced("gemma3-1b").replace(dtype="float32", vocab=64)
+    model, opt = build_model(cfg), AdamW(lr=1e-3)
+    state = ts.init_train_state(
+        model, cfg, opt, torch.Generator(device=cuda_device).manual_seed(0),
+        device=cuda_device)
+    mesh = make_host_mesh(2, devices=[cuda_device] * 4)
+    grid = tree_map(lambda leaf, where: where.place(leaf), state,
+                    sh.param_shardings(cfg, mesh, state))
+    g_step = ts.make_grid_train_step(model, cfg, opt, mesh)
+    u_step = ts.make_train_step(model, cfg, opt, microbatches=2)
+    data = SyntheticLM(vocab=64, seq_len=32, global_batch=8)
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for i in range(3):
+            batch = {k: torch.from_numpy(v).to(cuda_device)
+                     for k, v in data.batch_at(i).items()}
+            grid, gm = g_step(grid, batch)
+            state, um = u_step(state, batch)
+            assert torch.equal(gm["loss"], um["loss"])
+    finally:
+        torch.use_deterministic_algorithms(before)
+    for a, b in zip(tree_leaves(grid), tree_leaves(state)):
+        assert all(p.device == cuda_device for p in a.parts.flat)
+        assert torch.equal(a.full(), b)

@@ -173,17 +173,28 @@ def test_launcher_options(tmp_path, flags):
         assert run.state.compress_state is not None
 
 
-def test_launcher_refuses_model_parallel(monkeypatch, capsys):
-    """A (data, model) grid that resolves to more than one device is
-    refused, naming the data-plane slice (here a two-device grid)."""
-    from repro_torch.launch.mesh import HostMesh
+def test_launcher_trains_on_a_two_device_grid(monkeypatch, capsys,
+                                              tmp_path):
+    """``--model-parallel 2`` over a two-shard grid (both shards on the
+    CPU) places the state by the sharding rules and trains, printing the
+    reference's mesh line; it ends where one device's run ends."""
+    from repro_torch.launch.mesh import GridShards, make_host_mesh
 
-    two = HostMesh([torch.device("cpu")] * 2, (1, 2))
+    two = make_host_mesh(2, devices=[torch.device("cpu")] * 2)
     monkeypatch.setattr(launch, "make_host_mesh",
                         lambda mp, devices: two)
-    with pytest.raises(SystemExit):
-        launch.main(["--model-parallel", "2", "--device", "cpu"])
-    assert "ROADMAP A5" in capsys.readouterr().err
+    args = ["--arch", "alert-anytime-120m", "--reduced", "--batch", "2",
+            "--seq", "8", "--steps", "2", "--device", "cpu"]
+    run = launch.main(args + ["--model-parallel", "2",
+                              "--ckpt-dir", str(tmp_path / "grid")])
+    assert "mesh={'data': 1, 'model': 2}" in capsys.readouterr().out
+    assert run.end == 2 and all(np.isfinite(run.losses))
+    assert all(isinstance(x, GridShards) for x in tree_leaves(run.state))
+    monkeypatch.undo()
+    one = launch.main(args + ["--ckpt-dir", str(tmp_path / "one")])
+    assert run.losses == one.losses
+    for a, b in zip(tree_leaves(run.state), tree_leaves(one.state)):
+        assert torch.equal(a.full(), b)
 
 
 def test_launcher_model_parallel_shrinks_on_one_device(tmp_path, capsys):
