@@ -382,12 +382,24 @@ Phases (each prints its own lines; any mismatch exits nonzero):
     the reference's mini dry run: reduced ``gemma3-1b``,
     ``jamba-v0.1-52b`` and ``rwkv6-3b`` on a (4, 2) grid, losses finite
     and not rising, bitwise the unsharded ``microbatches=4`` step.
-39. the last lines: one JSON object per kernel (``launches``: the sum
+39. the data plane's dry run (``launch/dryrun.py``): (a) its counter
+    over the real step of ``alert-anytime-120m`` at full width on the
+    plain paths on the card, train at B=8 x S=512 and prefill and decode
+    at phase 10's served sizes, on a grid of 1: FLOPs, bytes and argument
+    bytes equal to the ``meta`` count, op by op (``DRYRUN_PINNED`` names
+    any op the two devices may differ by); (b) the prefill and decode
+    records through ``roofline.analyze`` (the H100's constants), the same
+    steps on the kernels' path timed with CUDA events: measured / bound
+    printed and at least ``DRYRUN_BOUND_FLOOR``, ``nested_matmul``,
+    ``flash_attention`` and ``decode_attention`` launched; (c)
+    ``run_cell`` over every cell of ``DRYRUN_MESHES``'s grids, no
+    ``fail``, the skips ``cell_supported``'s, the seconds printed.
+40. the last lines: one JSON object per kernel (``launches``: the sum
     over every ``serve`` run, graphed and eager, of phases 4, 7, 10, 13,
     15-17, 19, 20, 22, 23 and 27, over phase 26's two runs, over the
     fleet and gateway runs of phases 29-32, over phase 33's serve run
     and example, phase 34's serve run, the launcher, the examples and
-    the runs of phases 37 and 38; ``launches_by_run`` by phase), the
+    the runs of phases 37-39; ``launches_by_run`` by phase), the
     ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds.
@@ -6184,6 +6196,221 @@ def grid_phase(device) -> dict:
 
 
 # --------------------------------------------------------------------- #
+# phase 39: the data plane's dry run                                     #
+# --------------------------------------------------------------------- #
+# (a) the count of alert-anytime-120m at full width on meta and on the
+# card: train at DRYRUN_TRAIN (batch x tokens), prefill and decode at
+# phase 10's served sizes (batch 4, an 8-token prompt, a 12-slot cache).
+DRYRUN_TRAIN = (8, 512)
+DRYRUN_SERVED = (4, 8, 12)
+# The ops the two devices' counts may differ by, by step kind: op ->
+# (FLOPs, bytes) of the card's count less meta's.  None has shown.
+DRYRUN_PINNED: dict = {"train": {}, "prefill": {}, "decode": {}}
+# (b) the kernel path's steps timed back to back, ``cuda_ms``'s rounds.
+DRYRUN_TIMED_CALLS = 10
+# No card beats its roofline bound: measured / bound below this fails.
+DRYRUN_BOUND_FLOOR = 0.95
+# (c) ``--all --mesh both`` took 75 s on one core of an Intel Xeon, over
+# the 60 s this phase allows it, so the phase counts the 16x16 grid only
+# (57 s on that core).
+DRYRUN_MESHES = (False,)
+
+
+def dryrun_shapes():
+    from repro_torch.configs.shapes import ShapeSpec
+
+    b, s = DRYRUN_TRAIN
+    sb, prompt, cache = DRYRUN_SERVED
+    return {"train": ShapeSpec(f"train_{b}x{s}", s, b, "train"),
+            "prefill": ShapeSpec(f"served_prefill_{sb}x{prompt}", prompt,
+                                 sb, "prefill"),
+            "decode": ShapeSpec(f"served_decode_{sb}x{cache}", cache, sb,
+                                "decode")}
+
+
+def dryrun_on_device(device, cfg=None) -> dict:
+    """Phase 39 (a): the dry run's counter over the real step of ``cfg``
+    (default ``alert-anytime-120m``; seeded weights and batch) on
+    ``device`` on the plain paths, on a grid of 1, against the same count
+    on ``meta``: the FLOPs, bytes and argument bytes must be equal, each
+    op's count equal but for ``DRYRUN_PINNED``."""
+    import numpy as np
+
+    from repro_torch.configs.alert_anytime import CONFIG
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import GridMesh
+
+    cfg = CONFIG if cfg is None else cfg
+
+    def grid(dev):
+        return GridMesh(np.array([[dev]], dtype=object), ("data", "model"))
+
+    out = {}
+    for kind, shape in dryrun_shapes().items():
+        meta = dr.count_step(cfg, shape, grid("meta"))
+        card = dr.count_step(cfg, shape, grid(device), device=device)
+        zero = [0, 0, 0]
+        diff = {op: (card["by_op"].get(op, zero)[0]
+                     - meta["by_op"].get(op, zero)[0],
+                     card["by_op"].get(op, zero)[1]
+                     - meta["by_op"].get(op, zero)[1])
+                for op in sorted(set(meta["by_op"]) | set(card["by_op"]))}
+        diff = {op: d for op, d in diff.items() if d != (0, 0)}
+        pinned = {op: tuple(d) for op, d in DRYRUN_PINNED[kind].items()}
+        if diff != pinned:
+            raise SmokeFailure(f"dry run {kind}: the {device} count differs "
+                               f"from meta's by op (FLOPs, bytes) {diff}, "
+                               f"pinned {pinned}")
+        moved = (card["flops"] - meta["flops"], card["bytes"] - meta["bytes"],
+                 card["memory"]["argument_size"]
+                 - meta["memory"]["argument_size"])
+        if moved != (sum(d[0] for d in diff.values()),
+                     sum(d[1] for d in diff.values()), 0):
+            raise SmokeFailure(f"dry run {kind}: the {device} count less "
+                               f"meta's is {moved} (FLOPs, bytes, argument "
+                               f"bytes)")
+        say(f"  {kind} {shape.name}: FLOPs {meta['flops']:.0f}, bytes "
+            f"{meta['bytes']:.0f}, argument bytes "
+            f"{meta['memory']['argument_size']:.0f}, on meta and on "
+            f"{device}: equal ({len(meta['by_op'])} kinds of op; count "
+            f"{meta['compile_s']:.2f} s on meta, {card['compile_s']:.2f} s "
+            f"on {device})")
+        out[kind] = {"shape": shape.name, "flops": meta["flops"],
+                     "bytes": meta["bytes"],
+                     "product_flops": meta["product_flops"],
+                     "memory": meta["memory"], "equal": True,
+                     "count_s_meta": meta["compile_s"],
+                     "count_s_device": card["compile_s"],
+                     "_record": meta}
+    return out
+
+
+def dryrun_roofline(device, records: dict) -> dict:
+    """Phase 39 (b): (a)'s prefill and decode records through
+    ``roofline.analyze`` (the H100's constants), and the same steps on the
+    kernels' path (``nested_matmul``, ``flash_attention``,
+    ``decode_attention``) timed with CUDA events, ``DRYRUN_TIMED_CALLS``
+    back to back: measured / bound must be at least
+    ``DRYRUN_BOUND_FLOOR``, and each kernel must launch."""
+    import torch
+
+    from repro_torch.configs.alert_anytime import CONFIG
+    from repro_torch.launch import roofline
+    from repro_torch.models.registry import build_model
+
+    shapes = dryrun_shapes()
+    cfg = CONFIG.replace(nest_backend="kernel", attn_backend="kernel")
+    model = build_model(cfg)
+    params = model.init(generator=torch.Generator(device=device)
+                        .manual_seed(0), device=device)
+    sb, prompt, cache = DRYRUN_SERVED
+    gen = torch.Generator(device=device).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (sb, prompt), generator=gen,
+                         device=device)
+    caches = model.init_caches(sb, cache, device=device)
+    dec = {"tokens": toks[:, -1:].contiguous(),
+           "cache_len": torch.tensor(prompt, dtype=torch.int32,
+                                     device=device)}
+    calls = {"prefill": lambda: model.prefill(params, {"tokens": toks}),
+             "decode": lambda: model.decode_step(params, dec, caches)}
+    kernel_counts(reset=True)
+    with torch.no_grad():
+        for fn in calls.values():
+            fn()
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    for name in ("nested_matmul", "flash_attention", "decode_attention"):
+        if not counts[name]:
+            raise SmokeFailure(f"dry run (b): the kernel path did not "
+                               f"launch {name}: {counts}")
+    out = {"counts": counts, "launches": {k: counts[k] for k in (
+        "nested_matmul", "flash_attention", "decode_attention")}}
+    for kind in ("prefill", "decode"):
+        rec = records[kind]
+        shape = shapes[kind]
+        tokens = shape.global_batch * (shape.seq_len if kind == "prefill"
+                                       else 1)
+        a = roofline.analyze({
+            "arch": CONFIG.name, "shape": shape.name, "kind": kind,
+            "mesh": "1x1", "n_devices": 1, "tokens": tokens,
+            "flops_per_device": rec["flops"],
+            "bytes_per_device": rec["bytes"],
+            "collective_bytes_per_device": rec["coll_detail"],
+            "memory": rec["memory"],
+            "active_param_count": CONFIG.active_param_count()})
+        with torch.no_grad():
+            ms = cuda_ms(calls[kind], DRYRUN_TIMED_CALLS)
+        ratio = ms / (a["bound_s"] * 1e3)
+        say(f"  {kind} {shape.name} on the kernels: {ms:.4f} ms; roofline "
+            f"bound {a['bound_s'] * 1e3:.4f} ms ({a['dominant']}: compute "
+            f"{a['compute_s'] * 1e3:.4f} ms, memory {a['memory_s'] * 1e3:.4f}"
+            f" ms); measured / bound {ratio:.2f}")
+        if ratio < DRYRUN_BOUND_FLOOR:
+            raise SmokeFailure(f"dry run (b) {kind}: measured {ms} ms is "
+                               f"under {DRYRUN_BOUND_FLOOR} of the bound "
+                               f"{a['bound_s'] * 1e3} ms")
+        out[kind] = {"ms": ms, "bound_ms": a["bound_s"] * 1e3,
+                     "dominant": a["dominant"],
+                     "compute_ms": a["compute_s"] * 1e3,
+                     "memory_ms": a["memory_s"] * 1e3,
+                     "measured_over_bound": ratio}
+    say(f"  launches of one prefill and one decode step: "
+        f"{out['launches']}")
+    return out
+
+
+def dryrun_all() -> dict:
+    """Phase 39 (c): ``run_cell`` over every ``ARCH_IDS`` x ``SHAPES``
+    cell on the grids of ``DRYRUN_MESHES``: no cell may fail; the skips
+    are ``cell_supported``'s."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import SHAPES, cell_supported
+    from repro_torch.launch import dryrun as dr
+
+    meshes = DRYRUN_MESHES
+    if meshes == (False,):
+        say("  the 16x16 grid only (the whole run took over 60 s on one "
+            "CPU core)")
+    tally = {"ok": 0, "skip": 0, "fail": 0}
+    wrong, slowest, t0 = [], (0.0, ""), time.perf_counter()
+    for arch in configs.ARCH_IDS:
+        for shape in SHAPES.values():
+            for multi in meshes:
+                t = time.perf_counter()
+                try:
+                    rec = dr.run_cell(arch, shape, multi)
+                except Exception as exc:   # tallied, then the phase fails
+                    rec = {"status": "fail", "error": repr(exc)}
+                cell = f"{arch} {shape.name} {'2x16x16' if multi else '16x16'}"
+                slowest = max(slowest, (time.perf_counter() - t, cell))
+                tally[rec["status"]] += 1
+                ok, _ = cell_supported(configs.get_config(arch), shape)
+                if rec["status"] != ("ok" if ok else "skip"):
+                    wrong.append((cell, rec))
+    seconds = time.perf_counter() - t0
+    say(f"  {tally['ok']} ok, {tally['skip']} skip, {tally['fail']} fail "
+        f"in {seconds:.1f} s (slowest {slowest[1]}: {slowest[0]:.1f} s)")
+    if wrong:
+        raise SmokeFailure(f"dry run (c): {len(wrong)} cells not as "
+                           f"cell_supported decides: {wrong[:3]}")
+    return {"cells": tally, "seconds": seconds,
+            "meshes": ["2x16x16" if m else "16x16" for m in meshes]}
+
+
+def dryrun_phase(device) -> dict:
+    """Phase 39, (a)-(c), on ``device``; ``counts`` holds (b)'s
+    launches."""
+    say("  (a) the count on meta and on the card")
+    a = dryrun_on_device(device)
+    say("  (b) the roofline bound against the kernels' path")
+    b = dryrun_roofline(device, {k: v.pop("_record") for k, v in a.items()})
+    say("  (c) the whole dry run")
+    c = dryrun_all()
+    return {"device_count": a, "roofline": b, "all": c,
+            "counts": [b.pop("counts")]}
+
+
+# --------------------------------------------------------------------- #
 # Phase 34: rwkv6-3b at full width (d 2560, 40 heads of 64, d_ff 8960,
 # vocab 65536), bf16 params and float32 moments, trained with the plain LM
 # loss through make_train_step (its recurrence the chunk scan, a token
@@ -7288,6 +7515,11 @@ def main() -> int:
     say(f"  nvidia-smi: {nvidia_smi_line()}")
     data_plane = grid_phase(device)
     counted["phase 38"] = data_plane.pop("counts")
+
+    phase.start("phase 39: the data plane's dry run")
+    say(f"  nvidia-smi: {nvidia_smi_line()}")
+    dry_run = dryrun_phase(device)
+    counted["phase 39"] = dry_run.pop("counts")
     phase.start(None)
     say(f"== done in {time.perf_counter() - t_start:.1f} s")
 
@@ -7311,7 +7543,7 @@ def main() -> int:
         "fleet_goldens": fleet_golden, "fleet": fleet, "gateway": gateway,
         "megatick": megatick, "training": training, "launcher": launcher,
         "examples": examples, "lane_mesh": lane_mesh,
-        "data_plane": data_plane,
+        "data_plane": data_plane, "dry_run": dry_run,
         **{f: timing[f] for f in ("instruction_bound_ms",
                                   "fp64_instructions_per_cell",
                                   "fp64_instructions_per_cell_most",

@@ -77,12 +77,14 @@ def projected_memory_bytes(cfg, shape, chips: int = 256) -> float:
 
 
 def model_flops(rec: dict) -> float:
-    """Useful FLOPs for the whole step (all chips)."""
+    """Useful FLOPs for the whole step (all chips).  A record of a shape
+    other than the four ``SHAPES`` carries its step's ``tokens``."""
     n_active = rec["active_param_count"]
     shape = rec["shape"]
     kind = rec["kind"]
-    tokens = {"train_4k": 256 * 4096, "prefill_32k": 32 * 32768,
-              "decode_32k": 128, "long_500k": 1}[shape]
+    tokens = rec["tokens"] if "tokens" in rec else \
+        {"train_4k": 256 * 4096, "prefill_32k": 32 * 32768,
+         "decode_32k": 128, "long_500k": 1}[shape]
     if kind == "train":
         return 6.0 * n_active * tokens
     return 2.0 * n_active * tokens

@@ -15,7 +15,8 @@ settings.
   ``tests/test_torch_batcher.py`` holds to ``benchmarks.common``.
 * Without ``--device`` the launcher and every ``_torch`` example run on
   the card, so on a machine without one they raise rather than fall back
-  to the CPU.
+  to the CPU; ``multipod_dryrun_torch.py`` takes a device in its
+  ``--fleet`` mode only, its model mode counting on ``meta``.
 """
 
 import importlib.util
@@ -194,3 +195,32 @@ def test_runs_on_the_card_unless_told_otherwise(name):
         example(name).main
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main([])
+
+
+def test_multipod_dryrun_model_mode_at_its_defaults(capsys):
+    """``multipod_dryrun_torch.py`` at its defaults (``rwkv6-3b``
+    ``long_500k`` on both grids): counted on ``meta``, no device taken;
+    the reference example's lines for each record."""
+    assert example("multipod_dryrun_torch").main([]) == 0
+    out = capsys.readouterr().out
+    for mesh, n in (("single", 256), ("multi", 512)):
+        assert f"== rwkv6-3b__long_500k__{mesh}__baseline.json" in out
+        assert f"devices={n} " in out
+    assert out.count("flops/dev=") == 2 and out.count("memory: args=") == 2
+
+
+def test_multipod_dryrun_fleet_mode(capsys):
+    argv = ["--fleet", "--devices", "4", "--streams", "256", "--ticks", "3",
+            "--churn", "16", "--device", "cpu"]
+    assert example("multipod_dryrun_torch").main(argv) == 0
+    out = capsys.readouterr().out
+    assert '"picks_match_single_device": true' in out
+    assert '"builds_flat_under_churn": true' in out
+
+
+def test_multipod_dryrun_fleet_runs_on_the_card_unless_told_otherwise():
+    """The fleet mode takes a device: the card without ``--device``."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device would run")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        example("multipod_dryrun_torch").main(["--fleet"])
