@@ -6,7 +6,11 @@ histograms and phase timers, a :class:`~repro_torch.obs.spans.SpanTracer`
 for host-side phases with JSONL and Chrome-trace export, and a
 :class:`~repro_torch.obs.ring.TelemetryRing` of per-round aggregates fed
 from the megatick's round body.  :class:`FlightRecorder` bundles the
-three; a gateway takes it as its ``obs=`` keyword.
+three; a gateway, the fleet server and the serving engine take it as
+their ``obs=`` keyword.  Where none is attached, the fleet server and the
+engine record their spans into :data:`PROCESS_RECORDER` while
+``torch.profiler`` records (:func:`span_recorder`), so a caller that
+profiles gets them unasked.
 
 Contract, a **pure observer**: attaching a recorder leaves every pick,
 bank state and golden trace bitwise identical, and a disabled recorder
@@ -21,12 +25,14 @@ import os
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram,
                                      MetricsRegistry, PhaseTimer)
 from repro_torch.obs.ring import RING_FIELDS, TelemetryRing
-from repro_torch.obs.spans import SpanTracer, validate_jsonl
+from repro_torch.obs.spans import (SpanTracer, no_span, profiler_recording,
+                                   validate_jsonl)
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "PhaseTimer",
     "TelemetryRing", "RING_FIELDS", "SpanTracer", "validate_jsonl",
-    "FlightRecorder",
+    "FlightRecorder", "PROCESS_RECORDER", "no_span", "resolve_obs",
+    "span_recorder",
 ]
 
 
@@ -62,3 +68,27 @@ class FlightRecorder:
         self.spans.write_chrome_trace(paths["trace"])
         self.ring.save(paths["ring"])
         return paths
+
+
+#: Where the fleet server and the engine record while torch's profiler
+#: records and no recorder is attached to them.  It lives as long as the
+#: process, so past its capacity it forgets its oldest spans.
+PROCESS_RECORDER = FlightRecorder()
+PROCESS_RECORDER.spans = SpanTracer(evict=True)
+
+
+def resolve_obs(obs):
+    """An attached and enabled flight recorder, else None: ``obs=None``
+    and ``FlightRecorder(enabled=False)`` both take the bare path, so
+    every instrumentation site is one pointer check."""
+    return obs if (obs is not None and getattr(obs, "enabled", False)) \
+        else None
+
+
+def span_recorder(ob):
+    """Where a span site records: ``ob`` (a resolved recorder or None),
+    else :data:`PROCESS_RECORDER` while torch's profiler records, else
+    None."""
+    if ob is not None:
+        return ob
+    return PROCESS_RECORDER if profiler_recording() else None

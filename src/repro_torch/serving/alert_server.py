@@ -13,6 +13,14 @@
 
 Power cannot be actuated here, so the power dimension is bookkeeping
 through the same PowerModel the profile uses; the anytime level is real.
+
+With a flight recorder (``obs=``, or the process recorder while
+``torch.profiler`` records), each tick is one span tree: ``serve_tick``
+(its self time is the server's own Python) over ``select``, one
+``input`` a live lane (request id ``<tick>:<lane>``, inherited by the
+engine's spans inside; its end is the input's completion stamp) and
+``feedback``; an attached recorder also gets the reference's
+``fleet_server`` counters.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from repro_torch.core.power import PowerModel
 from repro_torch.core.profiles import (Candidate, ProfileTable,
                                       extrapolate_power_buckets)
 from repro_torch.launch.mesh import mesh_device
+from repro_torch.obs import no_span, resolve_obs, span_recorder
 from repro_torch.serving.engine import ServeEngine
 
 
@@ -164,7 +173,11 @@ class FleetAlertServer:
     ``mesh=`` (a :class:`~repro_torch.launch.mesh.LaneMesh` whose home is
     the engine's device) shards the scoring pass and all bank state over
     its shards: the capacity is rounded up to a multiple of the mesh size
-    (the spare lanes start dead) and always grows in such multiples."""
+    (the spare lanes start dead) and always grows in such multiples.
+
+    ``obs=`` (a :class:`~repro_torch.obs.FlightRecorder`) records each
+    tick's spans and the ``fleet_server`` counters, a pure observer; the
+    engine gets it too where it has none of its own."""
 
     def __init__(self, engine: ServeEngine, params,
                  level_accuracies: list[float], goal: Goal,
@@ -174,7 +187,10 @@ class FleetAlertServer:
                  profile_iters: int = 3, q_fail: float = 0.0,
                  prompt_len: int = 8, gen_tokens: int = 4,
                  accuracy_window: int = 10,
-                 start_active: bool = True, mesh=None):
+                 start_active: bool = True, mesh=None, obs=None):
+        self._ob = resolve_obs(obs)
+        if engine.obs is None:
+            engine.obs = obs
         self.engine = engine
         self.params = params
         self.goal = goal
@@ -259,10 +275,18 @@ class FleetAlertServer:
     def fail_lanes(self, lanes) -> None:
         """Quarantine ``lanes``: their streams stop at once and the lanes
         are never leased again until :meth:`revive_lanes`."""
-        for lane in np.atleast_1d(np.asarray(lanes, dtype=np.int64)):
+        lanes = np.atleast_1d(np.asarray(lanes, dtype=np.int64))
+        for lane in lanes:
             self.active[lane] = False
             self._dead[lane] = True
             self.lane_constraints[lane] = None
+        if self._ob is not None and lanes.size:
+            lab = dict(gateway="fleet_server")
+            self._ob.metrics.counter("quarantine_events", **lab).inc()
+            self._ob.metrics.counter("lanes_quarantined", **lab).inc(
+                int(lanes.size))
+            self._ob.spans.event("quarantine", cat="fault",
+                                 lanes=[int(x) for x in lanes])
 
     def revive_lanes(self, lanes) -> None:
         """Return quarantined ``lanes`` to the free pool."""
@@ -300,6 +324,26 @@ class FleetAlertServer:
         argument or entry falls back to the lane's :meth:`admit`
         override.  Returns one ``ServedInput`` per live lane, ``None`` at
         dead lanes."""
+        ob = span_recorder(self._ob)
+        if ob is None:
+            return self._serve_tick(prompts, constraints, no_span)
+        with ob.spans.span("serve_tick", cat="fleet_server",
+                           tick=len(self.history),
+                           live=int(self.active.sum())):
+            outs = self._serve_tick(prompts, constraints, ob.spans.span)
+        m, lab = ob.metrics, dict(gateway="fleet_server")
+        served = [o for o in outs if o is not None]
+        m.counter("requests_served", **lab).inc(len(served))
+        m.counter("deadline_misses", **lab).inc(
+            sum(o.missed for o in served))
+        m.counter("energy_served_j", **lab).inc(
+            float(sum(o.energy for o in served)))
+        m.counter("rounds_served", **lab).inc()
+        m.timer("serve_tick", **lab).observe(ob.spans.last_s)
+        return outs
+
+    def _serve_tick(self, prompts, constraints, span):
+        """:meth:`serve_tick`'s work, its phases inside ``span``s."""
         cap = self.n_streams
         if len(prompts) != cap:
             raise ValueError(f"{len(prompts)} prompts for {cap} lanes")
@@ -325,10 +369,11 @@ class FleetAlertServer:
                                      "energy_goal on its Constraints")
                 e_goals[s] = c.energy_goal
         q_goals = self._effective_accuracy_goal(constraints)
-        batch = self.scoring.select(
-            self.slowdown.mu, self.slowdown.sigma, self.idle_power.phi,
-            deadlines, accuracy_goal=q_goals, energy_goal=e_goals,
-            goal_kind=self.goal_kinds, active=act)
+        with span("select", cat="fleet_server"):
+            batch = self.scoring.select(
+                self.slowdown.mu, self.slowdown.sigma, self.idle_power.phi,
+                deadlines, accuracy_goal=q_goals, energy_goal=e_goals,
+                goal_kind=self.goal_kinds, active=act)
 
         outs: list[ServedInput | None] = [None] * cap
         observed = np.zeros(cap)
@@ -338,12 +383,15 @@ class FleetAlertServer:
         # One host copy of phi for this tick's energy bookkeeping (phi
         # changes only in the end-of-tick update).
         phi_host = self.idle_power.phi.cpu().numpy()
+        tick = len(self.history)
         for s in np.nonzero(act)[0]:
             i = int(batch.model_index[s])
             lvl = self.engine.levels[i]
-            r = self.engine.generate(self.params, prompts[s],
-                                     self.gen_tokens, level=lvl,
-                                     deadline_s=float(deadlines[s]))
+            with span("input", cat="fleet_server", lane=int(s), level=lvl,
+                      request=f"{tick}:{s}"):
+                r = self.engine.generate(self.params, prompts[s],
+                                         self.gen_tokens, level=lvl,
+                                         deadline_s=float(deadlines[s]))
             lat = r["latency"]
             miss = (lat > deadlines[s]) or not r["complete"]
             acc = self.table.q_fail if miss \
@@ -361,11 +409,14 @@ class FleetAlertServer:
                 missed=bool(miss), accuracy=float(acc),
                 energy=float(energy), feasible=bool(batch.feasible[s]))
 
-        profiled = self.table.latency[batch.model_index, batch.power_index]
-        observe_fleet(self.slowdown, self.idle_power, observed, profiled,
-                      deadline_missed=missed, idle_power=0.25 * active_p,
-                      active_power=active_p, mask=act)
-        if self._goal_bank is not None:
-            self._goal_bank.record(accs, mask=act)
+        with span("feedback", cat="fleet_server"):
+            profiled = self.table.latency[batch.model_index,
+                                          batch.power_index]
+            observe_fleet(self.slowdown, self.idle_power, observed,
+                          profiled, deadline_missed=missed,
+                          idle_power=0.25 * active_p, active_power=active_p,
+                          mask=act)
+            if self._goal_bank is not None:
+                self._goal_bank.record(accs, mask=act)
         self.history.append(outs)
         return outs

@@ -24,6 +24,15 @@ capture); every later call replays the graph.  On the CPU, or with
 ``graphs=False``, the same step functions run eagerly.  A capture that
 fails raises.  The graphs read the weights of the ``params`` they were
 captured with; a call with another ``params`` object captures anew.
+
+With a flight recorder (``obs=``, or the process recorder while
+``torch.profiler`` records), each ``generate`` is a ``generate`` span
+holding an ``upload`` span (the prompt's copy to the card), one ``step``
+span a prefill or decode call (on the card the host's time in
+``graph.replay()``) and one ``token`` span a copy of the next token to
+the host (which waits for the card); each capture counts in
+``graph_captures`` and is a ``graph_capture`` event.  The recorder only
+reads the clock around work the engine does anyway.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from repro_torch.kernels.nested_matmul import nested_matmul
 from repro_torch.kernels.rwkv_scan import rwkv_scan
 from repro_torch.models import transformer as tfm
 from repro_torch.models.registry import Model
+from repro_torch.obs import no_span, resolve_obs, span_recorder
 
 # The kernel wrappers a step may call.  Each counts its launches in
 # Python, which a graph replay does not run, so a replayed step adds what
@@ -104,13 +114,16 @@ class Step:
 class ServeEngine:
     """Per-level serving of one model on ``device`` (default ``"cuda"``):
     prefill, then greedy cached decode, each a step over static buffers,
-    replayed from a CUDA graph on the card unless ``graphs`` is False."""
+    replayed from a CUDA graph on the card unless ``graphs`` is False.
+    ``obs`` is a :class:`~repro_torch.obs.FlightRecorder` to record into
+    (a fleet server hands over its own where this is None)."""
 
     model: Model
     max_len: int
     batch_size: int
     device: torch.device | str | None = None
     graphs: bool = True
+    obs: object = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -150,9 +163,10 @@ class ServeEngine:
     def warmup(self, params, prompt_len: int) -> None:
         """Make every level's steps for ``prompt_len``-token prompts (on the
         card: capture their graphs), so no capture falls in a timed call."""
+        ob = span_recorder(resolve_obs(self.obs))
         with torch.inference_mode():
             for lvl in self.levels:
-                self._steps(params, self._level(lvl), prompt_len)
+                self._steps(params, self._level(lvl), prompt_len, ob)
 
     def generate(self, params, prompt: np.ndarray, n_new: int,
                  level: int | None = None,
@@ -178,17 +192,29 @@ class ServeEngine:
         if self._kv and s0 + n_new - 1 > self.max_len:
             raise ValueError(f"{s0} prompt tokens and {n_new} new ones "
                              f"overflow the {self.max_len}-slot KV cache")
-        with torch.inference_mode():
-            prefill, decode, buf = self._steps(params, lvl, s0)
-            buf.prompts[s0].copy_(torch.as_tensor(np.asarray(prompt,
-                                                             np.int64)))
-            prefill()
-            toks = [buf.next_tok.cpu().numpy().astype(np.int32)]
+        ob = span_recorder(resolve_obs(self.obs))
+        span = ob.spans.span if ob is not None else no_span
+        with span("generate", cat="engine", level=lvl, prompt_len=s0,
+                  tokens_wanted=n_new) as args, torch.inference_mode():
+            prefill, decode, buf = self._steps(params, lvl, s0, ob)
+            with span("upload", cat="engine"):
+                buf.prompts[s0].copy_(torch.as_tensor(np.asarray(prompt,
+                                                                 np.int64)))
+            with span("step", cat="engine", stage="prefill", level=lvl,
+                      graphed=prefill.graph is not None):
+                prefill()
+            with span("token", cat="engine"):
+                toks = [buf.next_tok.cpu().numpy().astype(np.int32)]
             for _ in range(n_new - 1):
                 if deadline_s is not None and clock() - t0 > deadline_s:
                     break
-                decode()
-                toks.append(buf.next_tok.cpu().numpy().astype(np.int32))
+                with span("step", cat="engine", stage="decode", level=lvl,
+                          graphed=decode.graph is not None):
+                    decode()
+                with span("token", cat="engine"):
+                    toks.append(buf.next_tok.cpu().numpy().astype(np.int32))
+            if args is not None:
+                args["tokens_made"] = len(toks)
         return {
             "tokens": np.concatenate(toks, axis=1),
             "latency": clock() - t0,
@@ -201,9 +227,10 @@ class ServeEngine:
         return level if level is not None or cfg.nest_levels == 1 \
             else cfg.nest_levels
 
-    def _steps(self, params, lvl, s0: int):
+    def _steps(self, params, lvl, s0: int, ob=None):
         """(prefill step, decode step, buffers) of level ``lvl`` for
-        ``s0``-token prompts, made on first use."""
+        ``s0``-token prompts, made on first use; each capture counts in
+        ``ob``, a resolved recorder or None."""
         if params is not self._params:
             self._params, self.steps = params, {}
         buf = self._buffers.get(lvl)
@@ -224,11 +251,23 @@ class ServeEngine:
             self.steps[key] = Step(self._prefill_fn(params, lvl, buf, s0),
                                    self.device, graph)
             self._made[0] += 1
+            self._count_capture(ob, self.steps[key], "prefill", lvl, s0)
         if ("decode", lvl) not in self.steps:
             self.steps["decode", lvl] = Step(
                 self._decode_fn(params, lvl, buf), self.device, graph)
             self._made[1] += 1
+            self._count_capture(ob, self.steps["decode", lvl], "decode",
+                                lvl, s0)
         return self.steps[key], self.steps["decode", lvl], buf
+
+    @staticmethod
+    def _count_capture(ob, step: Step, stage: str, lvl, s0: int) -> None:
+        """Count a step just made in ``ob`` where it captured a graph."""
+        if ob is None or step.graph is None:
+            return
+        ob.metrics.counter("graph_captures").inc()
+        ob.spans.event("graph_capture", cat="engine", stage=stage,
+                       level=lvl, prompt_len=s0)
 
     def _prefill_fn(self, params, lvl, buf: _Buffers, s0: int):
         cfg = self.model.cfg

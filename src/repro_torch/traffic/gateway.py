@@ -54,6 +54,7 @@ from repro_torch.core.kalman import (IdlePowerFilterBank, SlowdownFilterBank,
 from repro_torch.core.profiles import ProfileTable
 from repro_torch.kernels import alert_select as select_kernel
 from repro_torch.launch.mesh import lane_pspec, mesh_device
+from repro_torch.obs import resolve_obs as _resolve_obs
 from repro_torch.runtime.elastic import reshard_state
 from repro_torch.runtime.ft import InjectedFailure
 from repro_torch.serving.batcher import DeadlineBatcher
@@ -70,14 +71,6 @@ REJECTED_BACKPRESSURE = 2   # bounded queue was full at arrival
 # sid/index/arrival are rebuilt from the workload at resume).
 _CKPT_OUT_FIELDS = ("status", "start", "latency", "sojourn", "missed",
                     "accuracy", "energy", "model_index", "power_index")
-
-
-def _resolve_obs(obs):
-    """An attached and enabled flight recorder, else None: ``obs=None``
-    and ``FlightRecorder(enabled=False)`` both take the bare path, so
-    every instrumentation site is one pointer check."""
-    return obs if (obs is not None and getattr(obs, "enabled", False)) \
-        else None
 
 
 def _obs_record_result(metrics, out: "GatewayResult", *, gateway: str,

@@ -1086,6 +1086,29 @@ def test_engine_compiles_once_per_level_and_prompt_shape(cuda_device):
     assert eng.n_compiles() == (2 * n, n)
 
 
+def test_engine_records_graph_captures_and_replays(cuda_device):
+    """With a recorder: one ``graph_captures`` count and one
+    ``graph_capture`` event a graph made (a new prompt length captures
+    prefill graphs only); a generate's ``step`` spans are graphed."""
+    from repro_torch.obs import FlightRecorder
+
+    eng, params = _serve_engine(cuda_device, "kernel-kernel", max_len=16)
+    eng.obs = obs = FlightRecorder()
+    n = len(eng.levels)
+    eng.warmup(params, 8)
+    assert obs.metrics.counter("graph_captures").value == 2 * n
+    eng.warmup(params, 5)
+    eng.generate(params, np.zeros((4, 5), np.int32), 3, level=eng.levels[0])
+    assert obs.metrics.counter("graph_captures").value == 3 * n
+    caps = [e["args"] for e in obs.spans.events
+            if e["name"] == "graph_capture"]
+    assert sorted((c["stage"], c["prompt_len"]) for c in caps) == sorted(
+        [("prefill", 8)] * n + [("decode", 8)] * n + [("prefill", 5)] * n)
+    steps = [e["args"] for e in obs.spans.events if e["name"] == "step"]
+    assert [s["stage"] for s in steps] == ["prefill", "decode", "decode"]
+    assert all(s["graphed"] for s in steps)
+
+
 def test_graphed_decode_leaves_no_trace_between_requests(cuda_device):
     """A long request, then a short one: the short one's tokens equal a
     fresh graphed engine's."""

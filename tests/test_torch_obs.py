@@ -459,3 +459,177 @@ def test_report_cli(tables, workload, tmp_path, capsys):
     assert "flight recording" in capsys.readouterr().out
     assert main([]) == 2
     assert main([str(tmp_path / "nope")]) == 2
+
+
+# --------------------------------------------------------------------- #
+# Span ids, parents, requests and profiler ranges                        #
+# --------------------------------------------------------------------- #
+def test_spans_carry_ids_parents_and_requests(tmp_path):
+    tr = SpanTracer()
+    with tr.span("tick") as targs:
+        tr.event("trip")
+        with tr.span("input", request="0:3"):
+            with tr.span("generate") as gargs:
+                gargs["made"] = 2
+            tr.event("capture")
+        targs["live"] = 1
+    with tr.span("tick"):
+        pass
+    ev = tr.events
+    assert [e["name"] for e in ev] == ["trip", "generate", "capture",
+                                        "input", "tick", "tick"]
+    assert len({e["id"] for e in ev}) == len(ev)
+    tick, inp, gen = ev[4], ev[3], ev[1]
+    assert tick["parent"] is None and ev[5]["parent"] is None
+    assert ev[0]["parent"] == inp["parent"] == tick["id"]
+    assert gen["parent"] == ev[2]["parent"] == inp["id"]
+    assert gen["args"] == {"request": "0:3", "made": 2}
+    assert ev[2]["args"] == {"request": "0:3"}
+    assert tick["args"] == {"live": 1} and ev[0]["args"] == {}
+    assert tr.tree_totals("tick", 2) == tr.phase_totals()
+    last = tr.tree_totals("tick", 1)
+    assert list(last) == ["tick"] and last["tick"]["count"] == 1
+    assert last["tick"]["total_s"] == ev[5]["dur_us"] * 1e-6
+    assert tr.tree_totals("tick", 3) is None
+    assert tr.tree_totals("input", 1).keys() == {"input", "generate"}
+    p = str(tmp_path / "spans.jsonl")
+    tr.write_jsonl(p)
+    assert validate_jsonl(p) == 6
+    with open(p) as f:
+        meta = json.loads(f.readline())["_meta"]
+    assert meta["version"] == 2 and meta["t0_unix_ns"] == tr.t0_unix_ns
+    c = str(tmp_path / "trace.json")
+    tr.write_chrome_trace(c)
+    with open(c) as f:
+        doc = json.load(f)
+    assert doc["otherData"]["t0_unix_ns"] == tr.t0_unix_ns
+    assert doc["traceEvents"][1]["args"]["parent"] == inp["id"]
+
+
+def _rewrite(path, edit_meta=None, edit_rec=None):
+    with open(path) as f:
+        lines = [json.loads(x) for x in f]
+    if edit_meta:
+        edit_meta(lines[0]["_meta"])
+    if edit_rec:
+        edit_rec(lines[1:])
+    with open(path, "w") as f:
+        f.writelines(json.dumps(x) + "\n" for x in lines)
+
+
+@pytest.mark.parametrize("fault,dropped,match", [
+    ("dangling", 0, "dangling parent"),
+    ("dangling", 1, None),
+    ("repeated", 0, "repeated id"),
+    ("version1", 0, "header"),
+])
+def test_validate_jsonl_v2_rejects(tmp_path, fault, dropped, match):
+    tr = SpanTracer()
+    with tr.span("a"):
+        with tr.span("b"):
+            pass
+    p = str(tmp_path / "s.jsonl")
+    tr.write_jsonl(p)
+
+    def recs(rs):
+        if fault == "dangling":
+            rs[0]["parent"] = 99
+        elif fault == "repeated":
+            rs[1]["id"] = rs[0]["id"]
+
+    def meta(m):
+        m["dropped"] = dropped
+        if fault == "version1":
+            m["version"] = 1
+
+    _rewrite(p, meta, recs)
+    if match is None:
+        assert validate_jsonl(p) == 2
+    else:
+        with pytest.raises(ValueError, match=match):
+            validate_jsonl(p)
+
+
+def test_spans_are_profiler_ranges_only_while_it_records():
+    tr = SpanTracer()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tr.span("outer"):
+            with tr.span("inner"):
+                torch.ones(2).sum()
+    with tr.span("after"):
+        pass
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.name().startswith("alert.")]
+    assert sorted(names) == ["alert.inner", "alert.outer"]
+    assert len(tr) == 3
+
+
+def _ticks(tr, n):
+    """``n`` ticks of a ``tick`` span over two ``step`` spans."""
+    for _ in range(n):
+        with tr.span("tick"):
+            for _ in range(2):
+                with tr.span("step"):
+                    pass
+
+
+@pytest.mark.parametrize("evict", [False, True])
+def test_full_tracer_drops_new_or_evicts_old(tmp_path, evict):
+    """Past its capacity a tracer drops new records (counted), or, when
+    it evicts, forgets its oldest quarter and keeps the newest; either
+    way what it writes validates, with no dangling parent."""
+    tr = SpanTracer(capacity=8, evict=evict)
+    _ticks(tr, 4)                          # 12 records into 8 slots
+    assert len(tr) <= 8
+    if evict:
+        assert tr.dropped == 0 and tr.evicted == 4
+        assert [e["name"] for e in tr.events] == \
+            ["step", "tick"] + ["step", "step", "tick"] * 2
+    else:
+        assert tr.evicted == 0 and tr.dropped == 4
+        assert [e["name"] for e in tr.events] == \
+            ["step", "step", "tick"] * 2 + ["step", "step"]
+    p = str(tmp_path / "s.jsonl")
+    tr.write_jsonl(p)
+    assert validate_jsonl(p) == len(tr)
+    with open(p) as f:
+        meta = json.loads(f.readline())["_meta"]
+    assert (meta["dropped"], meta["evicted"]) == (tr.dropped, tr.evicted)
+
+
+def test_evicting_tracer_totals_only_whole_ticks():
+    """After an eviction the oldest kept tick may have lost its steps:
+    ``tree_totals`` counts only the ticks after it, and keeps giving the
+    newest ticks however long the tracer runs."""
+    tr = SpanTracer(capacity=8, evict=True)
+    _ticks(tr, 2)
+    assert tr.tree_totals("tick", 2)["step"]["count"] == 4
+    _ticks(tr, 2)          # evicts the first tick and a step of the second
+    assert tr.evicted == 4
+    assert [e["name"] for e in tr.events].count("tick") == 3
+    assert tr.tree_totals("tick", 3) is None
+    two = tr.tree_totals("tick", 2)
+    assert two["tick"]["count"] == 2 and two["step"]["count"] == 4
+    for _ in range(50):
+        _ticks(tr, 1)
+        newest = [e for e in tr.events if e["name"] == "tick"][-1]
+        assert tr.tree_totals("tick", 1)["tick"]["total_s"] == \
+            newest["dur_us"] * 1e-6
+    assert tr.evicted > 0 and tr.dropped == 0
+
+
+def test_last_s_is_the_span_that_ended_last():
+    tr = SpanTracer()
+    with tr.span("outer"):
+        with tr.span("inner"):
+            pass
+        assert tr.last_s == tr.events[-1]["dur_us"] * 1e-6
+    assert tr.last_s == tr.events[-1]["dur_us"] * 1e-6
+    assert tr.events[-1]["name"] == "outer"
+
+
+def test_process_recorder_evicts():
+    from repro_torch.obs import PROCESS_RECORDER
+    assert PROCESS_RECORDER.spans.evict
+    assert not FlightRecorder().spans.evict

@@ -115,16 +115,18 @@ def assert_served_equal(t_out, j_out):
         np.testing.assert_allclose(t.energy, j.energy, rtol=RTOL, atol=0)
 
 
-def test_fleet_server_six_ticks_match(setup):
+def fleet_pair(setup, j_obs=None, t_obs=None):
+    """The reference's and the port's fleet servers over the same table,
+    with the six tenants admitted, and their prompts."""
     _, _, j_params, t_params = setup
     j_eng, t_eng = engines(setup)
     kw = dict(level_accuracies=ACCS, n_streams=len(TENANTS),
               profile_iters=1, gen_tokens=GEN_TOKENS, prompt_len=4,
               start_active=False)
     j_srv = js.FleetAlertServer(j_eng, j_params,
-                                goal=jc.Goal.MINIMIZE_ENERGY, **kw)
+                                goal=jc.Goal.MINIMIZE_ENERGY, obs=j_obs, **kw)
     t_srv = ts.FleetAlertServer(t_eng, t_params,
-                                goal=tc.Goal.MINIMIZE_ENERGY, **kw)
+                                goal=tc.Goal.MINIMIZE_ENERGY, obs=t_obs, **kw)
     assert t_srv.scoring.backend == "torch"
     for srv, tbl, mod, eng_cls in ((j_srv, jax_table(table()), jc,
                                     jb.BatchedAlertEngine),
@@ -137,14 +139,24 @@ def test_fleet_server_six_ticks_match(setup):
             admit(srv, mod, *tenant)
     prompts = [np.random.default_rng(s).integers(0, 256, (2, 4))
                .astype(np.int32) for s in range(len(TENANTS))]
+    return j_srv, t_srv, prompts
+
+
+def tick_pair(j_srv, t_srv, prompts, tick):
+    """Tick ``tick`` on both servers (lane 2 retired and re-admitted
+    before tick 3); both answers."""
+    if tick == 3:
+        for srv, mod in ((j_srv, jc), (t_srv, tc)):
+            srv.retire(2)
+            assert admit(srv, mod, "max", 0.045, None, 3.0) == 2
+    return t_srv.serve_tick(prompts), j_srv.serve_tick(prompts)
+
+
+def test_fleet_server_six_ticks_match(setup):
+    j_srv, t_srv, prompts = fleet_pair(setup)
     levels_seen = set()
     for tick in range(6):
-        if tick == 3:
-            for srv, mod in ((j_srv, jc), (t_srv, tc)):
-                srv.retire(2)
-                assert admit(srv, mod, "max", 0.045, None, 3.0) == 2
-        t_out = t_srv.serve_tick(prompts)
-        j_out = j_srv.serve_tick(prompts)
+        t_out, j_out = tick_pair(j_srv, t_srv, prompts, tick)
         assert_served_equal(t_out, j_out)
         levels_seen |= {o.level for o in t_out if o is not None}
     assert len(levels_seen) > 1
@@ -158,6 +170,37 @@ def test_fleet_server_six_ticks_match(setup):
                                rtol=RTOL, atol=0)
     assert np.array_equal(t_srv.slowdown.n_updates.numpy(),
                           np.asarray(j_srv.slowdown.n_updates))
+
+
+def test_fleet_server_catalog_matches_reference(setup):
+    """With a recorder attached to each, the port's server counts what
+    the reference's counts over the six ticks (energy within 1e-9
+    relative), and a quarantine alike."""
+    from repro.obs import FlightRecorder as JRecorder
+    from repro_torch.obs import FlightRecorder
+
+    j_obs, t_obs = JRecorder(), FlightRecorder()
+    j_srv, t_srv, prompts = fleet_pair(setup, j_obs, t_obs)
+    for tick in range(6):
+        tick_pair(j_srv, t_srv, prompts, tick)
+    for srv in (j_srv, t_srv):
+        srv.fail_lanes([1, 4])
+        srv.fail_lanes([])
+    lab = dict(gateway="fleet_server")
+    for name in ("requests_served", "deadline_misses", "rounds_served",
+                 "quarantine_events", "lanes_quarantined"):
+        assert t_obs.metrics.counter(name, **lab).value == \
+            j_obs.metrics.counter(name, **lab).value, name
+    assert t_obs.metrics.counter("deadline_misses", **lab).value > 0
+    np.testing.assert_allclose(
+        t_obs.metrics.counter("energy_served_j", **lab).value,
+        j_obs.metrics.counter("energy_served_j", **lab).value,
+        rtol=1e-9, atol=0)
+    assert t_obs.metrics.timer("serve_tick", **lab).count == \
+        j_obs.metrics.timer("serve_tick", **lab).count == 6
+    quarantines = [[e["args"] for e in o.spans.events
+                    if e["name"] == "quarantine"] for o in (t_obs, j_obs)]
+    assert quarantines[0] == quarantines[1] == [{"lanes": [1, 4]}]
 
 
 def test_fleet_server_grows_when_full(setup):
