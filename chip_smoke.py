@@ -59,6 +59,14 @@ Phases (each prints its own lines; any mismatch exits nonzero):
    its plain version, the ``blocks`` backend and a dense matmul on the
    block-masked weight (the library call) as device time (CUDA graph),
    back to back, and the wrapper's host cost per call, beside the bound.
+   None of these calls (M <= 32) may take v4.  Then the scoring
+   prefill's shapes: M = 512 at Mistral-7B's four geometries (4096x4096,
+   4096x1024, 4096x14336, 14336x4096) at every level, v4 checked against
+   its plain version and timed beside it, the library call and the
+   bound, each launch read back (the v4 plan's grid and cluster); v4
+   against the plain version also at M = 520 (a partial row tile) and on
+   stripes no multiple of 64 or 128; and v3 against v4 forced in turn at
+   M = 32 .. 512 over both models' geometries (the crossover).
 6. the reduced float32 model with the ``kernel`` nest backend on the card
    against the same model with ``blocks`` on the CPU, within 1e-4.
 7. serve (``kernel`` nest backend): phase 4 again with
@@ -443,10 +451,15 @@ DA_REPLACES = "src/repro/kernels/decode_attention.py:74"
 FA_VERSION = ("v2: bf16 on the tensor cores (FlashAttention-2 design, "
               "2-stage cp.async ring): wgmma at hd 72-96 past one key "
               "tile, mma.sync otherwise; float32 on the CUDA cores as v1")
-NM_VERSION = ("v3: bf16 on the tensor cores (mma.sync), 64-column tiles "
-              "split in k across a thread-block cluster, 4-stage cp.async "
-              "ring, fixed-order sum through distributed shared memory; "
-              "float32 and unaligned bf16 on the CUDA-core kernel (v2)")
+NM_VERSION = ("v4 from M = 128 (bf16, 16-byte aligned rows): wgmma on "
+              "256/128 x 128 tiles fed by TMA through a 4-6 stage mbarrier "
+              "ring, one producer warpgroup and two consumers, the longest "
+              "k first, long tiles split in k across a cluster with a "
+              "fixed-order sum; v3 below: bf16 on the tensor cores "
+              "(mma.sync), 64-column tiles split in k across a "
+              "thread-block cluster, 4-stage cp.async ring, fixed-order sum "
+              "through distributed shared memory; float32 and unaligned "
+              "bf16 on the CUDA-core kernel (v2)")
 DA_VERSION = ("v4: split-K flash-decoding (runs of whole tiles across "
               "blocks, then a combine kernel); one split at the served "
               "shapes")
@@ -496,6 +509,16 @@ ATT_TOL = {"bfloat16": (2.0 ** -7, 2.0 ** -7), "float32": (1e-5, 1e-5)}
 RS_TOL = {"bfloat16": (2.0 ** -7 / (1 - 2.0 ** -8), 1.01e-5),
           "float32": (1e-5, 1e-5)}
 L2_BYTES = 50e6                    # H100 L2; timed inputs exceed it twice
+# Mistral-7B-v0.3's projections (name, k_in, n), nested in 4 levels: the
+# benchmark's scoring prefill runs them at WIDE_M rows (B=4 x 128 tokens).
+MISTRAL_GEOMETRIES = (("d->q", 4096, 4096), ("d->kv", 4096, 1024),
+                      ("d->d_ff", 4096, 14336), ("d_ff->d", 14336, 4096))
+WIDE_M = 512
+# Input and output stripe boundaries that are no multiple of 64 or of
+# v4's 128-column tile, over input prefixes none of the 64-row step.
+ODD_SPECS = ((0, 40, 100, 200, 328), (0, 24, 72, 176, 264))
+# Rows at which nested_crossover times v3 against v4.
+CROSS_MS = (32, 64, 96, 128, 192, 256, 384, 512)
 LEVEL_ACCURACIES = [0.62, 0.71, 0.78, 0.83]
 N_TICKS = 4
 # Layers of the earlier serve phases 4 and 7, cut from 12 to keep the run
@@ -1191,17 +1214,28 @@ def time_nested(device, cfg, m: int) -> dict:
     return out
 
 
-def nested_launched(call, what: str, want_splits: int | None = None
-                    ) -> dict:
+def nested_launched(call, what: str, want_splits: int | None = None,
+                    want_plan=None) -> dict:
     """The kernel one ``nested_matmul`` call launched, read from a CUDA
-    graph of the call: its grid (splits, column tiles, row tiles) and
-    cluster.  Raises unless it is one v3 launch whose cluster spans its
-    splits, and, given ``want_splits``, has that many."""
+    graph of the call: its grid and cluster.  Without ``want_plan``,
+    raises unless it is one v3 launch whose cluster spans its splits
+    (grid: splits, column tiles, row tiles), and, given ``want_splits``,
+    has that many; with ``want_plan`` (a v4 ``WidePlan``), unless it is
+    one v4 launch of the plan's blocks in clusters of the plan's size."""
     launched = captured_kernels(call, cluster=True)
-    if len(launched) != 1 or "nested_matmul_v3" not in launched[0][0]:
+    kind = "nested_matmul_v3" if want_plan is None else "nested_matmul_v4"
+    if len(launched) != 1 or kind not in launched[0][0]:
         raise SmokeFailure(f"nested_matmul {what} launched {launched}, not "
-                           f"one v3 kernel")
+                           f"one {kind[-2:]} kernel")
     _, grid, clus = launched[0]
+    if want_plan is not None:
+        want = want_plan.cluster
+        if grid != (want_plan.blocks, 1, 1) or clus != (want, 1, 1):
+            raise SmokeFailure(f"nested_matmul {what} launched grid {grid} "
+                               f"in clusters of {clus}, the v4 plan "
+                               f"{want_plan.blocks} blocks in clusters of "
+                               f"{want_plan.cluster}")
+        return {"blocks": grid[0], "grid": grid, "cluster": want}
     if clus != (grid[0], 1, 1) or (want_splits is not None
                                    and grid[0] != want_splits):
         raise SmokeFailure(f"nested_matmul {what} launched grid {grid} in "
@@ -1270,6 +1304,203 @@ def time_nested_levels(device, cfg) -> list[dict]:
                     f"{row['bound_share']:.3f} of it")
         del ws, masked
     return rows
+
+
+def mistral_geometries():
+    """Mistral-7B-v0.3's four projection geometries (hidden 4096, 8 KV
+    heads of 128, intermediate 14336) in 4 power-of-2 levels, as (name,
+    in spec, out spec): the benchmark's scoring prefill runs them at
+    ``WIDE_M`` rows."""
+    from repro_torch.core.nesting import StripeSpec
+
+    return [(name, StripeSpec.pow2(k_in, 4), StripeSpec.pow2(n, 4))
+            for name, k_in, n in MISTRAL_GEOMETRIES]
+
+
+def wide_vs_plain(xk, w, si, so, level, what: str) -> tuple[float, float]:
+    """One v4 call against its plain version (``nested_close`` in bf16):
+    (max abs error, worst error / tolerance); raises unless the call took
+    v4, once, and is within the tolerance."""
+    import torch
+
+    from repro_torch.kernels import nested_matmul as nm
+
+    before = nm.nested_matmul.v4_launches
+    got = nm.nested_matmul(xk, w, si, so, level)
+    torch.cuda.synchronize(xk.device)
+    if nm.nested_matmul.v4_launches != before + 1:
+        raise SmokeFailure(f"nested_matmul {what} did not take v4 once")
+    e, r = nested_close(got, nm.nested_matmul_plain(xk, w, si, so, level),
+                        "bfloat16")
+    if r > 1.0:
+        raise SmokeFailure(f"nested_matmul v4 {what}: max abs err {e:.3e}, "
+                           f"{r:.3f}x the tolerance")
+    return e, r
+
+
+def nested_wide_odd(device) -> float:
+    """Phase 5 check of v4 beyond the timed shapes: ``WIDE_M`` + 8 rows
+    (a partial row tile) at Mistral-7B's four geometries, and stripes
+    that are no multiple of 64 or of the 128-column tile (``ODD_SPECS``)
+    at M in {128, 520}, every level, a level-prefix view of a full-width
+    ``x`` and the full ``w``, against the plain version.  Returns the
+    largest absolute error."""
+    import torch
+
+    from repro_torch.core.nesting import StripeSpec
+
+    gen = torch.Generator(device=device).manual_seed(10)
+    odd = tuple(StripeSpec(b) for b in ODD_SPECS)
+    cases = [(n, si, so, (WIDE_M + 8,)) for n, si, so in mistral_geometries()]
+    cases.append(("odd", *odd, (128, WIDE_M + 8)))
+    worst = 0.0
+    for name, si, so, ms in cases:
+        w = (torch.randn(si.total, so.total, generator=gen, device=device)
+             * si.total ** -0.5).to(torch.bfloat16)
+        err, ratio = 0.0, 0.0
+        for m in ms:
+            x = torch.randn(m, si.total, generator=gen,
+                            device=device).to(torch.bfloat16)
+            for level in range(1, so.levels + 1):
+                e, r = wide_vs_plain(x[:, :si.width(min(level, si.levels))],
+                                     w, si, so, level,
+                                     f"{name} level {level} M={m}")
+                err, ratio = max(err, e), max(ratio, r)
+        worst = max(worst, err)
+        say(f"  ok v4 {name} {si.total}x{so.total} bf16, levels "
+            f"1-{so.levels}, M in {list(ms)}: max abs err {err:.3e} "
+            f"({ratio:.3f} of the tolerance)")
+    return worst
+
+
+def time_nested_wide(device) -> list[dict]:
+    """Phase 5 table at the scoring prefill's shapes: ``WIDE_M`` rows at
+    Mistral-7B's four geometries and every level, in bf16: the kernel
+    (v4), its plain version and the library call (a dense matmul of the
+    level-prefix ``x`` on the block-masked weight's live rows and
+    columns, a yardstick only) as device time (CUDA graph, weights
+    rotated beyond twice the L2) beside the bound and its share; each
+    call checked against the plain version (``wide_vs_plain``: it took
+    v4 once, within the tolerance) and its launch read back from a CUDA
+    graph of it (one v4 kernel, the plan's grid and cluster)."""
+    import torch
+
+    from repro_torch.core.nesting import block_triangular_mask
+    from repro_torch.kernels import nested_matmul as nm
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    rows = []
+    for name, si, so in mistral_geometries():
+        n_w = math.ceil(2 * L2_BYTES / (2 * si.total * so.total))
+        ws = [(torch.randn(si.total, so.total, generator=gen, device=device)
+               * si.total ** -0.5).to(torch.bfloat16) for _ in range(n_w)]
+        mask = torch.as_tensor(block_triangular_mask(si, so), device=device,
+                               dtype=torch.bfloat16)
+        sets = [(w, w * mask) for w in ws]
+        x = torch.randn(WIDE_M, si.total, generator=gen,
+                        device=device).to(torch.bfloat16)
+        for level in range(1, so.levels + 1):
+            k_need = si.width(min(level, si.levels))
+            n_cols = so.width(level)
+            xk = x[:, :k_need]
+            err, ratio = wide_vs_plain(xk, ws[0], si, so, level,
+                                       f"{name} level {level} M={WIDE_M}")
+            ms = graph_ms(rotating(lambda w, mw: nm.nested_matmul(
+                xk, w, si, so, level), sets))
+            lib = graph_ms(rotating(lambda w, mw: torch.matmul(
+                xk, mw[:k_need, :n_cols]), sets))
+            plain = graph_ms(rotating(lambda w, mw: nm.nested_matmul_plain(
+                xk, w, si, so, level), sets), calls=8)
+            cost = nm.nested_matmul_cost(WIDE_M, si, so, level,
+                                         torch.bfloat16)
+            b_ms, b_by = bound(cost)
+            plan = nm.nested_wide_plan(
+                WIDE_M, nm.wide_tile_limits(tuple(si.boundaries),
+                                            tuple(so.boundaries), level),
+                nm.sm_count(device))
+            got = nested_launched(
+                lambda: nm.nested_matmul(xk, ws[0], si, so, level),
+                f"{name} level {level} M={WIDE_M}", want_plan=plan)
+            row = {"geometry": name, "level": level, "m": WIDE_M, "ms": ms,
+                   "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+                   "bound_by": b_by, "bound_share": b_ms / ms,
+                   "tflops": cost["flops"] / ms / 1e9,
+                   "blocks": got["blocks"], "cluster": got["cluster"],
+                   "plan_steps": plan.makespan, "max_abs_err": err,
+                   "tol_ratio": ratio}
+            rows.append(row)
+            say(f"  time {name} level {level} M={WIDE_M} bf16 (device time, "
+                f"CUDA graph, {n_w} weights in turn): kernel {ms:.6f} ms "
+                f"(v4: {got['blocks']} blocks in clusters of "
+                f"{got['cluster']}), plain {plain:.6f} ms, library "
+                f"{lib:.6f} ms; bound {b_ms:.6f} ms by {b_by}, "
+                f"{row['bound_share']:.3f} of it "
+                f"({row['tflops']:.1f} TFLOP/s); max abs err against plain "
+                f"{err:.3e} ({ratio:.3f} of the tolerance)")
+        del ws, sets
+    return rows
+
+
+def nested_crossover(device, ms=CROSS_MS) -> dict:
+    """Phase 5: where v4 overtakes v3.  At the anytime LM's three
+    geometries and Mistral-7B's four, every level, bf16, M in ``ms``:
+    the call with its path forced to v3 and to v4 in turn
+    (``nested_path`` replaced), as device time (CUDA graph, weights
+    rotated beyond L2).  Returns ``{"sums": {M: {"v3": ms, "v4": ms}},
+    "calls": [...]}``: each path's time summed over the geometries and
+    levels, and each call's (geometry, level, M, n_cols, k_end, v3, v4,
+    the path ``nested_path`` picks), from which ``WIDE_MIN_M`` is set."""
+    import torch
+
+    from repro_torch.configs.alert_anytime import CONFIG
+    from repro_torch.kernels import nested_matmul as nm
+
+    gen = torch.Generator(device=device).manual_seed(9)
+    geos = [(f"anytime {n}", si, so)
+            for n, si, so in projection_geometries(CONFIG)]
+    geos += [(f"mistral {n}", si, so) for n, si, so in mistral_geometries()]
+    chosen = nm.nested_path
+    sums = {m: {"v3": 0.0, "v4": 0.0} for m in ms}
+    calls = []
+    try:
+        for name, si, so in geos:
+            n_w = math.ceil(2 * L2_BYTES / (2 * si.total * so.total))
+            sets = [((torch.randn(si.total, so.total, generator=gen,
+                                  device=device) * si.total ** -0.5)
+                     .to(torch.bfloat16),) for _ in range(n_w)]
+            for m in ms:
+                x = torch.randn(m, si.total, generator=gen,
+                                device=device).to(torch.bfloat16)
+                for level in range(1, so.levels + 1):
+                    k_end = si.width(min(level, si.levels))
+                    xk = x[:, :k_end]
+                    row = {"geometry": name, "level": level, "m": m,
+                           "n_cols": so.width(level), "k_end": k_end,
+                           "picked": chosen(xk, sets[0][0])}
+                    for path in ("v3", "v4"):
+                        nm.nested_path = lambda *a, p=path: p
+                        row[path] = graph_ms(rotating(
+                            lambda w: nm.nested_matmul(xk, w, si, so,
+                                                       level), sets),
+                            calls=16)
+                        sums[m][path] += row[path]
+                    calls.append(row)
+                mine = calls[-so.levels:]
+                say(f"  crossover {name} M={m}, levels 1-{so.levels} "
+                    f"(device time, CUDA graph, ms): v3 "
+                    f"{[round(r['v3'], 6) for r in mine]}, v4 "
+                    f"{[round(r['v4'], 6) for r in mine]}")
+            del sets
+    finally:
+        nm.nested_path = chosen
+    for m in ms:
+        say(f"  crossover M={m}, all geometries and levels: v3 "
+            f"{sums[m]['v3']:.6f} ms, v4 {sums[m]['v4']:.6f} ms")
+    picked = sum(r[r["picked"]] for r in calls)
+    best = sum(min(r["v3"], r["v4"]) for r in calls)
+    say(f"  crossover, every call at the path nested_path picks: "
+        f"{picked:.6f} ms, at the faster of the two: {best:.6f} ms")
+    return {"sums": sums, "calls": calls}
 
 
 def nested_split_sweep(device, cfg, m: int = 32) -> dict:
@@ -7285,12 +7516,23 @@ def main() -> int:
     say(f"  reduced-model max abs logit diff {err_model:.3e}")
 
     phase.start("phase 5: nested_matmul kernel vs plain version on the card")
+    from repro_torch.kernels.nested_matmul import nested_matmul as nm_call
+
+    v4_before = nm_call.v4_launches
     nm_err = nested_vs_plain(device, CONFIG)
     nm_levels = time_nested_levels(device, CONFIG)
     nm_sweep = nested_split_sweep(device, CONFIG)
     nm_live = nested_live_split(device, CONFIG)
     nm_time = {m: time_nested(device, CONFIG, m) for m in (32, 4)}
     fwd = {m: time_forward_projections(device, CONFIG, m) for m in (32, 4)}
+    if nm_call.v4_launches != v4_before:
+        raise SmokeFailure(f"{nm_call.v4_launches - v4_before} nested_matmul "
+                           f"calls at M <= 32 took v4")
+    say("  v4 launches at M <= 32 (the served shapes above): 0")
+    nm_wide = time_nested_wide(device)
+    nm_wide_err = max(max(r["max_abs_err"] for r in nm_wide),
+                      nested_wide_odd(device))
+    nm_cross = nested_crossover(device)
 
     phase.start("phase 6: reduced model, kernel nest backend")
     err_model_k = model_cpu_vs_card(device, backend="kernel")
@@ -7552,7 +7794,8 @@ def main() -> int:
     kernels.append({
         "name": "nested_matmul", "route": "cuda", "source": NM_SOURCE,
         "replaces": NM_REPLACES, "launches": launches["nested_matmul"],
-        "max_abs_err": nm_err, "ms": t32["ms"], "plain_ms": t32["plain_ms"],
+        "max_abs_err": nm_err, "v4_max_abs_err": nm_wide_err,
+        "ms": t32["ms"], "plain_ms": t32["plain_ms"],
         "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
         "library_ms": t32["library_ms"], "shape": t32["shape"],
         "blocks_ms": t32["blocks_ms"], "eager_ms": t32["eager_ms"],
@@ -7566,7 +7809,9 @@ def main() -> int:
             "bound_ms", "bound_by", "eager_ms", "blocks_eager_ms")}
             for m in fwd},
         "version": NM_VERSION, "levels": nm_levels, "split_sweep": nm_sweep,
-        "live_triangle": nm_live,
+        "live_triangle": nm_live, "scoring_m512": nm_wide,
+        "crossover": {f"M={m}": v for m, v in nm_cross["sums"].items()},
+        "crossover_calls": nm_cross["calls"],
         "reduced_model_max_abs_diff": err_model_k,
         "phase7_launches": run_k["nm_launches"],
         "tick_s": {f"blocks_{SERVE_DEPTH}_layers": run["tick_s"],

@@ -16,7 +16,8 @@
 // the card streams in about a microsecond only with most of them in
 // flight at once, so at these sizes the limit is latency and the launch.
 //
-// v3 (bf16 with 16-byte aligned rows; the served path):
+// v3 (bf16 with 16-byte aligned rows, M below the crossover; the served
+// path):
 // * Work over the live triangle, split in k.  An output tile is 64
 //   columns by BM rows (BM = 16 for M <= 16, else 32); its k range ends
 //   at the limit of its last column (limits rise with the column).  The
@@ -47,15 +48,49 @@
 //   replayed from a CUDA graph, give the same bits.  A tile of one split
 //   is written from the registers.
 //
+// v4 (bf16 with 16-byte aligned rows, M >= the crossover; the scoring
+// prefill): at M = 512 the product does 2 * 512 flops per weight element,
+// about 512 FLOP/B, above the card's ~295 FLOP/B line, so it is bound by
+// the tensor cores, and by how evenly the triangle's work fills the SMs.
+// v3's 32 x 64 mma.sync tiles read each weight element 16 times and reach
+// ~8 % of the bound there.  v4:
+// * wgmma on large tiles.  A block computes a 256 x 128 tile (128 x 128
+//   where that pads M less): two consumer warpgroups, each 64 * MI rows as
+//   MI m64n128k16 wgmmas a 16-deep k step, float32 accumulators in
+//   registers; x K-major, w read as stored (MN-major, transposed by the
+//   instruction).  One producer warp keeps TMA loads of 64-deep k stages
+//   in flight through a 4-stage (6 at 128 rows) ring of mbarriers in
+//   128-byte swizzled shared memory; setmaxnreg moves the producer's
+//   registers to the consumers.  Tensor maps, which TMA reads, are cached
+//   by pointer, shape and stride on the host.
+// * The triangle, exactly.  A tile's k range ends at its last column's
+//   limit; a stage into which some column's limit falls has the weight
+//   elements past their limits zeroed in shared memory before the
+//   wgmmas, so any stripe layout is right.  At the benchmark's widths
+//   every stripe is a multiple of 128 and every prefix of 64, and no
+//   stage is masked.
+// * Balance.  The wide stripe's tiles read up to 8x the k of the first.
+//   Blocks run longest k first (the launch order of the plan, from the
+//   shapes alone: nested_wide_plan), and long tiles are split in k into
+//   2-8 chunks on neighbouring blocks of one cluster, as far as that
+//   evens the waves in the plan's model.  Each chunk's block sends the
+//   rows that another owns through distributed shared memory (into its
+//   drained ring) between two cluster barriers; the owner sums the slots
+//   in chunk order and writes bf16 once.  No atomics: two calls, and a
+//   replay from a CUDA graph, give the same bits.
+//
 // The CUDA-core kernel (v2) serves float32, and bf16 whose pointers or
 // row strides are not 16-byte aligned: one block of 8 warps per 32-column
 // tile, lane = output column, the 8 warps splitting each 128-wide k step,
 // register prefetch of the next step, one cross-warp sum in shared memory.
 
 #include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and its enums (the library links no driver)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace cg = cooperative_groups;
 
@@ -496,10 +531,11 @@ template <int BM>
 static cudaError_t launch_v3(const void* x, const void* w, void* out, int m,
                              long long ldx, long long ldw, int n_cols,
                              const Bounds& ib, int n_in, const Bounds& ob,
-                             int n_out, int splits, cudaStream_t stream) {
-  static bool configured = false;  // the attributes, set once
+                             int n_out, int splits, int device,
+                             cudaStream_t stream) {
+  static int configured = -1;  // device whose attributes are set
   auto kernel = nested_matmul_v3_kernel<BM>;
-  if (!configured) {
+  if (configured != device) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         V3Smem<BM>::BYTES);
@@ -507,7 +543,7 @@ static cudaError_t launch_v3(const void* x, const void* w, void* out, int m,
       err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
-    configured = true;
+    configured = device;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, (n_cols + NM3_BN - 1) / NM3_BN, (m + BM - 1) / BM);
@@ -525,6 +561,509 @@ static cudaError_t launch_v3(const void* x, const void* w, void* out, int m,
       &cfg, kernel, static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(out),
       m, ldx, ldw, n_cols, ib, n_in, ob, n_out);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ //
+// Hopper kernel (v4): wgmma fed by TMA, for M at or past the crossover //
+// ------------------------------------------------------------------ //
+
+#define NM4_BN 128                     // output columns of a tile
+#define NM4_BK 64                      // k rows of a stage: 128 B of bf16
+#define NM4_THREADS 384                // 2 consumer warpgroups, 1 producer
+#define NM4_MAX_CLUSTER 8
+#define NM4_RPITCH (NM4_BN + 8)        // float row of the split-k slots
+
+// The launch order of the column tiles: runs of tiles with one k limit,
+// the longest first, each with its k split.  Block u of the 1-D grid
+// takes run g with unit0[g] <= u, then (tile, row tile, chunk) with the
+// chunk fastest, so a tile's chunks are neighbours in one cluster and
+// the row tiles that share a weight block run side by side.
+struct V4Runs {
+  int n;
+  int tile0[NM_MAX_LEVELS];   // first column tile of the run
+  int tiles[NM_MAX_LEVELS];   // column tiles in the run
+  int splits[NM_MAX_LEVELS];  // k chunks a tile (a power of 2)
+  int unit0[NM_MAX_LEVELS];   // first block of the run
+};
+
+template <int MI>  // m64 blocks a consumer warpgroup: BM = 128 * MI rows
+struct V4Smem {
+  static constexpr int BM = 128 * MI;
+  static constexpr int STAGES = MI == 2 ? 4 : 6;
+  static constexpr int A_BYTES = BM * NM4_BK * 2;
+  static constexpr int B_BYTES = NM4_BK * NM4_BN * 2;  // two 64-col boxes
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int RING = STAGES * STAGE;
+  // the ring, 1024-aligned by hand, then the full and empty barriers
+  static constexpr int BYTES = RING + 1024 + 2 * STAGES * 8;
+  static_assert(BM * NM4_RPITCH * 4 <= RING, "the split-k slots fit");
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+
+// Spin until the barrier's phase of parity `parity` has completed.  A
+// wait of 2^35 cycles (over 15 s) outlasts any call's work: it is a fault,
+// and the kernel traps rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  if (mbar_try_wait(a, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(a, parity))
+    if (clock64() - t0 > (1ll << 35)) __trap();
+}
+
+// TMA: the box at (c0 inner, c1 outer) of `map` -> shared memory, its
+// bytes counted on `bar`; the box's part outside the tensor reads zeros.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// A wgmma descriptor of a tile stored with the 128-byte swizzle (TMA's
+// CU_TENSOR_MAP_SWIZZLE_128B): 8-row groups of 128-byte rows, 1 KB each.
+// For x (K-major) SBO is the 1 KB group stride and LBO is unused; for w
+// (MN-major: 64 columns of a row contiguous) LBO is the stride of the
+// next 64 columns and SBO the next 8 k rows.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | static_cast<uint64_t>(1)
+                                                     << 62;
+}
+
+#define NM4_R8(d, i)                                                  \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d[64x128] += x[64x16] (K-major) @ w[16x128] (MN-major), both in shared
+// memory: thread t of the warpgroup holds d[i] at row 16 * (t / 32) +
+// (t % 32) / 4 + 8 * ((i / 2) % 2), column 8 * (i / 4) + 2 * (t % 4) +
+// i % 2.
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : NM4_R8(d, 0), NM4_R8(d, 8), NM4_R8(d, 16), NM4_R8(d, 24),
+        NM4_R8(d, 32), NM4_R8(d, 40), NM4_R8(d, 48), NM4_R8(d, 56)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A cluster barrier's arrive with release semantics (the partials
+// written before it are seen by the blocks that wait on it).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void consumers_sync() {  // the 256 consumers
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// Zero the weight elements of a landed stage (k rows k0 .., the tile's
+// columns n0 ..) that lie at or past their column's limit.  A column's
+// 8-element chunk c of row r sits at chunk c ^ (r % 8) of its 64-column
+// box's 128-byte row.
+__device__ __forceinline__ void v4_mask(unsigned char* b, int k0, int n0,
+                                     int n_cols, const Bounds& ob, int n_out,
+                                     const Bounds& ib, int n_in) {
+  for (int q = threadIdx.x; q < NM4_BK * NM4_BN / 8; q += 256) {
+    const int box = q / (NM4_BK * 8), r = q / 8 % NM4_BK, p = q % 8;
+    const int c = n0 + box * 64 + (p ^ (r & 7)) * 8;
+    uint4* at = reinterpret_cast<uint4*>(b + box * (NM4_BK * 128) + r * 128 +
+                                         p * 16);
+    uint32_t v[4] = {at->x, at->y, at->z, at->w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int col = c + e;
+      const int lim =
+          col < n_cols ? column_limit(col, ob, n_out, ib, n_in) : 0;
+      if (k0 + r >= lim) v[e / 2] &= (e & 1) ? 0x0000FFFFu : 0xFFFF0000u;
+    }
+    *at = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+template <int MI>
+__global__ void __launch_bounds__(NM4_THREADS, 1) nested_matmul_v4_kernel(
+    const __grid_constant__ CUtensorMap map_x,
+    const __grid_constant__ CUtensorMap map_w,
+    __nv_bfloat16* __restrict__ out, int m, int n_cols, Bounds ib, int n_in,
+    Bounds ob, int n_out, V4Runs runs, int m_tiles) {
+  using S = V4Smem<MI>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S::RING);
+  uint64_t* empty = full + S::STAGES;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = static_cast<int>(cluster.num_blocks());
+
+  // This block's unit of work (nothing past the last run: a pad block).
+  const int u = blockIdx.x;
+  int g = 0;
+  while (g + 1 < runs.n && u >= runs.unit0[g + 1]) ++g;
+  const int splits = runs.splits[g];
+  const int v = u - runs.unit0[g];
+  const bool live = v < runs.tiles[g] * m_tiles * splits;
+  const int chunk = v % splits, t = v / splits;
+  const int m0 = (t % m_tiles) * S::BM;
+  const int n0 = (runs.tile0[g] + t / m_tiles) * NM4_BN;
+  const int k_end =
+      live ? column_limit(min(n0 + NM4_BN, n_cols) - 1, ob, n_out, ib, n_in)
+           : 0;
+  const int lim_min = live ? column_limit(n0, ob, n_out, ib, n_in) : 0;
+  const int n_steps = (k_end + NM4_BK - 1) / NM4_BK;
+  const int s_lo = chunk * n_steps / splits;
+  const int my_steps = (chunk + 1) * n_steps / splits - s_lo;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < S::STAGES; ++st) {
+      mbar_init(&full[st], 1);   // the producer's arrive + the TMA bytes
+      mbar_init(&empty[st], 2);  // one arrive per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- producer warpgroup: one thread keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&map_x))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&map_w))
+                   : "memory");
+      for (int i = 0; i < my_steps; ++i) {
+        const int st = i % S::STAGES;
+        if (i >= S::STAGES) mbar_wait(&empty[st], (i / S::STAGES - 1) & 1);
+        unsigned char* a = ring + st * S::STAGE;
+        unsigned char* b = a + S::A_BYTES;
+        const int k0 = (s_lo + i) * NM4_BK;
+        mbar_expect_tx(&full[st], S::STAGE);
+        tma_load_2d(a, &map_x, &full[st], k0, m0);
+        tma_load_2d(b, &map_w, &full[st], n0, k0);
+        tma_load_2d(b + NM4_BK * 128, &map_w, &full[st], n0 + 64, k0);
+      }
+    }
+    __syncwarp();
+    if (csize > 1) {  // the consumers' two cluster barriers, matched
+      cluster_arrive();
+      cluster_wait();
+      cluster_arrive();
+      cluster_wait();
+    }
+  } else {
+    // ---- consumer warpgroups: rows 64 * MI * wg .. of the tile ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = threadIdx.x / 128, tw = threadIdx.x % 128;
+    const int lane = tw % 32, warp = tw / 32;
+    float acc[MI][64];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[mi][i] = 0.0f;
+
+    for (int i = 0; i < my_steps; ++i) {
+      const int st = i % S::STAGES;
+      unsigned char* a = ring + st * S::STAGE;
+      unsigned char* b = a + S::A_BYTES;
+      const int k0 = (s_lo + i) * NM4_BK;
+      mbar_wait(&full[st], (i / S::STAGES) & 1);
+      if (k0 + NM4_BK > lim_min) {  // a column's limit falls in this stage
+        v4_mask(b, k0, n0, n_cols, ob, n_out, ib, n_in);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        consumers_sync();
+      }
+      // Descriptors first: an instruction between the fence and the
+      // commit that writes a wgmma input serializes the wgmmas.
+      uint64_t da[4][MI], db[4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+          da[kk][mi] = sw128_desc(a + (wg * MI + mi) * 64 * 128 + kk * 32,
+                                  16, 1024);
+        db[kk] = sw128_desc(b + kk * 16 * 128, NM4_BK * 128, 1024);
+      }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) fence_regs(acc[mi]);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) wgmma_n128(acc[mi], da[kk][mi], db[kk]);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) fence_regs(acc[mi]);
+      // The previous stage's products are done: hand its slot back.
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      if (i > 0 && tw == 0) mbar_arrive(&empty[(i - 1) % S::STAGES]);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) fence_regs(acc[mi]);
+
+    const int rbase = wg * MI * 64 + warp * 16 + lane / 4;  // tile row
+    const int cbase = 2 * (lane % 4);                       // tile column
+    if (live && splits == 1) {  // the whole k range: write from registers
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int i = 0; i < 64; i += 2) {
+          const int row = m0 + rbase + mi * 64 + 8 * ((i / 2) % 2);
+          const int col = n0 + 8 * (i / 4) + cbase;
+          if (row >= m) continue;
+          __nv_bfloat16* o = out + static_cast<long long>(row) * n_cols + col;
+          if (col + 1 < n_cols && n_cols % 2 == 0) {
+            *reinterpret_cast<__nv_bfloat162*>(o) =
+                __floats2bfloat162_rn(acc[mi][i], acc[mi][i + 1]);
+          } else {
+            if (col < n_cols) o[0] = __float2bfloat16_rn(acc[mi][i]);
+            if (col + 1 < n_cols) o[1] = __float2bfloat16_rn(acc[mi][i + 1]);
+          }
+        }
+    }
+    if (csize > 1) {
+      // Every block of the cluster is past its main loop, so its ring is
+      // free to take the partials (and every block has started).
+      cluster_arrive();
+      cluster_wait();
+      const int band = S::BM / splits;  // rows each chunk's block sums
+      const int first = static_cast<int>(cluster.block_rank()) - chunk;
+      if (live && splits > 1) {
+        // Rows [r * band, (r + 1) * band) go to the tile's block r, into
+        // its slot `chunk`: [splits][band][NM4_RPITCH] floats.  Lanes l
+        // and l ^ 1 trade halves so that each sends 4 columns of one row
+        // (the even lane row r, the odd one row r + 8) in one 16-byte
+        // store.
+        const bool odd = lane & 1;
+        const int row_off = odd ? 8 : 0, col_off = odd ? -2 : 0;
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const float d0 = acc[mi][4 * j], d1 = acc[mi][4 * j + 1];
+            const float d2 = acc[mi][4 * j + 2], d3 = acc[mi][4 * j + 3];
+            const float a = __shfl_xor_sync(0xffffffffu, odd ? d0 : d2, 1);
+            const float b = __shfl_xor_sync(0xffffffffu, odd ? d1 : d3, 1);
+            const float4 v = odd ? make_float4(a, b, d2, d3)
+                                 : make_float4(d0, d1, a, b);
+            const int r = rbase + mi * 64 + row_off;
+            const int owner = r / band;
+            float* slots = cluster.map_shared_rank(
+                reinterpret_cast<float*>(ring), first + owner);
+            *reinterpret_cast<float4*>(
+                slots + (chunk * band + r - owner * band) * NM4_RPITCH +
+                8 * j + cbase + col_off) = v;
+          }
+      }
+      cluster_arrive();  // release: the partials are written
+      cluster_wait();    // acquire: every partial has arrived
+      if (live && splits > 1) {
+        // Sum this block's band over the slots in chunk order, write it.
+        const float* slots = reinterpret_cast<const float*>(ring);
+        for (int q = threadIdx.x; q < band * NM4_BN / 4; q += 256) {
+          const int r = q / (NM4_BN / 4), c = q % (NM4_BN / 4) * 4;
+          float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          for (int j = 0; j < splits; ++j) {
+            const float4 p = *reinterpret_cast<const float4*>(
+                slots + (j * band + r) * NM4_RPITCH + c);
+            s[0] += p.x;
+            s[1] += p.y;
+            s[2] += p.z;
+            s[3] += p.w;
+          }
+          const int row = m0 + chunk * band + r, col = n0 + c;
+          if (row >= m) continue;
+          __nv_bfloat16* o = out + static_cast<long long>(row) * n_cols + col;
+          if (col + 3 < n_cols && n_cols % 4 == 0) {
+            __nv_bfloat162 lo = __floats2bfloat162_rn(s[0], s[1]);
+            __nv_bfloat162 hi = __floats2bfloat162_rn(s[2], s[3]);
+            uint2 w2;
+            w2.x = *reinterpret_cast<uint32_t*>(&lo);
+            w2.y = *reinterpret_cast<uint32_t*>(&hi);
+            *reinterpret_cast<uint2*>(o) = w2;
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (col + e < n_cols) o[e] = __float2bfloat16_rn(s[e]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no link to the driver.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// Tensor maps, cached by everything that they encode: a weight's map is
+// made once, and an eager call on new activations costs one encode.
+struct MapKey {
+  const void* p;
+  uint64_t inner, outer, ld;
+  uint32_t box_outer;
+  bool operator==(const MapKey& o) const {
+    return p == o.p && inner == o.inner && outer == o.outer && ld == o.ld &&
+           box_outer == o.box_outer;
+  }
+};
+#define NM4_MAP_CACHE 512
+static MapKey g_map_keys[NM4_MAP_CACHE];
+static CUtensorMap g_maps[NM4_MAP_CACHE];
+static bool g_map_used[NM4_MAP_CACHE];
+static std::mutex g_map_mutex;
+
+// The bf16 matrix [outer][inner] at p with row stride ld (elements), read
+// in boxes of 64 inner x box_outer with the 128-byte swizzle; zeros past
+// the edges.
+static cudaError_t tensor_map(CUtensorMap* map, const void* p, uint64_t inner,
+                              uint64_t outer, uint64_t ld,
+                              uint32_t box_outer) {
+  static EncodeTiledFn encode = nullptr;
+  const MapKey key = {p, inner, outer, ld, box_outer};
+  const size_t h = (reinterpret_cast<uintptr_t>(p) >> 4 ^ inner * 40503u ^
+                    outer * 9973u ^ ld * 131u ^ box_outer) %
+                   NM4_MAP_CACHE;
+  std::lock_guard<std::mutex> lock(g_map_mutex);
+  if (g_map_used[h] && g_map_keys[h] == key) {
+    *map = g_maps[h];
+    return cudaSuccess;
+  }
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiledFn>(fn);
+  }
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {ld * 2};
+  const cuuint32_t box[2] = {64, box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  g_map_keys[h] = key;
+  g_maps[h] = *map;
+  g_map_used[h] = true;
+  return cudaSuccess;
+}
+
+// The v4 kernel of MI with its shared memory allowed, and a launch of
+// `blocks` blocks in clusters of `csize` (the attribute points at *attr).
+template <int MI>
+static cudaError_t v4_config(cudaLaunchConfig_t* cfg,
+                             cudaLaunchAttribute* attr, int blocks,
+                             int csize, int device,
+                             cudaStream_t stream) {
+  static int configured = -1;  // device whose shared-memory limit is set
+  if (configured != device) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        nested_matmul_v4_kernel<MI>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, V4Smem<MI>::BYTES);
+    if (err != cudaSuccess) return err;
+    configured = device;
+  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(blocks);
+  cfg->blockDim = dim3(NM4_THREADS);
+  cfg->dynamicSmemBytes = V4Smem<MI>::BYTES;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = csize;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int MI>
+static cudaError_t launch_v4(const void* x, const void* w, void* out, int m,
+                             long long ldx, long long ldw, int n_cols,
+                             int k_need, const Bounds& ib, int n_in,
+                             const Bounds& ob, int n_out, const V4Runs& runs,
+                             int m_tiles, int blocks, int csize, int device,
+                             cudaStream_t stream) {
+  CUtensorMap map_x, map_w;
+  cudaError_t err = tensor_map(&map_x, x, k_need, m, ldx, V4Smem<MI>::BM);
+  if (err == cudaSuccess) err = tensor_map(&map_w, w, n_cols, k_need, ldw,
+                                           NM4_BK);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (err == cudaSuccess) err = v4_config<MI>(&cfg, &attr, blocks, csize,
+                                              device, stream);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, nested_matmul_v4_kernel<MI>, map_x, map_w,
+                           static_cast<__nv_bfloat16*>(out), m, n_cols, ib,
+                           n_in, ob, n_out, runs, m_tiles);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -561,9 +1100,9 @@ int nested_matmul_launch(const void* x, const void* w, void* out, int m,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == NM_BFLOAT16 && aligned16(x, ldx) && aligned16(w, ldw))
     err = m <= 16 ? launch_v3<16>(x, w, out, m, ldx, ldw, n_cols, ib, n_in,
-                                  ob, n_out, splits, s)
+                                  ob, n_out, splits, device, s)
                   : launch_v3<32>(x, w, out, m, ldx, ldw, n_cols, ib, n_in,
-                                  ob, n_out, splits, s);
+                                  ob, n_out, splits, device, s);
   else if (dtype == NM_BFLOAT16)
     err = m <= 8 ? launch_v2<__nv_bfloat16, 8>(x, w, out, m, ldx, ldw, n_cols,
                                               ib, n_in, ob, n_out, s)
@@ -576,6 +1115,59 @@ int nested_matmul_launch(const void* x, const void* w, void* out, int m,
                                         n_in, ob, n_out, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(err);
+}
+
+
+// out[m, n_cols] = nested x @ w by the v4 kernel: bf16 x [m, >= k_need]
+// and w [>= k_need, >= n_cols], 16-byte aligned rows.  The plan
+// (nested_wide_plan in the Python module): bm = 128 or 256 rows a tile,
+// m_tiles row tiles, `cluster` blocks a cluster (1, 2, 4 or 8), `blocks`
+// blocks in all, and n_runs runs of column tiles in launch order, each
+// (first tile, tiles, splits, first block).  Returns the launch's error
+// code.
+int nested_matmul_v4_launch(const void* x, const void* w, void* out, int m,
+                            long long ldx, long long ldw, int n_cols,
+                            int k_need, const int* in_bounds, int n_in,
+                            const int* out_bounds, int n_out, int bm,
+                            int m_tiles, int cluster, int blocks,
+                            const int* runs, int n_runs, int device,
+                            void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (n_in < 1 || n_in > NM_MAX_LEVELS || n_out < 1 ||
+      n_out > NM_MAX_LEVELS || n_cols != out_bounds[n_out] || m < 1 ||
+      n_cols < 1 || k_need < 1 || (bm != 128 && bm != 256) ||
+      m_tiles != (m + bm - 1) / bm || cluster < 1 ||
+      cluster > NM4_MAX_CLUSTER || (cluster & (cluster - 1)) != 0 ||
+      blocks < 1 || blocks % cluster != 0 || n_runs < 1 ||
+      n_runs > NM_MAX_LEVELS || !aligned16(x, ldx) || !aligned16(w, ldw))
+    return invalid;
+  Bounds ib = {}, ob = {};
+  for (int i = 0; i <= n_in; ++i) ib.b[i] = in_bounds[i];
+  for (int i = 0; i <= n_out; ++i) ob.b[i] = out_bounds[i];
+  V4Runs r = {};
+  r.n = n_runs;
+  for (int g = 0; g < n_runs; ++g) {
+    r.tile0[g] = runs[4 * g];
+    r.tiles[g] = runs[4 * g + 1];
+    r.splits[g] = runs[4 * g + 2];
+    r.unit0[g] = runs[4 * g + 3];
+    const int s = r.splits[g];
+    if (s < 1 || s > cluster || (s & (s - 1)) != 0 || r.unit0[g] % s != 0 ||
+        (g > 0 && r.unit0[g] != r.unit0[g - 1] +
+                                    r.tiles[g - 1] * m_tiles *
+                                        r.splits[g - 1]))
+      return invalid;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = bm == 256 ? launch_v4<2>(x, w, out, m, ldx, ldw, n_cols, k_need, ib,
+                                 n_in, ob, n_out, r, m_tiles, blocks, cluster,
+                                 device, s)
+                  : launch_v4<1>(x, w, out, m, ldx, ldw, n_cols, k_need, ib,
+                                 n_in, ob, n_out, r, m_tiles, blocks, cluster,
+                                 device, s);
   return static_cast<int>(err);
 }
 

@@ -54,8 +54,11 @@ from repro_torch.obs import no_span, resolve_obs, span_recorder
 
 # The kernel wrappers a step may call.  Each counts its launches in
 # Python, which a graph replay does not run, so a replayed step adds what
-# its capture counted.
+# its capture counted: each wrapper's ``launches``, and
+# ``nested_matmul.v4_launches`` (those of its launches that took v4).
 COUNTED = (nested_matmul, flash_attention, decode_attention, rwkv_scan)
+_COUNTERS = tuple((w, "launches") for w in COUNTED) + (
+    (nested_matmul, "v4_launches"),)
 
 
 @dataclasses.dataclass
@@ -72,14 +75,16 @@ class Step:
     """One step function; on the card, a CUDA graph of it.
 
     ``launches`` holds, per wrapper in :data:`COUNTED`, the launches one
-    call makes on the card (what the capture counted); a replay adds them
-    to the wrappers' counters.
+    call makes on the card (what the capture counted), ``v4_launches``
+    those of ``nested_matmul``'s that took v4; a replay adds them to the
+    wrappers' counters.
     """
 
     def __init__(self, fn, device: torch.device, graph: bool):
         self.fn = fn
         self.graph = None
         self.launches = (0,) * len(COUNTED)
+        self.v4_launches = 0
         if graph:
             self._capture(device)
 
@@ -90,14 +95,16 @@ class Step:
             with torch.cuda.stream(side):
                 self.fn()
             torch.cuda.current_stream(device).wait_stream(side)
-            before = [w.launches for w in COUNTED]
+            before = [getattr(w, a) for w, a in _COUNTERS]
             graph = torch.cuda.CUDAGraph(keep_graph=True)
             with torch.cuda.graph(graph):
                 self.fn()
-            self.launches = tuple(w.launches - n
-                                  for w, n in zip(COUNTED, before))
-            for w, n in zip(COUNTED, before):
-                w.launches = n       # the capture launched nothing
+            counts = [getattr(w, a) - n
+                      for (w, a), n in zip(_COUNTERS, before)]
+            for (w, a), n in zip(_COUNTERS, before):
+                setattr(w, a, n)     # the capture launched nothing
+            self.launches = tuple(counts[:len(COUNTED)])
+            self.v4_launches = counts[-1]
             graph.instantiate()
         self.graph = graph
 
@@ -108,6 +115,7 @@ class Step:
         self.graph.replay()
         for w, n in zip(COUNTED, self.launches):
             w.launches += n
+        nested_matmul.v4_launches += self.v4_launches
 
 
 @dataclasses.dataclass

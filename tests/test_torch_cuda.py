@@ -1010,6 +1010,88 @@ def test_nested_matmul_v3_deterministic_at_served_shapes(cuda_device,
 
 
 # --------------------------------------------------------------------- #
+# nested_matmul v4: the scoring prefill's path                           #
+# --------------------------------------------------------------------- #
+# (k_in, n) of Mistral-7B-v0.3's projections in 4 power-of-2 levels (the
+# benchmark's geometries), and stripes that are no multiple of 64 or 128.
+V4_GEOMETRIES = ["d->q", "d->kv", "d->d_ff", "d_ff->d", "odd"]
+
+
+def _v4_specs(geometry):
+    from repro_torch.core.nesting import StripeSpec
+
+    if geometry == "odd":
+        return _odd_specs()
+    k_in, n = {"d->q": (4096, 4096), "d->kv": (4096, 1024),
+               "d->d_ff": (4096, 14336), "d_ff->d": (14336, 4096)}[geometry]
+    return StripeSpec.pow2(k_in, 4), StripeSpec.pow2(n, 4)
+
+
+@pytest.mark.parametrize("m", [128, 512, 520])
+@pytest.mark.parametrize("geometry", V4_GEOMETRIES)
+def test_nested_matmul_v4_matches_plain(cuda_device, geometry, m):
+    """Every level with a level-prefix view of a full-width x (read
+    through its row stride) and the full w: v4 within NM_TOL of the plain
+    version; one launch a call, counted by ``launches`` and
+    ``v4_launches``; two calls and a CUDA-graph replay bitwise equal; the
+    graph holds one v4 kernel with the plan's grid and cluster."""
+    from chip_smoke import captured_kernels, nested_close
+
+    from repro_torch.kernels import nested_matmul as nm
+
+    si, so = _v4_specs(geometry)
+    gen = torch.Generator(device=cuda_device).manual_seed(m)
+    w = (torch.randn(si.total, so.total, generator=gen, device=cuda_device)
+         * si.total ** -0.5).to(torch.bfloat16)
+    x = torch.randn(m, si.total, generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    for level in range(1, so.levels + 1):
+        xk = x[:, :si.width(min(level, si.levels))]
+        before = (nm.nested_matmul.launches, nm.nested_matmul.v4_launches)
+        got = nm.nested_matmul(xk, w, si, so, level)
+        assert (nm.nested_matmul.launches, nm.nested_matmul.v4_launches) \
+            == (before[0] + 1, before[1] + 1)
+        again = nm.nested_matmul(xk, w, si, so, level)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = nm.nested_matmul(xk, w, si, so, level)
+        graph.replay()
+        torch.cuda.synchronize()
+        _, ratio = nested_close(got, nm.nested_matmul_plain(
+            xk, w, si, so, level), "bfloat16")
+        assert ratio <= 1.0, (level, ratio)
+        assert torch.equal(got, again) and torch.equal(got, replayed), level
+        plan = nm.nested_wide_plan(
+            m, nm.wide_tile_limits(tuple(si.boundaries),
+                                   tuple(so.boundaries), level),
+            nm.sm_count(cuda_device))
+        launched = captured_kernels(
+            lambda: nm.nested_matmul(xk, w, si, so, level), cluster=True)
+        assert len(launched) == 1 and "nested_matmul_v4" in \
+            launched[0][0], launched
+        assert launched[0][1:] == ((plan.blocks, 1, 1),
+                                   (plan.cluster, 1, 1)), (launched, plan)
+
+
+def test_nested_matmul_v4_not_at_served_m(cuda_device):
+    """M = 4 and 32 at Mistral-7B's d->d_ff launch v3, and the v4 counter
+    stays where it was."""
+    from repro_torch.kernels import nested_matmul as nm
+
+    si, so = _v4_specs("d->d_ff")
+    w = torch.zeros(si.total, so.total, device=cuda_device,
+                    dtype=torch.bfloat16)
+    before = (nm.nested_matmul.launches, nm.nested_matmul.v4_launches)
+    for m in (4, 32):
+        x = torch.ones(m, si.total, device=cuda_device, dtype=torch.bfloat16)
+        for level in range(1, 5):
+            nm.nested_matmul(x[:, :si.width(level)], w, si, so, level)
+    torch.cuda.synchronize()
+    assert (nm.nested_matmul.launches, nm.nested_matmul.v4_launches) == \
+        (before[0] + 8, before[1])
+
+
+# --------------------------------------------------------------------- #
 # the serving engine's CUDA graphs                                        #
 # --------------------------------------------------------------------- #
 ENGINE_CASES = ["blocks-ref", "kernel-ref", "blocks-kernel", "kernel-kernel",

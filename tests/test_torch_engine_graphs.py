@@ -239,3 +239,23 @@ def test_replayed_step_adds_its_captured_launches(monkeypatch):
     assert nm.nested_matmul.launches == 10 + 56
     assert da.decode_attention.launches == 10 + 8
     assert [w.launches for w in engine_mod.COUNTED] == [66, 10, 18, 10]
+
+
+def test_replayed_step_adds_its_captured_v4_launches(monkeypatch):
+    """A replayed step also adds the v4 launches of ``nested_matmul`` its
+    capture counted, so the share of calls that took v4 holds for
+    graphed steps too."""
+    class FakeGraph:
+        def replay(self):
+            pass
+
+    step = engine_mod.Step(lambda: None, torch.device("cpu"), graph=False)
+    assert step.v4_launches == 0
+    step.graph, step.launches, step.v4_launches = FakeGraph(), (28, 0, 0,
+                                                                0), 28
+    monkeypatch.setattr(nm.nested_matmul, "launches", 0)
+    monkeypatch.setattr(nm.nested_matmul, "v4_launches", 5)
+    step()
+    step()
+    assert (nm.nested_matmul.launches, nm.nested_matmul.v4_launches) == \
+        (56, 5 + 56)

@@ -155,11 +155,13 @@ def test_cpu_wrapper_runs_plain_and_counts_nothing():
     x = torch.from_numpy(rng.standard_normal((4, 64)).astype(np.float32))
     w = torch.from_numpy(rng.standard_normal((64, 64)).astype(np.float32))
     before = nm.nested_matmul.launches
+    before_v4 = nm.nested_matmul.v4_launches
     for level in (1, 2, 3, None):
         got = nm.nested_matmul(x, w, spec, spec, level)
         assert torch.equal(got, nm.nested_matmul_plain(x, w, spec, spec,
                                                        level))
     assert nm.nested_matmul.launches == before
+    assert nm.nested_matmul.v4_launches == before_v4
     with pytest.raises(ValueError, match="CUDA or CPU"):
         nm.nested_matmul(x.to("meta"), w.to("meta"), spec, spec)
 
@@ -189,3 +191,163 @@ def test_split_plan_from_shapes(m):
                 assert splits <= -(-2 * steps // 3)
             if level == 4 and name != "d->d" and m <= 32:
                 assert splits * m_tiles * n_tiles >= 1.45 * 132, name
+
+
+# --------------------------------------------------------------------- #
+# v4: the path from the shapes, and its launch plan                      #
+# --------------------------------------------------------------------- #
+# (k_in, n) of Mistral-7B-v0.3's projections, nested in 4 power-of-2
+# levels: the benchmark's scoring prefill runs them at M = 512.
+MISTRAL = {"d->q": (4096, 4096), "d->kv": (4096, 1024),
+           "d->d_ff": (4096, 14336), "d_ff->d": (14336, 4096)}
+# Stripes that are no multiple of 64 or of the 128-column tile, over
+# input prefixes that are none of the 64-row step.
+# An H100 SXM's SMs.
+H100_SLOTS = 132
+ODD = (TSpec((0, 40, 100, 200, 328)), TSpec((0, 24, 72, 176, 264)))
+
+
+def _specs(geometry):
+    if geometry == "odd":
+        return ODD
+    k_in, n = MISTRAL[geometry]
+    return TSpec.pow2(k_in, 4), TSpec.pow2(n, 4)
+
+
+def _operands(m, si, so, level, dtype=torch.bfloat16):
+    """A call's operands on the meta device (shapes, strides and offsets
+    without storage): a level-prefix view of a full-width x, the full w."""
+    x = torch.empty(m, si.total, dtype=dtype, device="meta")
+    w = torch.empty(si.total, so.total, dtype=dtype, device="meta")
+    return x[:, :si.width(min(level, si.levels))], w
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 16, 32])
+def test_served_shapes_stay_on_v3(m):
+    """The anytime LM's decode (M = 4) and served prefill (B=4 x S=8)
+    shapes, at its three geometries and every level, take v3."""
+    d, f = TSpec.pow2(768, 4), TSpec.pow2(3072, 4)
+    for si, so in ((d, d), (d, f), (f, d)):
+        for level in range(1, 5):
+            assert nm.nested_path(*_operands(m, si, so, level)) == "v3"
+
+
+@pytest.mark.parametrize("level", [1, 2, 3, 4])
+@pytest.mark.parametrize("geometry", list(MISTRAL))
+def test_scoring_shapes_take_v4(geometry, level):
+    """Mistral-7B's projections at M = 512 take v4 at every level, and
+    from ``WIDE_MIN_M`` rows on; float32, or a row that starts off a
+    16-byte boundary, takes v2."""
+    si, so = _specs(geometry)
+    assert nm.nested_path(*_operands(512, si, so, level)) == "v4"
+    assert nm.nested_path(*_operands(nm.WIDE_MIN_M, si, so, level)) == "v4"
+    assert nm.nested_path(*_operands(nm.WIDE_MIN_M - 1, si, so,
+                                     level)) == "v3"
+    assert nm.nested_path(*_operands(512, si, so, level,
+                                     torch.float32)) == "v2"
+    x, w = _operands(512, si, so, level)
+    assert nm.nested_path(x[:, 4:], w) == "v2"
+    assert nm.nested_path(x, w[:, 4:]) == "v2"
+
+
+def _column_limit(si, so, c):
+    """The input prefix read by output column ``c`` (its stripe's)."""
+    stripe = next(i for i in range(1, so.levels + 1) if c < so.width(i))
+    return si.width(min(stripe, si.levels))
+
+
+def _units(plan, tile_limits):
+    """The blocks of a v4 launch in launch order, as the kernel reads the
+    plan's runs: ``(row tile, column tile, chunk, splits, k_lo, k_hi)``
+    with ``[k_lo, k_hi)`` the chunk's rows of the weight; None for a pad
+    block."""
+    units = []
+    for t0, tiles, splits, _ in plan.runs:
+        for t in range(tiles * plan.m_tiles):
+            col = t0 + t // plan.m_tiles
+            steps = -(-tile_limits[col] // nm.WIDE_STEP_K)
+            for c in range(splits):
+                lo, hi = c * steps // splits, (c + 1) * steps // splits
+                units.append((t % plan.m_tiles, col, c, splits,
+                              lo * nm.WIDE_STEP_K,
+                              min(hi * nm.WIDE_STEP_K, tile_limits[col])))
+    return units + [None] * (plan.blocks - len(units))
+
+
+@pytest.mark.parametrize("m", [128, 512, 520])
+@pytest.mark.parametrize("geometry", list(MISTRAL) + ["odd"])
+def test_wide_plan_covers_each_column_once(geometry, m):
+    """At every level the plan's blocks cover each (row tile, column tile)
+    once, its chunks' k ranges tiling [0, the tile's limit) in order, the
+    limit that of the tile's last column and no column reading further;
+    row tiles cover M; a split tile's chunks share one cluster."""
+    si, so = _specs(geometry)
+    for level in range(1, so.levels + 1):
+        n_cols = so.width(level)
+        lims = nm.wide_tile_limits(tuple(si.boundaries),
+                                   tuple(so.boundaries), level)
+        n_tiles = -(-n_cols // nm.WIDE_TILE_N)
+        assert len(lims) == n_tiles
+        for t, lim in enumerate(lims):
+            cols = range(t * nm.WIDE_TILE_N,
+                         min((t + 1) * nm.WIDE_TILE_N, n_cols))
+            assert lim == _column_limit(si, so, cols[-1])
+            assert all(_column_limit(si, so, c) <= lim for c in cols)
+        plan = nm.nested_wide_plan(m, lims, H100_SLOTS)
+        assert plan.bm in (128, 256)
+        assert (plan.m_tiles - 1) * plan.bm < m <= plan.m_tiles * plan.bm
+        assert plan.cluster in nm.WIDE_CLUSTERS
+        assert plan.cluster == max(s for _, _, s, _ in plan.runs)
+        assert plan.blocks % plan.cluster == 0
+        units = _units(plan, lims)
+        assert len(units) == plan.blocks
+        live = [u for u in units if u is not None]
+        assert all(u is None for u in units[len(live):])
+        seen = {}
+        for i, (row, col, chunk, splits, lo, hi) in enumerate(live):
+            assert splits in nm.WIDE_CLUSTERS and splits <= plan.cluster
+            assert (i - chunk) // plan.cluster == i // plan.cluster
+            seen.setdefault((row, col), []).append((chunk, lo, hi))
+        assert set(seen) == {(r, c) for r in range(plan.m_tiles)
+                             for c in range(n_tiles)}
+        for (row, col), chunks in seen.items():
+            assert [c for c, _, _ in chunks] == list(range(len(chunks)))
+            bounds = [b for _, lo, hi in chunks for b in (lo, hi)]
+            assert bounds[0] == 0 and bounds[-1] == lims[col]
+            assert all(lo < hi for _, lo, hi in chunks)
+            assert bounds[1:-1:2] == bounds[2::2]
+
+
+@pytest.mark.parametrize("m", [128, 512])
+@pytest.mark.parametrize("geometry", list(MISTRAL) + ["odd"])
+def test_wide_plan_runs_longest_k_first(geometry, m):
+    """The launch order walks the column tiles longest k first, and the
+    split of a run never grows along it (so a tile's chunks never
+    straddle a cluster)."""
+    si, so = _specs(geometry)
+    for level in range(1, so.levels + 1):
+        lims = nm.wide_tile_limits(tuple(si.boundaries),
+                                   tuple(so.boundaries), level)
+        plan = nm.nested_wide_plan(m, lims, H100_SLOTS)
+        live = [u for u in _units(plan, lims) if u is not None]
+        order = [lims[col] for _, col, _, _, _, _ in live]
+        assert order == sorted(order, reverse=True)
+        splits = [s for _, _, s, _ in plan.runs]
+        assert splits == sorted(splits, reverse=True)
+        assert [u0 for _, _, _, u0 in plan.runs] == [
+            sum(t * plan.m_tiles * s for _, t, s, _ in plan.runs[:g])
+            for g in range(len(plan.runs))]
+
+
+def test_wide_plan_splits_the_wide_stripe():
+    """At d_ff->d level 4 (k 1792 .. 14336, 64 tiles of 256 x 128 on 132
+    SMs) the plan splits the last stripe's tiles in k, and models that as
+    faster than the best launch without a split."""
+    si, so = _specs("d_ff->d")
+    lims = nm.wide_tile_limits(tuple(si.boundaries), tuple(so.boundaries),
+                               4)
+    plan = nm.nested_wide_plan(512, lims, H100_SLOTS)
+    assert plan.runs[0][2] > 1
+    unsplit = [p for p in nm.wide_candidates(512, lims, H100_SLOTS)
+               if p.cluster == 1]
+    assert unsplit and plan.makespan < min(p.makespan for p in unsplit)
